@@ -1,13 +1,14 @@
 """Carry a hierarchy built by the JAX package across to the port.
 
-``from_jax(obj)`` walks a ``faspsolver_tpu`` structured hierarchy (or any
-of its parts: operators, transfers, smoothers, coarse solvers, an
-``AMGPrecond``) by class name and attribute access, reads every array
+``from_jax(obj)`` walks a ``faspsolver_tpu`` structured or classical
+RS-AMG hierarchy (or any of its parts: operators, transfers, smoothers,
+coarse solvers, an ``AMGPrecond``) by class name and attribute access, reads every array
 leaf with ``np.asarray``, and rebuilds the port's modules on the CPU with
 the same dtypes.  What is shared in the JAX tree stays shared: arrays
 (a dinv used by smoother and transfers) by identity, operators (a level's
 A inside its smoothed transfers, which the JAX freeze rebuilds as
-separate objects over the same arrays) by the identity of their arrays.
+separate objects over the same arrays) by the identity of their arrays,
+and a COO transfer pair keeps one set of arrays.
 It never imports jax: the leaves convert through NumPy's array protocol.  The tests use it to run the port's cycle, PCG and refinement
 on exactly the hierarchy the JAX package built.
 """
@@ -16,13 +17,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.operators import (DenseOperator, DiaNdOperator, DiaOperator,
-                            FactoredBand, StencilNdOperator)
+from .ops.operators import (ConstDiaOperator, CooOperator, DenseOperator,
+                            DiaNdOperator, DiaOperator, EllOperator,
+                            FactoredBand, HybridDiaOperator,
+                            StencilNdOperator, SumOperator)
 from .precond.amg.hierarchy import (AMGHierarchy, AMGLevel, CoarseSolver,
                                     IterativeCoarseSolver)
 from .precond.amg.smoothers import SmootherData
 from .precond.amg.structured import (PairProlong, PairRestrict,
                                      SmoothedProlong, SmoothedRestrict)
+from .precond.amg.transfer import (BandedProlong, BandedRestrict, CooProlong,
+                                   CooRestrict)
 from .precond.preconditioners import AMGPrecond
 
 
@@ -92,6 +97,23 @@ class _Converter:
                  else self.arr(b) for b in o.bands]
         return StencilNdOperator(bands, o.coords, o.dims)
 
+    def _EllOperator(self, o):
+        return EllOperator(self.arr(o.cols), self.arr(o.vals), o.n, o.ncol)
+
+    def _CooOperator(self, o):
+        return CooOperator(self.arr(o.rows), self.arr(o.cols),
+                           self.arr(o.vals), o.n, o.ncol)
+
+    def _ConstDiaOperator(self, o):
+        return ConstDiaOperator(self.arr(o.consts), self.arr(o.masks),
+                                o.offsets, o.n)
+
+    def _SumOperator(self, o):
+        return SumOperator([self.conv(p) for p in o.parts])
+
+    def _HybridDiaOperator(self, o):
+        return HybridDiaOperator(self.conv(o.dia), self.conv(o.rem))
+
     # -- transfers ---------------------------------------------------------
 
     def _PairRestrict(self, o):
@@ -107,6 +129,28 @@ class _Converter:
     def _SmoothedRestrict(self, o):
         return SmoothedRestrict(self.conv(o.A), self.arr(o.dinv),
                                 self.conv(o.base), o.omega)
+
+    def _coo(self, cls, o):
+        return cls(self.arr(o.rows), self.arr(o.cols), self.arr(o.vals),
+                   o.n_fine, o.n_coarse)
+
+    def _CooProlong(self, o):
+        return self._coo(CooProlong, o)
+
+    def _CooRestrict(self, o):
+        return self._coo(CooRestrict, o)
+
+    def _banded(self, cls, o):
+        return cls(self.arr(o.fpos), self.arr(o.w), self.arr(o.rem_rows),
+                   self.arr(o.rem_cols), self.arr(o.rem_vals), o.shifts,
+                   o.n_fine, o.n_coarse, o.has_rem, wc=self.arr(o.wc),
+                   wm=self.arr(o.wm), const_mode=o.const_mode)
+
+    def _BandedProlong(self, o):
+        return self._banded(BandedProlong, o)
+
+    def _BandedRestrict(self, o):
+        return self._banded(BandedRestrict, o)
 
     # -- smoothers, coarse solvers, hierarchy -------------------------------
 
@@ -128,11 +172,10 @@ class _Converter:
                                      o.iters)
 
     def _AMGLevel(self, o):
-        if o.nk is not None or o.Asm is not None:
-            raise NotImplementedError("near-kernel / filtered-smoothing "
-                                      "levels are not ported")
+        if o.nk is not None:
+            raise NotImplementedError("near-kernel levels are not ported")
         return AMGLevel(self.conv(o.A), self.conv(o.P), self.conv(o.R),
-                        self.conv(o.smoother))
+                        self.conv(o.smoother), self.conv(o.Asm))
 
     def _AMGHierarchy(self, o):
         return AMGHierarchy(

@@ -4,10 +4,12 @@ There is one source of truth: the library is compiled from the JAX
 package's ``faspsolver_tpu/native/fasp_native.cpp`` and ``band_ops.cpp``
 (read as sources, never modified or written next to) into the port's
 build directory, with the same g++ flags the JAX loader uses, so both
-packages run the same setup arithmetic.  Only the entries on the
-structured-setup path are bound: ``dia_from_csr`` and ``smoothed_rap``.
-Like the JAX loader, each entry returns None when the library cannot be
-built; the callers then take their NumPy path.
+packages run the same setup arithmetic.  Bound: the structured-setup
+entries (``dia_from_csr``, ``smoothed_rap``) and the classical RS-AMG
+ones (``dia_hist``, ``dia_split``, ``rap``, ``strength_graph``,
+``agg_strength``, ``rs_cf_split2``, ``rs_ff_pass``, ``interp_std``,
+``fgs_sweeps``).  Like the JAX loader, each entry returns None when the
+library cannot be built; the callers then take their NumPy path.
 """
 from __future__ import annotations
 
@@ -66,6 +68,38 @@ def _load() -> Optional[ctypes.CDLL]:
             sr.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, _i32p, fp, fp, ct,
                            ctypes.c_int, ctypes.c_int, _i32p, fp]
+            split = getattr(lib, f"fasp_dia_split_{suf}")
+            split.restype = ctypes.c_int64
+            split.argtypes = [ctypes.c_int64, _i64p, _i64p, _f64p,
+                              ctypes.c_int64, _i64p, fp, _i32p, _i32p, fp,
+                              ctypes.c_int64]
+        lib.fasp_dia_hist.restype = None
+        lib.fasp_dia_hist.argtypes = [ctypes.c_int64, _i64p, _i64p, _i64p]
+        lib.fasp_rap.restype = ctypes.c_int64
+        lib.fasp_rap.argtypes = [ctypes.c_int64,
+                                 _i64p, _i64p, _f64p,
+                                 _i64p, _i64p, _f64p,
+                                 _i64p, _i64p, _f64p,
+                                 ctypes.c_int64, _i64p, _i64p, _f64p]
+        lib.fasp_strength_graph.restype = ctypes.c_int64
+        lib.fasp_strength_graph.argtypes = [ctypes.c_int, _i32p, _i32p,
+                                            _f64p, ctypes.c_double,
+                                            ctypes.c_double, _i32p, _i32p]
+        lib.fasp_agg_strength.restype = ctypes.c_int64
+        lib.fasp_agg_strength.argtypes = [ctypes.c_int, _i32p, _i32p,
+                                          _i32p, ctypes.c_int, _i32p,
+                                          _i32p, ctypes.c_int64]
+        lib.fasp_rs_cf_split2.restype = ctypes.c_int
+        lib.fasp_rs_cf_split2.argtypes = [ctypes.c_int, _i32p, _i32p, _i32p]
+        lib.fasp_rs_ff_pass.restype = ctypes.c_int
+        lib.fasp_rs_ff_pass.argtypes = [ctypes.c_int, _i32p, _i32p, _i32p]
+        lib.fasp_interp_std.restype = ctypes.c_int
+        lib.fasp_interp_std.argtypes = [ctypes.c_int, _i32p, _i32p, _f64p,
+                                        _i32p, _i32p, _i32p, ctypes.c_int,
+                                        _i32p, _i32p, _f64p, ctypes.c_int64]
+        lib.fasp_fgs_sweeps.restype = ctypes.c_int
+        lib.fasp_fgs_sweeps.argtypes = [ctypes.c_int, _i32p, _i32p, _f64p,
+                                        _i32p, _f64p, ctypes.c_int]
         _lib = lib
         return _lib
 
@@ -167,3 +201,193 @@ def smoothed_rap(dims, coords, bands, dinv, omega: float, s: int):
         return (cc[:kc, 1:], C[:kc].reshape(kc, cdims3[1], cdims3[2]),
                 tuple(cdims3[1:]))
     return cc[:kc], C[:kc], tuple(cdims3)
+
+
+def _csr_arrays(A) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    indptr = np.ascontiguousarray(A.indptr, dtype=np.int32)
+    indices = np.ascontiguousarray(A.indices, dtype=np.int32)
+    data = np.ascontiguousarray(A.data, dtype=np.float64)
+    return indptr, indices, data, A.shape[0]
+
+
+def dia_hist(A) -> Optional[np.ndarray]:
+    """Histogram of diagonal offsets: (2n+1,) int64 counts with
+    hist[off + n] = #entries on diagonal ``off``; None without the
+    library."""
+    lib = _load()
+    if lib is None or A.data.dtype != np.float64 or A.nrow != A.ncol \
+            or A.nrow == 0:
+        return None
+    indptr = np.ascontiguousarray(A.indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(A.indices, dtype=np.int64)
+    hist = np.zeros(2 * A.nrow + 1, dtype=np.int64)
+    lib.fasp_dia_hist(A.nrow, indptr, indices, hist)
+    return hist
+
+
+def dia_split(A, keep_offs: np.ndarray, dtype, nrem: int,
+              rem_pad: int) -> Optional[tuple]:
+    """Split CSR into row-aligned bands over ``keep_offs`` (ascending)
+    plus a COO remainder (CSR order, padded to ``rem_pad`` with
+    row=n / col=0 / val=0).  Returns (bands, rem_rows, rem_cols,
+    rem_vals) or None without the library."""
+    lib = _load()
+    dtype = np.dtype(dtype)
+    if lib is None or A.data.dtype != np.float64 \
+            or dtype not in (np.float32, np.float64):
+        return None
+    n = A.nrow
+    indptr = np.ascontiguousarray(A.indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(A.indices, dtype=np.int64)
+    data = np.ascontiguousarray(A.data, dtype=np.float64)
+    keep_offs = np.ascontiguousarray(keep_offs, dtype=np.int64)
+    k = len(keep_offs)
+    bands = np.zeros((k, n), dtype=dtype)
+    pad = max(int(rem_pad), 1)
+    rem_rows = np.full(pad, n, dtype=np.int32)
+    rem_cols = np.zeros(pad, dtype=np.int32)
+    rem_vals = np.zeros(pad, dtype=dtype)
+    fn = lib.fasp_dia_split_f32 if dtype == np.float32 \
+        else lib.fasp_dia_split_f64
+    got = int(fn(n, indptr, indices, data, k, keep_offs, bands,
+                 rem_rows, rem_cols, rem_vals, pad))
+    if got != nrem:
+        return None
+    return bands, rem_rows, rem_cols, rem_vals
+
+
+def rap(R, A, P):
+    """Fused Galerkin product C = R A P for general CSR matrices (the
+    reference's fasp_blas_dcsr_rap, BlaSpmvCSR.c:999).  Returns a
+    CSRMatrix with sorted row indices, or None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    from ..formats import CSRMatrix
+
+    def _arrs(M):
+        return (np.ascontiguousarray(M.indptr, dtype=np.int64),
+                np.ascontiguousarray(M.indices, dtype=np.int64),
+                np.ascontiguousarray(M.data, dtype=np.float64))
+
+    Rp, Rj, Rx = _arrs(R)
+    Ap_, Aj, Ax = _arrs(A)
+    Pp, Pj, Px = _arrs(P)
+    nc = R.shape[0]
+    Cp = np.empty(nc + 1, dtype=np.int64)
+    cap = max(int(1.3 * A.nnz) + 8 * nc, 1 << 12)
+    for _ in range(3):
+        Cj = np.empty(cap, dtype=np.int64)
+        Cx = np.empty(cap, dtype=np.float64)
+        nnz = int(lib.fasp_rap(nc, Rp, Rj, Rx, Ap_, Aj, Ax, Pp, Pj, Px,
+                               cap, Cp, Cj, Cx))
+        if nnz >= 0:
+            return CSRMatrix(Cp, Cj[:nnz].copy(), Cx[:nnz].copy(),
+                             (nc, P.shape[1]))
+        cap *= 4
+    return None
+
+
+def strength_graph(A, theta: float, max_row_sum: float):
+    """Strength CSR (indptr, indices); the data is implicitly all ones."""
+    lib = _load()
+    if lib is None:
+        return None
+    indptr, indices, data, n = _csr_arrays(A.to_scipy())
+    s_indptr = np.zeros(n + 1, dtype=np.int32)
+    s_indices = np.empty(max(len(indices), 1), dtype=np.int32)
+    snnz = lib.fasp_strength_graph(n, indptr, indices, data,
+                                   float(theta), float(max_row_sum),
+                                   s_indptr, s_indices)
+    return s_indptr, s_indices[:snnz]
+
+
+def agg_strength(s_indptr, s_indices, n: int, cf: np.ndarray,
+                 path: int, num_c: int
+                 ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Strength graph between temporary C points for aggressive
+    coarsening (reference: strong_couplings_agg1/agg2,
+    PreAMGCoarsenRS.c): a direct S edge or >= ``path`` distinct 2-hop
+    paths through F points.  (sh_indptr, sh_indices) over coarse
+    indices, or None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    sp_ = np.ascontiguousarray(s_indptr, dtype=np.int32)
+    si_ = np.ascontiguousarray(s_indices, dtype=np.int32)
+    cf_ = np.ascontiguousarray(cf, dtype=np.int32)
+    shp = np.zeros(num_c + 1, dtype=np.int32)
+    cap = max(int(si_.size) * 4 + 16 * num_c, 1 << 12)
+    for _ in range(3):
+        shi = np.empty(cap, dtype=np.int32)
+        nnz = int(lib.fasp_agg_strength(n, sp_, si_, cf_, path, shp,
+                                        shi, cap))
+        if nnz >= 0:
+            return shp, shi[:nnz].copy()
+        cap *= 4
+    return None
+
+
+def rs_cf_split2(s_indptr, s_indices, n: int) -> Optional[np.ndarray]:
+    """Bucket-list classical RS first pass (S^T built internally)."""
+    lib = _load()
+    if lib is None:
+        return None
+    cf = np.empty(n, dtype=np.int32)
+    lib.fasp_rs_cf_split2(
+        n, np.ascontiguousarray(s_indptr, dtype=np.int32),
+        np.ascontiguousarray(s_indices, dtype=np.int32), cf)
+    return cf
+
+
+def rs_ff_pass(S, cf: np.ndarray) -> Optional[np.ndarray]:
+    """RS pass 2: promote F points whose strong F-F pair shares no C.
+    cf: int array (1=C, 0=F, 2=isolated); returns the updated copy."""
+    lib = _load()
+    if lib is None:
+        return None
+    s_indptr, s_indices, _, n = _csr_arrays(S)
+    out = np.ascontiguousarray(cf, dtype=np.int32).copy()
+    lib.fasp_rs_ff_pass(n, s_indptr, s_indices, out)
+    return out
+
+
+def interp_std(A, cf: np.ndarray, S, mode: int
+               ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Interpolation triplets (rows, coarse cols, vals).
+    mode: 0 = standard, 1 = ext+i, 2 = direct."""
+    lib = _load()
+    if lib is None:
+        return None
+    m = A.to_scipy().tocsr()
+    indptr, indices, data, n = _csr_arrays(m)
+    Sr = S.tocsr()
+    s_indptr = np.ascontiguousarray(Sr.indptr, dtype=np.int32)
+    s_indices = np.ascontiguousarray(Sr.indices, dtype=np.int32)
+    cf32 = np.ascontiguousarray(cf, dtype=np.int32)
+    cap = max(int(m.nnz * 2) + n + 16, 256)
+    for _ in range(6):
+        p_rows = np.empty(cap, dtype=np.int32)
+        p_cols = np.empty(cap, dtype=np.int32)
+        p_vals = np.empty(cap, dtype=np.float64)
+        nnz = lib.fasp_interp_std(n, indptr, indices, data, cf32,
+                                  s_indptr, s_indices, int(mode),
+                                  p_rows, p_cols, p_vals, cap)
+        if nnz >= 0:
+            return p_rows[:nnz], p_cols[:nnz], p_vals[:nnz]
+        cap *= 4
+    return None
+
+
+def fgs_sweeps(A, marker: np.ndarray, e: np.ndarray, sweeps: int
+               ) -> Optional[np.ndarray]:
+    """F-point Gauss-Seidel sweeps on A e = 0 (the compatible-relaxation
+    smoother of CR coarsening)."""
+    lib = _load()
+    if lib is None:
+        return None
+    indptr, indices, data, n = _csr_arrays(A.to_scipy())
+    mk = np.ascontiguousarray(marker, dtype=np.int32)
+    out = np.ascontiguousarray(e, dtype=np.float64).copy()
+    lib.fasp_fgs_sweeps(n, indptr, indices, data, mk, out, int(sweeps))
+    return out

@@ -1,8 +1,12 @@
 from . import blas1, stencil2d
-from .operators import (DenseOperator, DiaNdOperator, DiaOperator,
-                        FactoredBand, StencilNdOperator, dia_bands_from_csr,
+from .operators import (ConstDiaOperator, CooOperator, DenseOperator,
+                        DiaNdOperator, DiaOperator, EllOperator, FactoredBand,
+                        HybridDiaOperator, StencilNdOperator, SumOperator,
+                        best_operator, device_operator, dia_bands_from_csr,
                         factor_band_2d)
 
-__all__ = ["DenseOperator", "DiaNdOperator", "DiaOperator", "FactoredBand",
-           "StencilNdOperator", "blas1", "dia_bands_from_csr",
+__all__ = ["ConstDiaOperator", "CooOperator", "DenseOperator",
+           "DiaNdOperator", "DiaOperator", "EllOperator", "FactoredBand",
+           "HybridDiaOperator", "StencilNdOperator", "SumOperator",
+           "best_operator", "blas1", "device_operator", "dia_bands_from_csr",
            "factor_band_2d", "stencil2d"]

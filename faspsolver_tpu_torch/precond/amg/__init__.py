@@ -1,9 +1,11 @@
 from .cycles import mgcycle
 from .hierarchy import (AMGHierarchy, AMGLevel, CoarseSolver,
-                        IterativeCoarseSolver)
-from .smoothers import SmootherData, smooth
+                        IterativeCoarseSolver, make_coarse_solver)
+from .setup_rs import setup_rs
+from .smoothers import SmootherData, build_smoother, smooth
 from .structured import setup_structured
 
 __all__ = ["AMGHierarchy", "AMGLevel", "CoarseSolver",
-           "IterativeCoarseSolver", "SmootherData", "mgcycle",
-           "setup_structured", "smooth"]
+           "IterativeCoarseSolver", "SmootherData", "build_smoother",
+           "make_coarse_solver", "mgcycle", "setup_rs", "setup_structured",
+           "smooth"]

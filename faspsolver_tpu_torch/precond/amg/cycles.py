@@ -16,6 +16,13 @@ from ...constants import CycleType
 from .hierarchy import AMGHierarchy
 from .smoothers import smooth
 
+
+def _sm_op(lvl):
+    """Operator of the smoother sweeps: the level's filtered operator
+    when it has one (``AMGLevel.Asm``), else its exact A."""
+    return lvl.A if lvl.Asm is None else lvl.Asm
+
+
 # Deepest level that still doubles visits in W-type cycles; levels past
 # the cap degrade to V-visits.  Kept at the JAX package's value so both
 # packages run the same cycle.
@@ -46,7 +53,8 @@ def _cycle(hier: AMGHierarchy, l: int, b, x):
         return hier.coarse(b)
 
     lvl = levels[l]
-    x = smooth(lvl.smoother, lvl.A, x, b, hier.presmooth_iter, forward=True)
+    x = smooth(lvl.smoother, _sm_op(lvl), x, b, hier.presmooth_iter,
+               forward=True)
 
     r = b - lvl.A(x)
     rc = lvl.R(r)
@@ -64,6 +72,6 @@ def _cycle(hier: AMGHierarchy, l: int, b, x):
         ec = torch.clamp_max(torch.dot(ec, rc) / safe, 1.0) * ec
 
     x = x + lvl.P(ec)
-    return smooth(lvl.smoother, lvl.A, x, b, hier.postsmooth_iter,
+    return smooth(lvl.smoother, _sm_op(lvl), x, b, hier.postsmooth_iter,
                   forward=False)
 

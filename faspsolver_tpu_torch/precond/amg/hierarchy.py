@@ -1,6 +1,6 @@
 """AMG hierarchy as a module tree (port of
 ``faspsolver_tpu/precond/amg/hierarchy.py``: AMGLevel, CoarseSolver,
-IterativeCoarseSolver, AMGHierarchy).
+IterativeCoarseSolver, make_coarse_solver, AMGHierarchy).
 
 Reference: AMG_data (base/include/fasp.h:804-888) — per-level {A, R, P,
 smoother data} plus a coarsest-grid solver.  Every array is a registered
@@ -12,22 +12,28 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
+from ... import as_tensor, np_dtype
 from ...ops.operators import _buf, full_precision_matmul
 
 
 class AMGLevel(nn.Module):
     """One level: operator, transfers down to the next level, smoother
-    (P, R and smoother are None on the coarsest level)."""
+    (P, R and smoother are None on the coarsest level).  ``Asm``, when
+    set, is the operator the smoother sweeps use (filtered smoothing:
+    a banded approximation of A, same family as the reference's SA
+    smooth_filter, PreAMGSetupSA.c); residuals and transfers keep A."""
 
-    def __init__(self, A, P=None, R=None, smoother=None):
+    def __init__(self, A, P=None, R=None, smoother=None, Asm=None):
         super().__init__()
         self.A = A
         self.P = P
         self.R = R
         self.smoother = smoother
+        self.Asm = Asm
 
 
 class CoarseSolver(nn.Module):
@@ -77,6 +83,30 @@ class IterativeCoarseSolver(nn.Module):
             p = z + beta * p
             rz = rz_new
         return x
+
+
+# dense coarse factorization above this size is a mistake, not a solve
+_DENSE_COARSE_LIMIT = 4096
+
+
+def make_coarse_solver(A_host, dtype):
+    """Coarse-grid solver for a host CSR level: the dense inverse for
+    small levels, Jacobi-CG over its operator otherwise."""
+    from ...ops.operators import device_operator
+    n = A_host.nrow
+    if n <= _DENSE_COARSE_LIMIT:
+        # the level in its working precision, inverted in float64
+        mat = np.asarray(A_host.to_dense(), dtype=np_dtype(dtype)).astype(
+            np.float64)
+        try:
+            inv = np.linalg.inv(mat)
+        except np.linalg.LinAlgError:
+            inv = np.linalg.pinv(mat)
+        return CoarseSolver(as_tensor(inv, dtype))
+    d = A_host.diagonal()
+    d = np.where(d != 0.0, d, 1.0)
+    return IterativeCoarseSolver(device_operator(A_host, dtype=dtype),
+                                 as_tensor(1.0 / d, dtype))
 
 
 class AMGHierarchy(nn.Module):

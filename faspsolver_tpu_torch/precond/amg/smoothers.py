@@ -1,9 +1,11 @@
-"""Multigrid smoothers of the structured path (port of the JACOBI, L1DIAG,
-RBGS and CHEBYSHEV kinds of ``faspsolver_tpu/precond/amg/smoothers.py``).
+"""Multigrid smoothers (port of the JACOBI, L1DIAG, RBGS and CHEBYSHEV
+kinds of ``faspsolver_tpu/precond/amg/smoothers.py``, and of
+``build_smoother`` for general CSR levels).
 
 Reference: base/src/ItrSmootherCSR.c (jacobi :98, L1DIAG),
 ItrSmootherCSRpoly.c (polynomial).  Each sweep is a few elementwise ops
-around the level operator's apply.  The Chebyshev recurrence scalars are
+around the level operator's apply.  The multicolor Gauss-Seidel family
+is not ported yet (ROADMAP item 7).  The Chebyshev recurrence scalars are
 fixed by ``lambda_max`` and the degree, so they are computed once, at
 construction, as Python floats — in the level's precision, the same
 roundings the JAX package's traced scalar arithmetic makes.
@@ -16,7 +18,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import as_tensor, np_dtype
 from ...constants import SmootherType
+from ...formats import CSRMatrix
 
 
 def _opt(a) -> Optional[torch.Tensor]:
@@ -70,6 +74,54 @@ class SmootherData(nn.Module):
         if self.rb_red is None:
             return ()
         return (self.rb_red, self.rb_black)
+
+
+def build_smoother(A: CSRMatrix, kind: int, *, relax: float = 1.0,
+                   poly_degree: int = 3, dtype=None) -> SmootherData:
+    """Smoother data for a general CSR level (host setup)."""
+    npdt = np_dtype(dtype)
+    d = A.diagonal()
+    dsafe = np.where(d != 0.0, d, 1.0)
+    dinv_np = 1.0 / dsafe
+    # constant vectors ship as (1,) and broadcast in the sweeps
+    dinv = (dinv_np[:1] if dinv_np.size and np.all(dinv_np == dinv_np[0])
+            else dinv_np)
+    dinv = as_tensor(dinv, npdt)
+    kind = int(kind)
+    if kind in (SmootherType.JACOBI, SmootherType.JACOBIF):
+        return SmootherData(int(SmootherType.JACOBI), relax, 1, dinv=dinv)
+    if kind == SmootherType.L1DIAG:
+        l1 = np.asarray(np.abs(A.to_scipy()).sum(axis=1)).ravel()
+        l1 = np.where(l1 != 0.0, l1, 1.0)
+        return SmootherData(kind, relax, 1, l1inv=as_tensor(1.0 / l1, npdt))
+    if kind in (SmootherType.POLY, SmootherType.CHEBYSHEV):
+        # Chebyshev on [lambda_max/4, lambda_max] of D^-1 A; lambda_max by
+        # a seeded 30-step power iteration (reference: fasp_dcsr_maxeig,
+        # BlaEigen.c), or above 200k dof by the Gershgorin bound, which
+        # is always an upper bound, so Chebyshev stays a damper
+        if A.nrow > 200_000:
+            rl = np.diff(A.indptr)
+            if A.nnz and rl.min() > 0:
+                l1 = np.add.reduceat(np.abs(A.data), A.indptr[:-1])
+            else:
+                l1 = np.asarray(np.abs(A.to_scipy()).sum(axis=1)).ravel()
+            lam = float(np.max(np.abs(dinv_np) * l1))
+        else:
+            m = A.to_scipy()
+            v = np.random.default_rng(0).standard_normal(A.nrow)
+            lam = 1.0
+            for _ in range(30):
+                w = dinv_np * (m @ v)
+                lam = max(np.linalg.norm(w), 1e-30)
+                v = w / lam
+            # inflate: an underestimate makes Chebyshev amplify the top
+            # of the spectrum instead of damping it
+            lam = max(lam, 1e-8) * 1.1
+        return SmootherData(int(SmootherType.CHEBYSHEV), relax, poly_degree,
+                            dinv=dinv, lambda_max=np.asarray(lam, npdt))
+    raise NotImplementedError(
+        f"smoother kind {kind} on a general CSR level is not ported "
+        f"(the multicolor Gauss-Seidel family waits, ROADMAP item 7)")
 
 
 def smooth(sm: SmootherData, A, x, b, nsweeps: int, forward: bool):

@@ -43,6 +43,9 @@ _ND_OPERATOR_MIN_N = 1 << 19
 # levels at or above this size prefer the compressed StencilNdOperator when
 # its exact band factorization actually compresses
 _STENCIL_MIN_N = 1 << 15
+# the exact f64 fine operator for refinement is kept only as a factored
+# stencil of at most this many bytes
+_FINE64_STENCIL_MAX_BYTES = 1 << 20
 
 
 def _grid_operator(cur, dtype):
@@ -60,6 +63,18 @@ def _grid_operator(cur, dtype):
     offs_l, flat_l = cur.flat_offsets()
     return DiaOperator(as_tensor(flat_l, dtype),
                        tuple(int(o) for o in offs_l), cur.n)
+
+
+def stencil_fine64(offsets, flat, dims):
+    """Exact f64 fine operator for device-resident refinement: the
+    factored stencil of the flat bands on grid ``dims``, or None when the
+    bands do not factor within ``_FINE64_STENCIL_MAX_BYTES``."""
+    from .band_algebra import BandMatrix
+    B64 = BandMatrix.from_flat(offsets, flat, tuple(dims))
+    if B64 is None:
+        return None
+    cand = B64.to_stencil_operator(np.float64)
+    return cand if cand.device_bytes <= _FINE64_STENCIL_MAX_BYTES else None
 
 
 def _compact_vec(v: np.ndarray) -> np.ndarray:
@@ -395,15 +410,8 @@ def setup_structured(A: CSRMatrix, param: Optional[AMGParam] = None,
         coarse = IterativeCoarseSolver(
             A=op, dinv=as_tensor(_compact_vec(1.0 / d), npdt))
 
-    # exact f64 fine operator for device-resident refinement; only when
-    # the stencil compression makes it ~free to hold
-    fine64 = None
-    if keep_f64_fine:
-        B64 = BandMatrix.from_flat(offsets0, flat0, tuple(dims))
-        if B64 is not None:
-            cand = B64.to_stencil_operator(np.float64)
-            if cand.device_bytes <= (1 << 20):
-                fine64 = cand
+    fine64 = (stencil_fine64(offsets0, flat0, dims) if keep_f64_fine
+              else None)
 
     hier = AMGHierarchy(
         levels=levels, coarse=coarse,

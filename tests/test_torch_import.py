@@ -27,13 +27,18 @@ MODULES = [
     "faspsolver_tpu_torch.precond",
     "faspsolver_tpu_torch.precond.amg",
     "faspsolver_tpu_torch.precond.amg.band_algebra",
+    "faspsolver_tpu_torch.precond.amg.coarsen_rs",
     "faspsolver_tpu_torch.precond.amg.cycles",
     "faspsolver_tpu_torch.precond.amg.hierarchy",
+    "faspsolver_tpu_torch.precond.amg.interp",
+    "faspsolver_tpu_torch.precond.amg.setup_rs",
     "faspsolver_tpu_torch.precond.amg.smoothers",
     "faspsolver_tpu_torch.precond.amg.structured",
+    "faspsolver_tpu_torch.precond.amg.transfer",
     "faspsolver_tpu_torch.solvers",
     "faspsolver_tpu_torch.solvers.refine",
     "faspsolver_tpu_torch.testgen",
+    "faspsolver_tpu_torch.testgen.fem",
     "faspsolver_tpu_torch.utils",
     "faspsolver_tpu_torch.utils.build",
     "faspsolver_tpu_torch.utils.params",
@@ -79,10 +84,27 @@ def test_kernel_module_needs_no_nvcc_or_gpu():
                        9.0, 10.0, 11.0, 0.0]
 
 
+# public names of a copied module that the port leaves out, and why
+NOT_COPIED = {
+    "faspsolver_tpu_torch.testgen.fdm": {"block_poisson_3d"},     # BSR
+    # waits in ROADMAP item 7
+    "faspsolver_tpu_torch.precond.amg.interp": {"interp_energymin"},
+    # FE extras outside the slice: refinement, errors, mass / heat
+    "faspsolver_tpu_torch.testgen.fem": {
+        "refine_uniform", "l2_error", "poisson_fe_manufactured",
+        "assemble_mass", "heat_backward_euler_system"},
+}
+
+
 @pytest.mark.parametrize("module", ["faspsolver_tpu_torch.constants",
                                     "faspsolver_tpu_torch.utils.params",
                                     "faspsolver_tpu_torch.formats.csr",
-                                    "faspsolver_tpu_torch.testgen.fdm"])
+                                    "faspsolver_tpu_torch.testgen.fdm",
+                                    "faspsolver_tpu_torch.testgen.fem",
+                                    "faspsolver_tpu_torch.precond.amg"
+                                    ".coarsen_rs",
+                                    "faspsolver_tpu_torch.precond.amg"
+                                    ".interp"])
 def test_copied_host_modules_match_reference(module):
     """The copied host modules keep the JAX package's public names."""
     import importlib
@@ -92,6 +114,5 @@ def test_copied_host_modules_match_reference(module):
     names = {n for n in vars(ref) if not n.startswith("_")
              and getattr(getattr(ref, n), "__module__", ref.__name__)
              == ref.__name__}
-    missing = {n for n in names - set(vars(port))
-               if n != "block_poisson_3d"}   # BSR: outside the slice
+    missing = names - set(vars(port)) - NOT_COPIED.get(module, set())
     assert not missing, missing

@@ -4,17 +4,20 @@ StencilNdOperator) with ragged 3-aggregation (191 -> 64 -> 22).  Both
 packages run the same host band algebra and the same native smoothed
 RAP (compiled from the one C++ source), so the arrays must be bit-equal;
 the transfer applies agree to 1e-13 (normwise relative)."""
+import os
+import subprocess
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from native_parity import ensure_native
 
 from faspsolver_tpu.constants import SmootherType
-from faspsolver_tpu.native import available as jax_native_available
 from faspsolver_tpu.precond.amg import setup_structured as jax_setup
 from faspsolver_tpu.testgen import poisson_2d
 from faspsolver_tpu.utils.params import AMGParam
-from faspsolver_tpu_torch import native
 from faspsolver_tpu_torch.convert import from_jax
 from faspsolver_tpu_torch.ops.operators import FactoredBand
 from faspsolver_tpu_torch.precond.amg import setup_structured
@@ -22,6 +25,7 @@ from faspsolver_tpu_torch.precond.amg.structured import (
     _compact_vec, _prolong_once, _restrict_once, detect_dims)
 
 torch.set_num_threads(2)
+ensure_native()       # both packages on the one race-free native build
 
 PARAM = AMGParam(smoother=int(SmootherType.CHEBYSHEV), polynomial_degree=2,
                  coarse_dof=800, tentative_smooth=0.67)
@@ -33,8 +37,6 @@ DTYPES = {"f64": (jnp.float64, torch.float64),
 @pytest.fixture(scope="module", params=sorted(DTYPES))
 def pair(request):
     jdt, tdt = DTYPES[request.param]
-    # both packages must take the same Galerkin branch (native fused RAP)
-    assert native.available() and jax_native_available()
     ref = jax_setup(A, PARAM, dtype=jdt, smooth_p=True, keep_f64_fine=True)
     got = setup_structured(A, PARAM, dtype=tdt, smooth_p=True,
                            keep_f64_fine=True)
@@ -165,3 +167,43 @@ def test_detect_dims_and_compact_vec():
     assert _compact_vec(np.full(9, 2.5)).shape == (1,)
     w = np.arange(4.0)
     assert _compact_vec(w) is w
+
+
+def test_native_helper_survives_a_lost_build_race():
+    """A worker whose JAX loader lost the build race (``_tried`` set, no
+    library) gets both packages' native libraries from the helper, and
+    the structured setup of both takes the native fused RAP."""
+    code = """
+import faspsolver_tpu.native as jn
+jn._tried, jn._lib = True, None
+assert not jn.available()
+from native_parity import ensure_native
+ensure_native()
+from faspsolver_tpu_torch import native as tn
+assert jn.available() and tn.available()
+calls = []
+for mod in (jn, tn):
+    def spy(*a, _f=mod.smoothed_rap, _m=mod.__name__, **k):
+        out = _f(*a, **k)
+        calls.append((_m, out is not None))
+        return out
+    mod.smoothed_rap = spy
+import jax
+jax.config.update("jax_enable_x64", True)
+from faspsolver_tpu.precond.amg import setup_structured as jax_setup
+from faspsolver_tpu.testgen import poisson_2d
+from faspsolver_tpu_torch.precond.amg import setup_structured
+A = poisson_2d(191)
+jax_setup(A, smooth_p=True)
+setup_structured(A, smooth_p=True)
+assert {m for m, ok in calls if ok} == {jn.__name__, tn.__name__}, calls
+assert all(ok for _, ok in calls), calls
+print("ok")
+"""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        [here, os.path.dirname(here), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().endswith("ok")
