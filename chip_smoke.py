@@ -26,16 +26,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    refinement (tol 1e-6, inner 1e-4, 6 rounds, 40 inner iterations); its
    7-point fine operators held against the plain version and timed; plus a
    small solve checked against scipy's direct solver;
-7. fe_auto: the same FE matrix through the structured setup of phase 4.
+7. fe_auto: the same FE matrix through the structured setup of phase 4;
+8. drivers, the user entry point: ``ini/input.dat`` (CG + classical
+   RS-AMG with C/F-ordered Gauss-Seidel), ``sa.dat``, ``ua.dat`` and
+   ``bamg.dat`` through the port's CLI (``__main__.main``) on
+   poisson_2d(1023) in float64, each held to the JAX CLI's iteration
+   count and verified relres < 1e-6, then timed again as setup and solve;
+   then one float64 solve per new Krylov method, cycle, smoother and
+   setup on poisson_fe_manufactured(64), each held to its JAX anchor.
 
-Each solve is run once to warm up, then timed with the kernel launch
-counts set to 0 just before it and read just after; both dtypes must have
-launched.  It prints a JSON line of the kernels, the nvidia-smi line, and
-last ``{"ok": true, "device": {...}}``.  It needs nothing but this
+Phases 4, 6 and 7 run each solve once to warm up, then time it with the
+kernel launch counts set to 0 just before it and read just after; both
+dtypes must have launched.  Phase 8 counts the launches of each CLI run
+(setup and solve) and of each timed solve; input.dat's must include the
+f64 kernel.  It prints a JSON line of the kernels, the nvidia-smi line,
+and last ``{"ok": true, "device": {...}}``.  It needs nothing but this
 checkout and exits non-zero when no CUDA device is available.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -54,6 +64,63 @@ GENERAL_REFINE = dict(tol=TOL, inner_tol=1e-4, inner_floor=1e-4,
                       max_rounds=6, maxit_inner=40)
 REPLACES = {"k1": "faspsolver_tpu/ops/pallas_kernels.py:149",
             "k2": "faspsolver_tpu/ops/pallas_kernels.py:36"}
+
+# phase 8, the user entry point: the JAX CLI's iteration counts on the
+# same runs (python -m faspsolver_tpu -ini ini/<f>.dat -problem poisson2d
+# -size 1023, CPU, float64), and the allowed distance from each: 1 for
+# CG over RS / SA, 5% (at least 2) where AggRestrict's atomic sums reorder
+# the f64 arithmetic (UA) or GMRES restarts compound it
+INI_ANCHORS = {"input": (6, 1), "sa": (9, 1), "ua": (33, 2), "bamg": (68, 3)}
+
+# phase 8, one solve per new module on poisson_fe_manufactured(64) (3,969
+# dof, the generated FE-3969 problem) in float64, after
+# regression/runner.py:core_configs without ILU, BSR and energy-min:
+# (name, driver, ITSParam fields, AMGParam fields, JAX iterations,
+# allowed distance).  The JAX counts are the JAX package's drivers on the
+# CPU in float64, printed by
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py
+# and tests/test_torch_drivers.py holds the port's CPU counts to them.
+# The distance is 1, 2 for the GMRES family, and 3 for BiCGstab with the
+# diagonal preconditioner, whose count on this problem moves with
+# nothing but the summation order of its dot products: 69 to 71 for four
+# orders on the CPU, 72 on the H100 (cuBLAS order, the same on repeat).
+_CG, _BICG, _MINRES, _GMRES, _VGMRES, _VFGMRES, _GCG, _GCR = range(1, 9)
+_GS, _SGS, _SOR, _SSOR, _L1 = 2, 3, 5, 6, 10
+_DIAG_ITS = dict(tol=1e-10, maxit=2000, restart=60)
+_AMG_ITS = dict(tol=1e-10, maxit=200, restart=30)
+_KRYLOV = (("BiCGstab", _BICG, 69, 5), ("MinRes", _MINRES, 99, 8),
+           ("GMRES", _GMRES, 132, 8), ("vGMRES", _VGMRES, 132, 8),
+           ("vFGMRES", _VFGMRES, 132, 8), ("GCR", _GCR, 132, 8),
+           ("GCG", _GCG, 99, 8))
+_GMRES_FAMILY = (_GMRES, _VGMRES, _VFGMRES)
+SMALL_GRID = [
+    *[(f"{name} + diag", "krylov_diag", dict(itsolver_type=t, **_DIAG_ITS),
+       None, n_diag, 3 if t == _BICG else 2 if t in _GMRES_FAMILY else 1)
+      for name, t, n_diag, _ in _KRYLOV],
+    *[(f"{name} + AMG", "krylov_amg", dict(itsolver_type=t, **_AMG_ITS),
+       dict(smoother=_GS), n_amg, 2 if t in _GMRES_FAMILY else 1)
+      for name, t, _, n_amg in _KRYLOV],
+    ("AMG W-cycle GS", "solve_amg", None,
+     dict(cycle_type=2, maxit=20, tol=1e-10), 5, 1),
+    ("AMG AMLI(3) GS", "solve_amg", None,
+     dict(cycle_type=3, amli_degree=3, maxit=20, tol=1e-10), 7, 1),
+    ("AMG NL-AMLI GS", "solve_amg", None,
+     dict(cycle_type=4, maxit=20, tol=1e-10), 5, 1),
+    ("FAMG V GS", "solve_famg", None, dict(maxit=20, tol=1e-10), 8, 1),
+    ("AMG V SGS", "solve_amg", None,
+     dict(smoother=_SGS, maxit=20, tol=1e-10), 13, 1),
+    ("AMG V SOR 1.1", "solve_amg", None,
+     dict(smoother=_SOR, relaxation=1.1, maxit=60, tol=1e-10), 12, 1),
+    ("AMG V SSOR 1.1", "solve_amg", None,
+     dict(smoother=_SSOR, relaxation=1.1, maxit=60, tol=1e-10), 15, 1),
+    ("AMG V L1-diag", "solve_amg", None,
+     dict(smoother=_L1, maxit=100, tol=1e-10), 22, 1),
+    ("CG + SA-AMG VMB", "krylov_amg", dict(itsolver_type=_CG, **_AMG_ITS),
+     dict(AMG_type=2, aggregation_type=2, smoother=_GS), 14, 1),
+    ("CG + UA-AMG PAIRWISE", "krylov_amg",
+     dict(itsolver_type=_CG, **_AMG_ITS),
+     dict(AMG_type=3, aggregation_type=1, smoother=_GS), 23, 1),
+]
 
 
 def check(ok, what):
@@ -439,6 +506,179 @@ def profile_solve(torch, hier, b64, refine=HEADLINE_REFINE):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the user entry point
+# ---------------------------------------------------------------------------
+
+def cli(torch, device, argv):
+    """The port's CLI entry on ``device`` in float64: its exit code, the
+    iteration count and verified relres it printed, and its wall time."""
+    import io
+    from faspsolver_tpu_torch.__main__ import main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv, device=device, dtype=torch.float64)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("Number of iterations")]
+    check(len(lines) == 1, f"the CLI printed one iteration line: {lines}")
+    words = lines[0].rstrip(".").split()
+    return rc, int(words[4]), float(words[-1]), wall
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Seconds spent in each ``name: (owner, attribute)`` callable while
+    the block runs (calls nested in one another count once each)."""
+    spent = dict.fromkeys(targets, 0.0)
+    saved = []
+    for name, (owner, attr) in targets.items():
+        fn = getattr(owner, attr)
+
+        def wrap(*args, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                spent[_name] += time.perf_counter() - t0
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, wrap)
+    try:
+        yield spent
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def ini_setup_and_solve(torch, device, ini, A, b):
+    """The CLI's krylov_amg in its two steps, each timed: the AMG setup
+    (host, then .to(device)), with the seconds it spent coloring (the
+    Gauss-Seidel blocks) and aggregating, and the preconditioned Krylov
+    solve (b in, x on the host), with its kernel launches."""
+    import numpy as np
+    from faspsolver_tpu_torch.formats import CSRMatrix
+    from faspsolver_tpu_torch.constants import AMGType
+    from faspsolver_tpu_torch.ops import stencil2d
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    from faspsolver_tpu_torch.precond.amg import setup_rs, setup_sa, setup_ua
+    from faspsolver_tpu_torch.solvers import itsolver
+    from faspsolver_tpu_torch.utils.params import (apply_cli_overrides,
+                                                   param_init)
+    its, amg, _, _ = param_init(apply_cli_overrides(["-ini", ini]))
+    setup = {int(AMGType.SA): setup_sa,
+             int(AMGType.UA): setup_ua}.get(int(amg.AMG_type), setup_rs)
+    mods = [sys.modules[f"faspsolver_tpu_torch.precond.amg.setup_{k}"]
+            for k in ("sa", "ua")]
+    sync(torch, device)
+    with timed_calls({"color_s": (CSRMatrix, "multicolor"),
+                      "aggregate_sa_s": (mods[0], "aggregate"),
+                      "aggregate_ua_s": (mods[1], "aggregate")}) as spent:
+        t0 = time.perf_counter()
+        hier = setup(A, amg, dtype=torch.float64, device=device)
+        sync(torch, device)
+        setup_s = time.perf_counter() - t0
+    stencil2d.reset_launches()
+    t0 = time.perf_counter()
+    res = itsolver(A, b, M=AMGPrecond(hier, amg.maxit), its=its,
+                   dtype=torch.float64, device=device)
+    x = res.x.cpu().numpy()
+    solve_s = time.perf_counter() - t0
+    counts = {str(k).replace("torch.", ""): v
+              for k, v in stencil2d.launches.items()}
+    relres = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
+    levels = ", ".join(f"{type(l.A).__name__}({l.A.shape[0]})"
+                       for l in hier.levels)
+    return {"setup_s": setup_s, "color_s": spent["color_s"],
+            "aggregate_s": spent["aggregate_sa_s"] + spent["aggregate_ua_s"],
+            "solve_s": solve_s, "iters": res.iters, "relres": relres,
+            "syncs": res.syncs, "launches": counts, "levels": levels}
+
+
+def drivers_path(torch, device):
+    """Phase 8: the repository's ini files through the port's CLI at
+    1023^2 (1,046,529 dof) in float64, then one solve per new module on
+    the small grid.  Returns the CLI runs' kernel launches and the
+    readings."""
+    import numpy as np
+    from faspsolver_tpu_torch import solvers
+    from faspsolver_tpu_torch.ops import stencil2d
+    from faspsolver_tpu_torch.testgen import (poisson_2d_manufactured,
+                                              poisson_fe_manufactured)
+    from faspsolver_tpu_torch.utils import messages
+    from faspsolver_tpu_torch.utils.params import AMGParam, ITSParam
+
+    warned = []
+    warn = messages.warn
+    messages.warn = lambda m: (warned.append(m), warn(m))
+    counts = {"float32": 0, "float64": 0}
+    readings = {}
+    try:
+        A, b, _ = poisson_2d_manufactured(NX)
+        for name, (anchor, bound) in INI_ANCHORS.items():
+            ini = f"ini/{name}.dat"
+            stencil2d.reset_launches()
+            rc, iters, relres, wall = cli(torch, device, [
+                "-ini", ini, "-problem", "poisson2d", "-size", str(NX)])
+            cli_counts = {str(k).replace("torch.", ""): v
+                          for k, v in stencil2d.launches.items()}
+            for k in counts:
+                counts[k] += cli_counts[k]
+            r = ini_setup_and_solve(torch, device, ini, A, b)
+            print(f"  {ini}: CLI rc {rc}, {iters} iterations (JAX anchor "
+                  f"{anchor} +- {bound}), verified relres {relres:.6e}, "
+                  f"{wall:.3f} s setup + solve, stencil launches "
+                  f"{cli_counts}; timed again: setup {r['setup_s']:.3f} s "
+                  f"(coloring {r['color_s']:.3f} s, aggregation "
+                  f"{r['aggregate_s']:.3f} s), solve {r['solve_s']:.3f} s, "
+                  f"{r['iters']} iterations, "
+                  f"relres {r['relres']:.3e}, host syncs {r['syncs']}, "
+                  f"launches {r['launches']}; levels {r['levels']}")
+            for it, rel in ((iters, relres), (r["iters"], r["relres"])):
+                check(rc == 0 and rel < TOL and abs(it - anchor) <= bound,
+                      f"{ini}: converged within {bound} of {anchor}: "
+                      f"rc {rc}, {it} iterations, relres {rel}")
+            if name == "input" and torch.device(device).type == "cuda":
+                check(cli_counts["float64"] > 0
+                      and r["launches"]["float64"] > 0,
+                      "input.dat's solve launched the f64 kernel")
+            readings[name] = {"cli_s": wall, "cli_iters": iters,
+                              "cli_relres": relres, **r}
+
+        A, b, *_ = poisson_fe_manufactured(64)
+        grid = {}
+        for name, driver, its, amg, anchor, bound in SMALL_GRID:
+            kw = {}
+            if its is not None:
+                kw["its"] = ITSParam(**its)
+            if amg is not None:
+                kw["amg"] = AMGParam(**amg)
+            t0 = time.perf_counter()
+            res = getattr(solvers, driver)(A, b, dtype=torch.float64,
+                                           device=device, **kw)
+            res = res[0] if isinstance(res, tuple) else res
+            x = res.x.cpu().numpy()
+            wall = time.perf_counter() - t0
+            relres = float(np.linalg.norm(b - A.matvec(x))
+                           / np.linalg.norm(b))
+            print(f"  {name:24s} {res.iters:4d} iterations (JAX {anchor} "
+                  f"+- {bound}), relres {relres:.3e}, host syncs "
+                  f"{res.syncs}, {wall:.3f} s")
+            check(res.x.device.type == torch.device(device).type
+                  and res.converged and relres < 1e-9
+                  and abs(res.iters - anchor) <= bound,
+                  f"small grid {name}: {res.iters} iterations, relres "
+                  f"{relres}")
+            grid[name] = {"iters": res.iters, "relres": relres,
+                          "syncs": res.syncs, "s": wall}
+        readings["small_grid"] = grid
+    finally:
+        messages.warn = warn
+    check(not any("falling back" in w for w in warned),
+          f"solve_amg's GMRES fallback did not fire: {warned}")
+    return counts, readings
+
+
+# ---------------------------------------------------------------------------
 # phase 5: per-apply times
 # ---------------------------------------------------------------------------
 
@@ -546,6 +786,9 @@ def main(argv) -> int:
     del hier
     print("== 7. main path: fe_auto (structured SA-AMG, P1-FE)")
     counts["fe_auto"], res["fe_auto"] = fe_auto_path(torch, device, A, b)
+    del A, b
+    print("== 8. main path: drivers (the ini CLI, then the small grid)")
+    counts["drivers"], res["drivers"] = drivers_path(torch, device)
 
     src = "faspsolver_tpu_torch/csrc/stencil2d.cu"
     kernels = []

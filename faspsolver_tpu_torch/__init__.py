@@ -1,9 +1,11 @@
 """faspsolver_tpu_torch: the PyTorch/CUDA port of faspsolver_tpu.
 
-The structured SA-AMG + f32 PCG + f64 refinement solve, with every 2-D
-stencil apply going through a hand-written CUDA kernel
-(``ops/stencil2d.py``, ``csrc/stencil2d.cu``).  The layout mirrors the JAX
-package module for module.  This package imports ``torch`` and never
+The drivers and ini CLI over CSR matrices (``solvers/drivers.py``,
+``__main__.py``), the Krylov family, classical / SA / UA / structured
+AMG with their cycles, and f64 refinement, with every 2-D stencil apply
+going through a hand-written CUDA kernel (``ops/stencil2d.py``,
+``csrc/stencil2d.cu``).  The layout mirrors the JAX package module for
+module.  This package imports ``torch`` and never
 ``jax`` (nor ``faspsolver_tpu``, whose ``__init__`` imports jax).
 
 Device and dtype policy (stands in for the JAX package's

@@ -1,8 +1,9 @@
 """Carry a hierarchy built by the JAX package across to the port.
 
-``from_jax(obj)`` walks a ``faspsolver_tpu`` structured or classical
-RS-AMG hierarchy (or any of its parts: operators, transfers, smoothers,
-coarse solvers, an ``AMGPrecond``) by class name and attribute access, reads every array
+``from_jax(obj)`` walks a ``faspsolver_tpu`` structured, classical RS,
+SA or UA AMG hierarchy (or any of its parts: operators, transfers,
+smoothers with their color blocks, coarse solvers, an ``AMGPrecond``) by
+class name and attribute access, reads every array
 leaf with ``np.asarray``, and rebuilds the port's modules on the CPU with
 the same dtypes.  What is shared in the JAX tree stays shared: arrays
 (a dinv used by smoother and transfers) by identity, operators (a level's
@@ -23,11 +24,11 @@ from .ops.operators import (ConstDiaOperator, CooOperator, DenseOperator,
                             StencilNdOperator, SumOperator)
 from .precond.amg.hierarchy import (AMGHierarchy, AMGLevel, CoarseSolver,
                                     IterativeCoarseSolver)
-from .precond.amg.smoothers import SmootherData
+from .precond.amg.smoothers import ColorBlock, SmootherData
 from .precond.amg.structured import (PairProlong, PairRestrict,
                                      SmoothedProlong, SmoothedRestrict)
-from .precond.amg.transfer import (BandedProlong, BandedRestrict, CooProlong,
-                                   CooRestrict)
+from .precond.amg.transfer import (AggProlong, AggRestrict, BandedProlong,
+                                   BandedRestrict, CooProlong, CooRestrict)
 from .precond.preconditioners import AMGPrecond
 
 
@@ -154,15 +155,23 @@ class _Converter:
 
     # -- smoothers, coarse solvers, hierarchy -------------------------------
 
+    def _AggProlong(self, o):
+        return AggProlong(self.arr(o.agg), o.n_fine, o.n_coarse)
+
+    def _AggRestrict(self, o):
+        return AggRestrict(self.arr(o.agg), o.n_fine, o.n_coarse)
+
+    def _ColorBlock(self, o):
+        return ColorBlock(self.arr(o.rows), self.arr(o.cols),
+                          self.arr(o.vals), self.arr(o.dinv))
+
     def _SmootherData(self, o):
-        if o.colors:
-            raise NotImplementedError("multicolor GS smoothers are not "
-                                      "ported")
         lam = None if o.lambda_max is None else np.asarray(o.lambda_max)
         return SmootherData(o.kind, o.relax, o.nsweep_scale,
                             dinv=self.arr(o.dinv), l1inv=self.arr(o.l1inv),
                             lambda_max=lam,
-                            rb_masks=tuple(self.arr(m) for m in o.rb_masks))
+                            rb_masks=tuple(self.arr(m) for m in o.rb_masks),
+                            colors=[self.conv(c) for c in o.colors])
 
     def _CoarseSolver(self, o):
         return CoarseSolver(self.arr(o.inv))
@@ -182,7 +191,9 @@ class _Converter:
             [self.conv(lvl) for lvl in o.levels], self.conv(o.coarse),
             presmooth_iter=o.presmooth_iter,
             postsmooth_iter=o.postsmooth_iter, cycle_type=o.cycle_type,
-            coarse_scaling=o.coarse_scaling, fine64=self.conv(o.fine64))
+            coarse_scaling=o.coarse_scaling, fine64=self.conv(o.fine64),
+            amli_degree=o.amli_degree, amli_coefs=o.amli_coefs,
+            level_visits=o.level_visits)
 
     def _AMGPrecond(self, o):
         return AMGPrecond(self.conv(o.hier), o.maxit)

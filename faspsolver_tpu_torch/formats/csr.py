@@ -245,8 +245,12 @@ class CSRMatrix:
         (MULTI_COLOR_ORDER, fasp.h:42-50; fasp_smoother_dcsr_gs_multicolor).
         """
         n = self.nrow
-        # the port's native loader binds only the structured-setup entries,
-        # so coloring always takes the NumPy loop
+        from .. import native
+        out = native.greedy_color(self.indptr, self.indices, n)
+        if out is not None:
+            color, ncolor = out
+            color = color.astype(np.int64)
+            return color, np.bincount(color, minlength=ncolor)
         colors = np.full(n, -1, dtype=np.int64)
         indptr, indices = self.indptr, self.indices
         maxdeg = int(self.row_nnz().max()) if n else 0

@@ -1,5 +1,12 @@
+from .bicgstab import bicgstab
+from .gcg_gcr import gcg, gcr
+from .gmres import gmres, vfgmres, vgmres
+from .minres import minres
 from .pcg import pcg
 from .precond import IdentityPrecond, JacobiPrecond
 from .result import SolveResult
 
-__all__ = ["IdentityPrecond", "JacobiPrecond", "SolveResult", "pcg"]
+__all__ = [
+    "bicgstab", "gcg", "gcr", "gmres", "vfgmres", "vgmres", "minres", "pcg",
+    "IdentityPrecond", "JacobiPrecond", "SolveResult",
+]

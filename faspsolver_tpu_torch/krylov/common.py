@@ -13,6 +13,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import np_dtype
 from ..constants import StopType
 from .precond import IdentityPrecond
 
@@ -48,3 +49,23 @@ def initial_norms(stop_type: int, absres0, xx0):
     normu = max(t(SMALLREAL), np.sqrt(xx0))
     return (absres0, normr0, normu,
             residual_norms(stop_type, absres0, normr0, normu)[1])
+
+
+class HostReads:
+    """Device-to-host reads of an eager solver loop, counted: each call
+    reads several values in ONE transfer and returns them as NumPy
+    scalars of the working dtype (the roundings of the JAX package's
+    traced scalar arithmetic)."""
+
+    def __init__(self, dtype):
+        self.t = np_dtype(dtype).type
+        self.count = 0
+
+    def __call__(self, *scalars):
+        """0-d tensors -> list of host scalars."""
+        return self.vec(torch.stack(scalars))
+
+    def vec(self, v: torch.Tensor):
+        """A 1-d tensor -> list of host scalars."""
+        self.count += 1
+        return [self.t(a) for a in v.tolist()]

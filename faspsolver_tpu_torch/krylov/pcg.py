@@ -24,12 +24,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import np_dtype
 from ..constants import (ERROR_SOLVER_MISC, ERROR_SOLVER_SOLSTAG,
                          ERROR_SOLVER_STAG, ERROR_SOLVER_TOLSMALL, MAX_RESTART,
                          MAX_STAG, STAG_RATIO, StopType)
-from .common import (SMALLREAL, SMALLREAL2, abs_residual, initial_norms,
-                     residual_norms, resolve_precond)
+from .common import (SMALLREAL, SMALLREAL2, HostReads, abs_residual,
+                     initial_norms, residual_norms, resolve_precond)
 from .result import SolveResult
 
 
@@ -45,20 +44,14 @@ def pcg(A, b, x0=None, M=None, *, tol: float = 1e-6, abstol: float = 1e-18,
     couple of restarts (the outer f64 loop supplies the robustness).
     """
     M = resolve_precond(M)
-    t = np_dtype(b.dtype).type
+    host = HostReads(b.dtype)
+    t = host.t
     tol, abstol = t(tol), t(abstol)
     maxdiff = tol * t(STAG_RATIO)
     small, small2, slow = t(SMALLREAL), t(SMALLREAL2), t(0.9)
     precres = stop_type == StopType.REL_PRECRES
     if x0 is None:
         x0 = torch.zeros(A.shape[0], dtype=b.dtype, device=b.device)
-    syncs = 0
-
-    def host(*scalars):
-        """ONE device-to-host read of several 0-d tensors."""
-        nonlocal syncs
-        syncs += 1
-        return [t(v) for v in torch.stack(scalars).tolist()]
 
     x = x0
     r = b - A(x0)
@@ -142,4 +135,5 @@ def pcg(A, b, x0=None, M=None, *, tol: float = 1e-6, abstol: float = 1e-18,
         # best-so-far iterate on non-convergence (KrySPcg.c:190-196)
         x = best_x
     return SolveResult(x=x, iters=it, relres=float(relres),
-                       converged=converged, status=int(status), syncs=syncs)
+                       converged=converged, status=int(status),
+                       syncs=host.count)

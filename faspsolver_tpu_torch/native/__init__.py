@@ -8,8 +8,11 @@ packages run the same setup arithmetic.  Bound: the structured-setup
 entries (``dia_from_csr``, ``smoothed_rap``) and the classical RS-AMG
 ones (``dia_hist``, ``dia_split``, ``rap``, ``strength_graph``,
 ``agg_strength``, ``rs_cf_split2``, ``rs_ff_pass``, ``interp_std``,
-``fgs_sweeps``).  Like the JAX loader, each entry returns None when the
-library cannot be built; the callers then take their NumPy path.
+``fgs_sweeps``), the multicolor Gauss-Seidel coloring
+(``greedy_color``) and the aggregation matchers (``pairwise_match``,
+``notay_match``, ``nsympair_match``, ``vmb_aggregate``).  Like the JAX
+loader, each entry returns None when the library cannot be built; the
+callers then take their NumPy path.
 """
 from __future__ import annotations
 
@@ -100,6 +103,19 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.fasp_fgs_sweeps.restype = ctypes.c_int
         lib.fasp_fgs_sweeps.argtypes = [ctypes.c_int, _i32p, _i32p, _f64p,
                                         _i32p, _f64p, ctypes.c_int]
+        lib.fasp_greedy_color.restype = ctypes.c_int
+        lib.fasp_greedy_color.argtypes = [ctypes.c_int, _i32p, _i32p, _i32p]
+        lib.fasp_pairwise_match.restype = ctypes.c_int
+        lib.fasp_pairwise_match.argtypes = [ctypes.c_int, _i32p, _i32p,
+                                            _f64p, _i32p]
+        for name in ("fasp_notay_match", "fasp_nsympair_match"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int, _i32p, _i32p, _f64p, ctypes.c_int,
+                           ctypes.c_double, _i32p]
+        lib.fasp_vmb_aggregate.restype = ctypes.c_int
+        lib.fasp_vmb_aggregate.argtypes = [ctypes.c_int, _i32p, _i32p, _f64p,
+                                           ctypes.c_int, _i32p]
         _lib = lib
         return _lib
 
@@ -391,3 +407,60 @@ def fgs_sweeps(A, marker: np.ndarray, e: np.ndarray, sweeps: int
     out = np.ascontiguousarray(e, dtype=np.float64).copy()
     lib.fasp_fgs_sweeps(n, indptr, indices, data, mk, out, int(sweeps))
     return out
+
+
+def greedy_color(indptr, indices, n: int) -> Optional[Tuple[np.ndarray, int]]:
+    """Greedy distance-1 coloring: (color per row int32, color count)."""
+    lib = _load()
+    if lib is None:
+        return None
+    color = np.empty(n, dtype=np.int32)
+    nc = lib.fasp_greedy_color(
+        n, np.ascontiguousarray(indptr, dtype=np.int32),
+        np.ascontiguousarray(indices, dtype=np.int32), color)
+    return color, int(nc)
+
+
+def _match(fn, m, *args) -> Tuple[np.ndarray, int]:
+    """Run a matcher over the scipy CSR matrix ``m``."""
+    indptr, indices, data, n = _csr_arrays(m)
+    agg = np.empty(n, dtype=np.int32)
+    nagg = fn(n, indptr, indices, data, *args, agg)
+    return agg.astype(np.int64), int(nagg)
+
+
+def pairwise_match(A) -> Optional[Tuple[np.ndarray, int]]:
+    """Strongest-negative-neighbour pairing: (aggregate id, count)."""
+    lib = _load()
+    if lib is None:
+        return None
+    return _match(lib.fasp_pairwise_match, A.to_scipy())
+
+
+def notay_match(A, first_pass: bool, k_tg: float
+                ) -> Optional[Tuple[np.ndarray, int]]:
+    """Quality-bounded symmetric pairwise matching (Notay form_pairwise)."""
+    lib = _load()
+    if lib is None:
+        return None
+    return _match(lib.fasp_notay_match, A.to_scipy(), 1 if first_pass else 0,
+                  float(k_tg))
+
+
+def nsympair_match(A, first_pass: bool, k_tg: float
+                   ) -> Optional[Tuple[np.ndarray, int]]:
+    """Non-symmetric pairwise matching (nsympair first-pass rule)."""
+    lib = _load()
+    if lib is None:
+        return None
+    return _match(lib.fasp_nsympair_match, A.to_scipy(),
+                  1 if first_pass else 0, float(k_tg))
+
+
+def vmb_aggregate(S, max_agg: int) -> Optional[Tuple[np.ndarray, int]]:
+    """VMB greedy aggregation over a scipy strength graph S (no
+    diagonal)."""
+    lib = _load()
+    if lib is None:
+        return None
+    return _match(lib.fasp_vmb_aggregate, S, int(max_agg))

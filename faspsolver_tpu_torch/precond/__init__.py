@@ -1,3 +1,4 @@
-from .preconditioners import AMGPrecond
+from . import amg
+from .preconditioners import AMGNKPrecond, AMGPrecond, FMGPrecond
 
-__all__ = ["AMGPrecond"]
+__all__ = ["AMGNKPrecond", "AMGPrecond", "FMGPrecond", "amg"]

@@ -1,11 +1,21 @@
-from .cycles import mgcycle
+from .aggregation import (aggregate_pairwise, aggregate_vmb, strength_graph,
+                          tentative_prolongation)
+from .cycles import amli_coefs, amli_cycle, fmg_cycle, mgcycle, nl_amli_cycle
 from .hierarchy import (AMGHierarchy, AMGLevel, CoarseSolver,
                         IterativeCoarseSolver, make_coarse_solver)
 from .setup_rs import setup_rs
-from .smoothers import SmootherData, build_smoother, smooth
+from .setup_sa import setup_sa
+from .setup_ua import setup_ua
+from .smoothers import ColorBlock, SmootherData, build_smoother, smooth
+from .solve import amg_solve, famg_solve
 from .structured import setup_structured
+from .transfer import AggProlong, AggRestrict, csr_transfer
 
-__all__ = ["AMGHierarchy", "AMGLevel", "CoarseSolver",
-           "IterativeCoarseSolver", "SmootherData", "build_smoother",
-           "make_coarse_solver", "mgcycle", "setup_rs", "setup_structured",
-           "smooth"]
+__all__ = ["AMGHierarchy", "AMGLevel", "AggProlong", "AggRestrict",
+           "CoarseSolver", "ColorBlock", "IterativeCoarseSolver",
+           "SmootherData", "aggregate_pairwise", "aggregate_vmb",
+           "amg_solve", "amli_coefs", "amli_cycle", "build_smoother",
+           "csr_transfer", "famg_solve", "fmg_cycle", "make_coarse_solver",
+           "mgcycle", "nl_amli_cycle", "setup_rs", "setup_sa",
+           "setup_structured",
+           "setup_ua", "smooth", "strength_graph", "tentative_prolongation"]

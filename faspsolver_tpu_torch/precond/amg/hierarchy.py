@@ -115,7 +115,9 @@ class AMGHierarchy(nn.Module):
     def __init__(self, levels: Sequence[AMGLevel], coarse,
                  presmooth_iter: int = 1, postsmooth_iter: int = 1,
                  cycle_type: int = 1, coarse_scaling: bool = False,
-                 fine64=None):
+                 fine64=None, amli_degree: int = 2,
+                 amli_coefs: Sequence[float] = (),
+                 level_visits: Sequence[int] = ()):
         super().__init__()
         self.levels = nn.ModuleList(levels)
         self.coarse = coarse
@@ -123,6 +125,12 @@ class AMGHierarchy(nn.Module):
         self.postsmooth_iter = int(postsmooth_iter)
         self.cycle_type = int(cycle_type)
         self.coarse_scaling = bool(coarse_scaling)
+        # AMLI polynomial degree and coefficients (cycles.amli_coefs)
+        self.amli_degree = int(amli_degree)
+        self.amli_coefs = tuple(float(c) for c in amli_coefs)
+        # per-level coarse-visit counts of the UA complexity rule (read by
+        # the NL-AMLI cycle); empty = visits from cycle_type alone
+        self.level_visits = tuple(int(v) for v in level_visits)
         # float64 fine-level operator (compressed stencil) for the f64
         # true residuals of mixed-precision refinement (solvers/refine.py)
         self.fine64: Optional[nn.Module] = fine64

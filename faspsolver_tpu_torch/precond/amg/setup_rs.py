@@ -28,6 +28,7 @@ from ...ops.operators import (CooOperator, DiaOperator, EllOperator,
                               best_operator, device_operator)
 from ...utils.params import AMGParam
 from .coarsen_rs import coarsen
+from .cycles import amli_fields
 from .hierarchy import AMGHierarchy, AMGLevel, make_coarse_solver
 from .interp import interpolate
 from .smoothers import build_smoother
@@ -202,8 +203,11 @@ def setup_rs(A: CSRMatrix, param: Optional[AMGParam] = None,
         Pop, Rop = bt if bt is not None else csr_transfer(Ps[l], dtype=npdt)
         _tick("transfer_s", t0)
         t0 = time.perf_counter()
+        # C/F-ordered Gauss-Seidel (smooth_order = 1) colors C and F apart
         sm = build_smoother(Al, param.smoother, relax=param.relaxation,
-                            poly_degree=param.polynomial_degree, dtype=npdt)
+                            poly_degree=param.polynomial_degree,
+                            cf_marker=(markers[l] if param.smooth_order == 1
+                                       else None), dtype=npdt)
         _tick("smoother_s", t0)
         t0 = time.perf_counter()
         Aop = best_operator(Al, dtype=npdt)
@@ -225,5 +229,6 @@ def setup_rs(A: CSRMatrix, param: Optional[AMGParam] = None,
         presmooth_iter=param.presmooth_iter,
         postsmooth_iter=param.postsmooth_iter,
         cycle_type=param.cycle_type,
-        coarse_scaling=bool(param.coarse_scaling), fine64=fine64)
+        coarse_scaling=bool(param.coarse_scaling), fine64=fine64,
+        **amli_fields(param))
     return hier if device is None else hier.to(device)

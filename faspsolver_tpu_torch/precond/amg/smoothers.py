@@ -1,11 +1,15 @@
-"""Multigrid smoothers (port of the JACOBI, L1DIAG, RBGS and CHEBYSHEV
-kinds of ``faspsolver_tpu/precond/amg/smoothers.py``, and of
-``build_smoother`` for general CSR levels).
+"""Multigrid smoothers (port of ``faspsolver_tpu/precond/amg/smoothers.py``:
+the Jacobi family, the multicolor Gauss-Seidel family, RBGS, Chebyshev,
+``build_smoother`` for general CSR levels and ``kaczmarz_sweep``).
 
-Reference: base/src/ItrSmootherCSR.c (jacobi :98, L1DIAG),
-ItrSmootherCSRpoly.c (polynomial).  Each sweep is a few elementwise ops
-around the level operator's apply.  The multicolor Gauss-Seidel family
-is not ported yet (ROADMAP item 7).  The Chebyshev recurrence scalars are
+Reference: base/src/ItrSmootherCSR.c (jacobi :98, gs :251, gs_cf :432,
+sgs :808, sor :932, L1DIAG, kaczmarz :1363), ItrSmootherCSRpoly.c
+(polynomial).  Gauss-Seidel runs as multicolor GS, the reference's own
+OpenMP strategy (fasp_smoother_dcsr_gs_multicolor): each color's rows
+are gathered at setup into an ELL block (``ColorBlock``), so a sweep is
+one gather, row sum and scatter per color.  C/F-ordered smoothing colors
+the C points and the F points apart and visits the C colors first
+(forward) or last (backward).  The Chebyshev recurrence scalars are
 fixed by ``lambda_max`` and the degree, so they are computed once, at
 construction, as Python floats — in the level's precision, the same
 roundings the JAX package's traced scalar arithmetic makes.
@@ -21,6 +25,13 @@ from torch import nn
 from ... import as_tensor, np_dtype
 from ...constants import SmootherType
 from ...formats import CSRMatrix
+from ...utils import messages
+
+_GS_KINDS = (SmootherType.GS, SmootherType.SGS, SmootherType.SOR,
+             SmootherType.SSOR, SmootherType.GSOR, SmootherType.SGSOR,
+             SmootherType.GSF)
+_SYMMETRIC_GS = (int(SmootherType.SGS), int(SmootherType.SSOR),
+                 int(SmootherType.SGSOR))
 
 
 def _opt(a) -> Optional[torch.Tensor]:
@@ -48,16 +59,35 @@ def cheby_scalars(lambda_max, degree: int):
     return float(theta), steps
 
 
+class ColorBlock(nn.Module):
+    """One color's rows in row-gathered ELL form, diagonal excluded:
+    ``rows`` (nc,) int64, ``cols`` (nc, k) int32, ``vals`` (nc, k) and
+    ``dinv`` (nc,) = 1/a_ii of those rows."""
+
+    def __init__(self, rows, cols, vals, dinv):
+        super().__init__()
+        self.register_buffer("rows", _opt(rows).to(torch.int64))
+        self.register_buffer("cols", _opt(cols))
+        self.register_buffer("vals", _opt(vals))
+        self.register_buffer("dinv", _opt(dinv))
+
+    def offdiag(self, x: torch.Tensor) -> torch.Tensor:
+        """Row sums of the stored off-diagonal entries times x."""
+        g = x.index_select(0, self.cols.reshape(-1)).reshape(self.cols.shape)
+        return (self.vals * g).sum(dim=1)
+
+
 class SmootherData(nn.Module):
     """What one level's sweeps need.  ``kind`` selects the sweep."""
 
     def __init__(self, kind: int, relax: float, nsweep_scale: int,
                  dinv=None, l1inv=None, lambda_max=None,
-                 rb_masks: Sequence = ()):
+                 rb_masks: Sequence = (), colors: Sequence = ()):
         super().__init__()
         self.kind = int(kind)
         self.relax = float(relax)
         self.nsweep_scale = int(nsweep_scale)
+        self.colors = nn.ModuleList(colors)
         self.register_buffer("dinv", _opt(dinv))
         self.register_buffer("l1inv", _opt(l1inv))
         red, black = (tuple(rb_masks) if rb_masks else (None, None))
@@ -76,9 +106,51 @@ class SmootherData(nn.Module):
         return (self.rb_red, self.rb_black)
 
 
+def _ell_rows(A: CSRMatrix, rows: np.ndarray, dtype, drop_diag=True):
+    """Gather selected rows of A into a dense (len(rows), k) ELL block."""
+    sub = A.to_scipy()[rows, :].tocsr()
+    if drop_diag:
+        rr = np.repeat(np.arange(len(rows)), np.diff(sub.indptr))
+        sub.data[sub.indices == np.asarray(rows)[rr]] = 0.0
+        sub.eliminate_zeros()
+    nnz_per_row = np.diff(sub.indptr)
+    k = max(int(nnz_per_row.max()) if len(rows) else 0, 1)
+    cols = np.zeros((len(rows), k), dtype=np.int32)
+    vals = np.zeros((len(rows), k), dtype=np.dtype(dtype))
+    if sub.nnz:
+        rr = np.repeat(np.arange(len(rows)), nnz_per_row)
+        slot = np.arange(sub.nnz) - np.repeat(sub.indptr[:-1], nnz_per_row)
+        cols[rr, slot] = sub.indices
+        vals[rr, slot] = sub.data
+    return cols, vals
+
+
+def _color_rows(A: CSRMatrix, cf_marker: Optional[np.ndarray]):
+    """The row set of each color block in visit order: the colors of A,
+    or with a C/F marker the colors of the C block, then of the F
+    block."""
+    if cf_marker is None:
+        colors, counts = A.multicolor()
+        return [np.nonzero(colors == c)[0] for c in range(len(counts))]
+    blocks = []
+    for part in (np.nonzero(cf_marker >= 1)[0], np.nonzero(cf_marker < 1)[0]):
+        if len(part) == 0:
+            continue
+        sub_colors = (A.get_block(part, part).multicolor()[0]
+                      if len(part) > 1 else np.zeros(1, dtype=np.int64))
+        for c in range(int(sub_colors.max()) + 1):
+            rows = part[sub_colors == c]
+            if len(rows):
+                blocks.append(rows)
+    return blocks
+
+
 def build_smoother(A: CSRMatrix, kind: int, *, relax: float = 1.0,
-                   poly_degree: int = 3, dtype=None) -> SmootherData:
-    """Smoother data for a general CSR level (host setup)."""
+                   poly_degree: int = 3,
+                   cf_marker: Optional[np.ndarray] = None,
+                   dtype=None) -> SmootherData:
+    """Smoother data for a general CSR level (host setup).  ``cf_marker``
+    (C >= 1) orders the Gauss-Seidel colors C first."""
     npdt = np_dtype(dtype)
     d = A.diagonal()
     dsafe = np.where(d != 0.0, d, 1.0)
@@ -88,12 +160,30 @@ def build_smoother(A: CSRMatrix, kind: int, *, relax: float = 1.0,
             else dinv_np)
     dinv = as_tensor(dinv, npdt)
     kind = int(kind)
+    if kind in (SmootherType.BLKOIL, SmootherType.SPETEN,
+                SmootherType.CPRGS, SmootherType.CPTRGS):
+        # reservoir smoother ids (fasp_const.h:204-208): the reference
+        # only parses these in-tree (AuxInput.c:652-658); map to GS so
+        # configs written for the reservoir build still run
+        messages.warn(f"reservoir smoother id {kind} "
+                      f"({SmootherType(kind).name}) has no in-tree "
+                      f"implementation in the reference either; mapping to "
+                      f"GS")
+        kind = int(SmootherType.GS)
     if kind in (SmootherType.JACOBI, SmootherType.JACOBIF):
         return SmootherData(int(SmootherType.JACOBI), relax, 1, dinv=dinv)
     if kind == SmootherType.L1DIAG:
         l1 = np.asarray(np.abs(A.to_scipy()).sum(axis=1)).ravel()
         l1 = np.where(l1 != 0.0, l1, 1.0)
         return SmootherData(kind, relax, 1, l1inv=as_tensor(1.0 / l1, npdt))
+    if kind in _GS_KINDS:
+        blocks = []
+        for rows in _color_rows(A, cf_marker):
+            cols, vals = _ell_rows(A, rows, npdt)
+            blocks.append(ColorBlock(as_tensor(rows.astype(np.int64)),
+                                     as_tensor(cols), as_tensor(vals),
+                                     as_tensor(1.0 / dsafe[rows], npdt)))
+        return SmootherData(kind, relax, 1, dinv=dinv, colors=blocks)
     if kind in (SmootherType.POLY, SmootherType.CHEBYSHEV):
         # Chebyshev on [lambda_max/4, lambda_max] of D^-1 A; lambda_max by
         # a seeded 30-step power iteration (reference: fasp_dcsr_maxeig,
@@ -119,21 +209,43 @@ def build_smoother(A: CSRMatrix, kind: int, *, relax: float = 1.0,
             lam = max(lam, 1e-8) * 1.1
         return SmootherData(int(SmootherType.CHEBYSHEV), relax, poly_degree,
                             dinv=dinv, lambda_max=np.asarray(lam, npdt))
-    raise NotImplementedError(
-        f"smoother kind {kind} on a general CSR level is not ported "
-        f"(the multicolor Gauss-Seidel family waits, ROADMAP item 7)")
+    raise ValueError(f"unsupported smoother kind {kind}")
+
+
+def _color_sweep(sm: SmootherData, x, b, order):
+    """One multicolor GS/SOR sweep; ``order`` = color visit order.  Each
+    color writes its rows into a new tensor (``index_copy`` out of
+    place), never into the caller's x."""
+    w = sm.relax
+    for ci in order:
+        blk = sm.colors[ci]
+        xn = blk.dinv * (b.index_select(0, blk.rows) - blk.offdiag(x))
+        if w != 1.0:
+            xr = x.index_select(0, blk.rows)
+            xn = xr + w * (xn - xr)
+        x = x.index_copy(0, blk.rows, xn)
+    return x
 
 
 def smooth(sm: SmootherData, A, x, b, nsweeps: int, forward: bool):
     """Apply ``nsweeps`` smoothing sweeps.  ``forward`` orders the
-    red-black sweeps so pre/post smoothing are adjoint (reference:
-    PreMGSmoother.inl:20-230)."""
+    Gauss-Seidel colors and the red-black sweeps so pre/post smoothing
+    are adjoint (reference: PreMGSmoother.inl:20-230)."""
     kind = sm.kind
     for _ in range(nsweeps):
         if kind == SmootherType.JACOBI:
             x = x + sm.relax * sm.dinv * (b - A(x))
         elif kind == SmootherType.L1DIAG:
             x = x + sm.l1inv * (b - A(x))
+        elif kind in _SYMMETRIC_GS:
+            nc = len(sm.colors)
+            x = _color_sweep(sm, x, b, range(nc))
+            x = _color_sweep(sm, x, b, range(nc - 1, -1, -1))
+        elif kind in (int(SmootherType.GS), int(SmootherType.SOR),
+                      int(SmootherType.GSOR), int(SmootherType.GSF)):
+            nc = len(sm.colors)
+            x = _color_sweep(sm, x, b, range(nc) if forward
+                             else range(nc - 1, -1, -1))
         elif kind == SmootherType.CHEBYSHEV:
             x = _cheby_smooth(sm, A, x, b)
         elif kind == SmootherType.RBGS:
@@ -160,4 +272,24 @@ def _cheby_smooth(sm: SmootherData, A, x, b):
         r = sm.dinv * (b - A(x))
         d = c1 * d + c2 * r
         x = x + d
+    return x
+
+
+def kaczmarz_sweep(sm: SmootherData, A, x, b, omega: float = 0.5):
+    """Color-batched Kaczmarz row-projection sweep (reference:
+    fasp_smoother_dcsr_kaczmarz, ItrSmootherCSR.c:1363).  Within a color
+    the rows are pairwise non-adjacent, so their projections apply at
+    once (Cimmino within a color); overlapping projections of rows that
+    share a column are why the default damping is 0.5.  Needs GS-style
+    color blocks in ``sm``."""
+    for blk in sm.colors:
+        # the diagonal is not stored in the block: a_ii = 1 / dinv
+        aii = 1.0 / blk.dinv
+        ri = b.index_select(0, blk.rows) - blk.offdiag(x) \
+            - aii * x.index_select(0, blk.rows)
+        row_norm2 = (blk.vals * blk.vals).sum(dim=1) + aii * aii
+        scale = omega * ri / row_norm2
+        x = x.index_add(0, blk.rows, scale * aii)
+        x = x.index_add(0, blk.cols.reshape(-1),
+                        (scale[:, None] * blk.vals).reshape(-1))
     return x

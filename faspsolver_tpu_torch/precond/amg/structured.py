@@ -29,6 +29,7 @@ from ...constants import SmootherType
 from ...formats import CSRMatrix
 from ...ops.operators import (DiaOperator, DenseOperator, dia_bands_from_csr)
 from ...utils.params import AMGParam
+from .cycles import amli_fields
 from .hierarchy import (AMGHierarchy, AMGLevel, CoarseSolver,
                         IterativeCoarseSolver)
 from .smoothers import SmootherData
@@ -418,5 +419,6 @@ def setup_structured(A: CSRMatrix, param: Optional[AMGParam] = None,
         presmooth_iter=param.presmooth_iter,
         postsmooth_iter=param.postsmooth_iter,
         cycle_type=param.cycle_type,
-        coarse_scaling=bool(param.coarse_scaling), fine64=fine64)
+        coarse_scaling=bool(param.coarse_scaling), fine64=fine64,
+        **amli_fields(param))
     return hier if device is None else hier.to(device)

@@ -1,14 +1,18 @@
-"""Grid transfers of the classical RS-AMG path as ``nn.Module``s (port of
-``CooProlong``/``CooRestrict``, ``BandedProlong``/``BandedRestrict``,
-``banded_transfer`` and ``csr_transfer`` of
+"""Grid transfers as ``nn.Module``s (port of ``AggProlong``/
+``AggRestrict``, ``CooProlong``/``CooRestrict``, ``BandedProlong``/
+``BandedRestrict``, ``banded_transfer`` and ``csr_transfer`` of
 ``faspsolver_tpu/precond/amg/transfer.py``).
 
-Reference: transfer applies are sparse matrix-vector products inside the
-MG cycle (PreMGCycle.c:135-227, BlaSpmvCSR.c:242) with R = P^T
-(fasp_dcsr_trans).  Here P and R share one set of arrays: the COO form
-gathers and segment-sums (``index_add_``, atomic on CUDA), the banded form
-embeds the coarse vector at its C-points' fine positions and applies P
-as statically shifted reads plus a small COO remainder.  Plain PyTorch.
+Reference: boolean aggregation transfer (form_tentative_p,
+PreAMGAggregationCSR.inl:40; mxv_agg / rap_agg, BlaSpmvCSR.c:438,1276)
+and sparse matrix-vector products with R = P^T (PreMGCycle.c:135-227,
+BlaSpmvCSR.c:242, fasp_dcsr_trans).  A boolean P never materializes:
+prolongation gathers ``x_c[agg]``, restriction segment-sums by ``agg``.
+P and R share one set of arrays: the COO form gathers and segment-sums,
+the banded form embeds the coarse vector at its C-points' fine
+positions and applies P as statically shifted reads plus a small COO
+remainder.  Every segment sum is an ``index_add_``, atomic on CUDA.
+Plain PyTorch.
 """
 from __future__ import annotations
 
@@ -29,6 +33,43 @@ from ...ops.operators import (_COO_PAD_ALIGN, _buf, _round_up, pack_bits,
 _MAX_SHIFTS = 40          # most fine-space shifts kept as bands
 _MAX_REM_FRAC = 0.2       # COO remainder holds at most this share of nnz
 _MAX_BYTES_RATIO = 3.0    # bands cost at most this multiple of COO bytes
+
+
+class _AggTransfer(nn.Module):
+    """A boolean transfer: ``agg[i]`` is fine dof i's aggregate."""
+
+    def __init__(self, agg, n_fine: int, n_coarse: int):
+        super().__init__()
+        self.register_buffer("agg", _buf(agg))       # int32
+        self.n_fine = int(n_fine)
+        self.n_coarse = int(n_coarse)
+
+
+class AggProlong(_AggTransfer):
+    """Boolean tentative prolongation: x_f = x_c[agg]."""
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_fine, self.n_coarse)
+
+    def forward(self, xc: torch.Tensor) -> torch.Tensor:
+        return xc.index_select(0, self.agg)
+
+    @classmethod
+    def from_agg(cls, agg: np.ndarray, n_coarse: int) -> "AggProlong":
+        return cls(as_tensor(agg.astype(np.int32)), len(agg), int(n_coarse))
+
+
+class AggRestrict(_AggTransfer):
+    """Boolean restriction (the transpose of AggProlong): a segment sum
+    by aggregate."""
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_coarse, self.n_fine)
+
+    def forward(self, rf: torch.Tensor) -> torch.Tensor:
+        return rf.new_zeros(self.n_coarse).index_add_(0, self.agg, rf)
 
 
 class _CooTransfer(nn.Module):

@@ -1,33 +1,66 @@
-"""AMG as a preconditioner operator for the Krylov layer (port of
-``AMGPrecond``, ``faspsolver_tpu/precond/preconditioners.py:24``).
+"""Preconditioner adapters: AMG hierarchies as operators for the Krylov
+layer (port of ``faspsolver_tpu/precond/preconditioners.py``).
 
 Reference: base/src/PreCSR.c (fasp_precond_amg :416 runs ``maxit``
-mgcycles).
+mgcycles; _amli :482; _namli :515; _famg :449; fasp_precond_amg_nk).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..constants import CycleType
-from .amg.cycles import mgcycle
+from .amg.cycles import cycle_fn, fmg_cycle, mgcycle
 from .amg.hierarchy import AMGHierarchy
 
 
 class AMGPrecond(nn.Module):
-    """z = (approx A^{-1}) r via ``maxit`` multigrid cycles (V/W family;
-    the AMLI cycles are not ported)."""
+    """z = (approx A^{-1}) r via ``maxit`` multigrid cycles of the
+    hierarchy's cycle type (reference: fasp_precond_amg, PreCSR.c:416)."""
 
     def __init__(self, hier: AMGHierarchy, maxit: int = 1):
         super().__init__()
-        if int(hier.cycle_type) in (int(CycleType.AMLI),
-                                    int(CycleType.NL_AMLI)):
-            raise NotImplementedError("AMLI cycles are not ported")
         self.hier = hier
         self.maxit = int(maxit)
 
     def forward(self, r: torch.Tensor) -> torch.Tensor:
+        cycle = cycle_fn(self.hier.cycle_type)
         z = None
         for _ in range(self.maxit):
+            z = cycle(self.hier, r, z)
+        return z
+
+
+class AMGNKPrecond(nn.Module):
+    """AMG preconditioner with an extra near-kernel correction (reference:
+    fasp_precond_amg_nk, PreCSR.c): z = MG(r); z += NK gram_inv NK^T
+    (r - A z), with ``nk`` the (n, m) near-kernel basis and ``gram_inv``
+    = (NK^T A NK)^{-1} formed at setup."""
+
+    def __init__(self, hier: AMGHierarchy, nk, gram_inv, A_op,
+                 maxit: int = 1):
+        super().__init__()
+        self.mg = AMGPrecond(hier, maxit)
+        self.register_buffer("nk", nk)
+        self.register_buffer("gram_inv", gram_inv)
+        self.A_op = A_op
+
+    def forward(self, r: torch.Tensor) -> torch.Tensor:
+        z = self.mg(r)
+        coeffs = self.gram_inv @ (self.nk.T @ (r - self.A_op(z)))
+        return z + self.nk @ coeffs
+
+
+class FMGPrecond(nn.Module):
+    """Full-multigrid preconditioner: one FMG cycle, then ``maxit - 1``
+    V-cycles (reference: fasp_precond_famg, PreCSR.c:449)."""
+
+    def __init__(self, hier: AMGHierarchy, maxit: int = 1):
+        super().__init__()
+        self.hier = hier
+        self.maxit = int(maxit)
+
+    def forward(self, r: torch.Tensor) -> torch.Tensor:
+        z = fmg_cycle(self.hier, r)
+        for _ in range(self.maxit - 1):
             z = mgcycle(self.hier, r, z)
         return z

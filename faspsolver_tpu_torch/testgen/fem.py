@@ -1,14 +1,13 @@
-"""P1 finite-element Poisson problems (port of ``TriMesh``,
-``unit_square_mesh``, ``_p1_geometry`` and ``assemble_poisson`` of
-``faspsolver_tpu/testgen/fem.py``).
+"""P1 finite-element mini-library: meshes, assembly, manufactured problems
+(port of ``faspsolver_tpu/testgen/fem.py``).
 
-Reference: the libfasptest FEM generator — test/src/FemMesh.c (mesh),
-FemQuadrature.c (triangle quadrature), FemPoisson.c (setup_poisson P1
-assembly), FemAssemble.c (Dirichlet elimination).  The 1025^2-node mesh
-gives the reference's stored-baseline problem: 1,046,529 interior dofs,
-7,317,521 nonzeros.  Host NumPy/SciPy only; the arrays are the JAX
-package's, bit for bit.
-"""
+Reference: the libfasptest FEM generator — test/src/FemMesh.c (mesh and
+uniform refinement), FemQuadrature.c (triangle quadrature), FemPoisson.c
+(setup_poisson P1 assembly, get_l2_error_poisson), FemHeatEqn.c
+(setup_heat), FemAssemble.c (Dirichlet elimination).  The 1025^2-node
+mesh gives the reference's stored-baseline problem: 1,046,529 interior
+dofs, 7,317,521 nonzeros.  Host NumPy/SciPy only; the arrays are the JAX
+package's, bit for bit."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -51,6 +50,35 @@ def unit_square_mesh(n: int) -> TriMesh:
     onb = ((nodes[:, 0] == 0) | (nodes[:, 0] == 1)
            | (nodes[:, 1] == 0) | (nodes[:, 1] == 1))
     return TriMesh(nodes=nodes, elems=elems, boundary=onb)
+
+
+def refine_uniform(mesh: TriMesh) -> TriMesh:
+    """One uniform (red) refinement: each triangle into 4
+    (reference: fasp_mesh_refine, FemMesh.c)."""
+    nodes = mesh.nodes
+    elems = mesh.elems
+    edge_mid = {}
+    new_nodes = [nodes]
+    next_id = len(nodes)
+
+    def mid(a, b):
+        nonlocal next_id
+        key = (min(a, b), max(a, b))
+        if key not in edge_mid:
+            edge_mid[key] = next_id
+            new_nodes.append(((nodes[a] + nodes[b]) / 2.0)[None, :])
+            next_id += 1
+        return edge_mid[key]
+
+    new_elems = []
+    for a, b, c in elems:
+        ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+        new_elems += [(a, ab, ca), (ab, b, bc), (ca, bc, c), (ab, bc, ca)]
+    nn = np.concatenate(new_nodes)
+    onb = ((nn[:, 0] == 0) | (nn[:, 0] == 1)
+           | (nn[:, 1] == 0) | (nn[:, 1] == 1))
+    return TriMesh(nodes=nn, elems=np.asarray(new_elems, dtype=np.int64),
+                   boundary=onb)
 
 
 _QUAD_RULES = {
@@ -131,3 +159,76 @@ def assemble_poisson(mesh: TriMesh,
         b = b - Afull @ ub
     Ai = Afull[interior][:, interior].tocsr()
     return CSRMatrix.from_scipy(Ai), b[interior], interior
+
+
+def l2_error(mesh: TriMesh, u_h: np.ndarray, interior: np.ndarray,
+             u_exact: Callable[[np.ndarray], np.ndarray],
+             quad_order: int = 3) -> float:
+    """||u_h - u||_L2 over the mesh (reference: get_l2_error_poisson,
+    FemPoisson.c).  u_h holds interior values; boundary filled from the
+    exact solution."""
+    nn = mesh.num_nodes
+    u = np.zeros(nn)
+    u[interior] = u_h
+    bmask = mesh.boundary
+    u[bmask] = u_exact(mesh.nodes[bmask])
+    area, _ = _p1_geometry(mesh)
+    lam, w = quad_points(quad_order)
+    pts = mesh.nodes[mesh.elems]
+    ue = u[mesh.elems]                           # (ne, 3)
+    err2 = 0.0
+    for lk, wk in zip(lam, w):
+        x = np.einsum("k,ekd->ed", lk, pts)
+        uh_q = ue @ lk
+        err2 += float(np.sum(wk * area * (uh_q - u_exact(x)) ** 2))
+    return float(np.sqrt(err2))
+
+
+def poisson_fe_manufactured(n: int
+                            ) -> Tuple[CSRMatrix, np.ndarray, TriMesh,
+                                       np.ndarray, Callable]:
+    """P1 FE Poisson with u = sin(pi x) sin(pi y) (the tutorial problem);
+    returns (A, b, mesh, interior, u_exact)."""
+    mesh = unit_square_mesh(n)
+
+    def u_exact(x):
+        return np.sin(np.pi * x[:, 0]) * np.sin(np.pi * x[:, 1])
+
+    def f(x):
+        return 2 * np.pi ** 2 * np.sin(np.pi * x[:, 0]) \
+            * np.sin(np.pi * x[:, 1])
+
+    A, b, interior = assemble_poisson(mesh, f, u_exact)
+    return A, b, mesh, interior, u_exact
+
+
+def assemble_mass(mesh: TriMesh) -> sp.csr_matrix:
+    """P1 consistent mass matrix."""
+    area, _ = _p1_geometry(mesh)
+    Mloc = (np.ones((3, 3)) + np.eye(3)) / 12.0    # int lambda_i lambda_j
+    M = np.einsum("e,ij->eij", area, Mloc)
+    rows = np.repeat(mesh.elems, 3, axis=1).reshape(-1)
+    cols = np.tile(mesh.elems, (1, 3)).reshape(-1)
+    nn = mesh.num_nodes
+    return sp.coo_matrix((M.reshape(-1), (rows, cols)),
+                         shape=(nn, nn)).tocsr()
+
+
+def heat_backward_euler_system(mesh: TriMesh, dt: float
+                               ) -> Tuple[CSRMatrix, sp.csr_matrix,
+                                          np.ndarray]:
+    """(M + dt K) for backward-Euler heat stepping on interior nodes
+    (reference: setup_heat, FemHeatEqn.c builds the same per-step system).
+    Returns (system, interior mass, interior ids)."""
+    area, g = _p1_geometry(mesh)
+    nn = mesh.num_nodes
+    K = np.einsum("eid,ejd->eij", g, g) * area[:, None, None]
+    rows = np.repeat(mesh.elems, 3, axis=1).reshape(-1)
+    cols = np.tile(mesh.elems, (1, 3)).reshape(-1)
+    Kfull = sp.coo_matrix((K.reshape(-1), (rows, cols)),
+                          shape=(nn, nn)).tocsr()
+    Mfull = assemble_mass(mesh)
+    interior = np.nonzero(~mesh.boundary)[0]
+    Ai = (Mfull + dt * Kfull)[interior][:, interior].tocsr()
+    Mi = Mfull[interior][:, interior].tocsr()
+    return CSRMatrix.from_scipy(Ai), Mi, interior

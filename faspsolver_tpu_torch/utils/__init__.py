@@ -1,4 +1,13 @@
 from .errors import FaspError, chkerr
-from .params import AMGParam, ITSParam
+from .messages import (amg_complexity, cputime, gettime, itinfo, message,
+                       set_output, timed, warn)
+from .params import (AMGParam, ILUParam, ITSParam, InputParam, SWZParam,
+                     apply_cli_overrides, param_init, parse_ini)
 
-__all__ = ["AMGParam", "FaspError", "ITSParam", "chkerr"]
+__all__ = [
+    "FaspError", "chkerr",
+    "amg_complexity", "cputime", "gettime", "itinfo", "message",
+    "set_output", "timed", "warn",
+    "AMGParam", "ILUParam", "ITSParam", "InputParam", "SWZParam",
+    "apply_cli_overrides", "param_init", "parse_ini",
+]

@@ -139,3 +139,34 @@ def test_rs_refined_solve_runs_through_the_kernel():
     assert stencil2d.launches[torch.float64] > 0
     x = out.x.cpu().numpy()
     assert np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b) < 1e-6
+
+
+def _drivers_on(device, fn, **kw):
+    from faspsolver_tpu_torch import solvers
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    A = poisson_2d(63)
+    b = np.random.default_rng(6).standard_normal(A.nrow)
+    res = getattr(solvers, fn)(A, b, device=device, **kw)
+    return res[0] if isinstance(res, tuple) else res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,kw", [
+    ("krylov_amg", {}),
+    ("solve_amg", dict(amli=True))], ids=["krylov_amg-RS-GS", "solve_amg-AMLI"])
+def test_drivers_on_the_card_match_the_cpu(fn, kw):
+    """CG + RS-AMG with C/F-ordered GS, and AMLI AMG as a solver, at 63^2
+    in f64: the card takes the CPU's iterations, x within 1e-10, and the
+    RS fine level runs the f64 kernel."""
+    _need_cuda()
+    from faspsolver_tpu_torch.utils.params import AMGParam, ITSParam
+    args = dict(amg=AMGParam(cycle_type=3, amli_degree=3, maxit=40,
+                             tol=1e-10)) if kw else \
+        dict(its=ITSParam(tol=1e-10), amg=AMGParam())
+    cpu = _drivers_on("cpu", fn, **args)
+    stencil2d.reset_launches()
+    card = _drivers_on("cuda", fn, **args)
+    assert stencil2d.launches[torch.float64] > 0
+    assert card.x.is_cuda and card.converged
+    assert card.iters == cpu.iters
+    assert float((card.x.cpu() - cpu.x).abs().max()) < 1e-10

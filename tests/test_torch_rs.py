@@ -18,7 +18,6 @@ import pytest
 import torch
 from native_parity import ensure_native
 
-from faspsolver_tpu.constants import SmootherType as JaxSmootherType
 from faspsolver_tpu.formats import CSRMatrix as JaxCSRMatrix
 from faspsolver_tpu.krylov import pcg as jax_pcg
 from faspsolver_tpu.ops import operators as jax_ops
@@ -435,8 +434,8 @@ def test_not_ported_branches_raise():
     A, _ = _fe(65)
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         setup_rs(A, AMGParam(**dict(KW, ILU_levels=1)))
-    with pytest.raises(NotImplementedError, match="Gauss-Seidel"):
-        build_smoother(A, int(JaxSmootherType.GS))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        setup_rs(A, AMGParam(**dict(KW, SWZ_levels=1)))
     marker, S = coarsen(A, 0.3, 0.9)
     with pytest.raises(NotImplementedError, match="energy-minimizing"):
         interpolate(A, marker, S, interp_type=int(InterpType.ENERGYMIN))
