@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # the full check (one GPU)
     python3 chip_smoke.py --profile    # plus a torch.profiler pass over one solve
+    python3 chip_smoke.py --kernel-only  # phases 1-3, then stop
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -18,7 +19,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    card, then f64 refinement around f32 AMG-PCG (tol 1e-6, 4 rounds, 40
    inner iterations), verified on the host in f64; plus a small solve
    checked against scipy's direct solver;
-5. per-apply times of kernel and plain version with CUDA events;
+5. per-apply times of kernel and plain version with CUDA events, each
+   beside its roofline bound, an empty kernel on the same grid (what a
+   launch costs) and, for the scalar form, ``F.conv2d`` (the one library
+   call that computes the same function; timed here, used nowhere in the
+   port): the main paths' operators, the scalar and full forms at 1023^2,
+   and the scalar 5-point stencil and a 1-band stream probe at 4096^2 and
+   8192^2 (beyond the L2);
 6. the general path at full size: the P1-FE Poisson matrix of
    unit_square_mesh(1024) (1,046,529 dof, 7,317,521 nonzeros) through
    classical RS-AMG (aggressive first level, standard interpolation,
@@ -32,7 +39,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``bamg.dat`` through the port's CLI (``__main__.main``) on
    poisson_2d(1023) in float64, each held to the JAX CLI's iteration
    count and verified relres < 1e-6, then timed again as setup and solve;
-   then one float64 solve per new Krylov method, cycle, smoother and
+   ``input.dat`` once more through the CLI with no device argument, which
+   must run on the card; then one float64 solve per new Krylov method, cycle, smoother and
    setup on poisson_fe_manufactured(64), each held to its JAX anchor.
 
 Phases 4, 6 and 7 run each solve once to warm up, then time it with the
@@ -134,6 +142,14 @@ def sync(torch, device):
         torch.cuda.synchronize()
 
 
+def launch_counts():
+    """The stencil wrapper's launch counts since they were last set to 0,
+    by element type."""
+    from faspsolver_tpu_torch.ops import stencil2d
+    return {str(k).replace("torch.", ""): v
+            for k, v in stencil2d.launches.items()}
+
+
 def sh(cmd):
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
     return (out.stdout + out.stderr).strip()
@@ -162,9 +178,38 @@ def build():
     t2 = time.perf_counter()
     print(f"build: stencil2d (nvcc) {t1 - t0:.2f} s, fasp_native (g++) "
           f"{t2 - t1:.2f} s")
-    for line in BUILD_LOG["stencil2d"][2].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    print_ptxas(BUILD_LOG["stencil2d"][2])
+
+
+def print_ptxas(log, fail_on_spill=True):
+    """Registers, shared memory and spills of every kernel as ptxas -v
+    reports them; a spill is a fault.  ``log`` is empty when the library
+    was found already built."""
+    import re
+    if not log:
+        print("  library already built here: no compiler output")
+        return
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            print("  ptxas:", demangle(m.group(1)))
+        elif "registers" in line or "spill" in line:
+            print("  ptxas:  ", line.replace("ptxas info    :", "").strip())
+    spills = [int(v) for v in re.findall(r"(\d+) bytes spill", log)]
+    if fail_on_spill:
+        check(spills and not any(spills),
+              f"ptxas reports no spills: {spills}")
+
+
+def demangle(name):
+    """A readable name for a mangled kernel entry (no c++filt needed)."""
+    import re
+    m = re.search(r"stencil2dI([fd])Li(\d)ELb([01])EE", name)
+    if not m:
+        return "empty_kernel" if "empty_kernel" in name else name
+    ty = {"f": "float", "d": "double"}[m.group(1)]
+    per_row = {"0": "false", "1": "true"}[m.group(3)]
+    return f"stencil2d<{ty}, {m.group(2)}, {per_row}>"
 
 
 # ---------------------------------------------------------------------------
@@ -376,8 +421,7 @@ def drive(torch, device, A, b, hier, refine, anchor, profile=False):
     out = solve(torch, hier, b64, refine)
     x = out.x.cpu().numpy()
     solve_s = time.perf_counter() - t0
-    counts = {str(k).replace("torch.", ""): v
-              for k, v in stencil2d.launches.items()}
+    counts = launch_counts()
 
     check(x.shape == (A.nrow,) and bool(np.isfinite(x).all()),
           "finite x of the expected shape")
@@ -510,8 +554,9 @@ def profile_solve(torch, hier, b64, refine=HEADLINE_REFINE):
 # ---------------------------------------------------------------------------
 
 def cli(torch, device, argv):
-    """The port's CLI entry on ``device`` in float64: its exit code, the
-    iteration count and verified relres it printed, and its wall time."""
+    """The port's CLI entry on ``device`` (None: the CLI's own default)
+    in float64: its exit code, the iteration count and verified relres it
+    printed, and its wall time."""
     import io
     from faspsolver_tpu_torch.__main__ import main
     buf = io.StringIO()
@@ -583,8 +628,7 @@ def ini_setup_and_solve(torch, device, ini, A, b):
                    dtype=torch.float64, device=device)
     x = res.x.cpu().numpy()
     solve_s = time.perf_counter() - t0
-    counts = {str(k).replace("torch.", ""): v
-              for k, v in stencil2d.launches.items()}
+    counts = launch_counts()
     relres = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
     levels = ", ".join(f"{type(l.A).__name__}({l.A.shape[0]})"
                        for l in hier.levels)
@@ -619,8 +663,7 @@ def drivers_path(torch, device):
             stencil2d.reset_launches()
             rc, iters, relres, wall = cli(torch, device, [
                 "-ini", ini, "-problem", "poisson2d", "-size", str(NX)])
-            cli_counts = {str(k).replace("torch.", ""): v
-                          for k, v in stencil2d.launches.items()}
+            cli_counts = launch_counts()
             for k in counts:
                 counts[k] += cli_counts[k]
             r = ini_setup_and_solve(torch, device, ini, A, b)
@@ -643,6 +686,27 @@ def drivers_path(torch, device):
                       "input.dat's solve launched the f64 kernel")
             readings[name] = {"cli_s": wall, "cli_iters": iters,
                               "cli_relres": relres, **r}
+
+        # the CLI as a user types it, with no device argument: it must
+        # run on the card (only a CUDA launch raises the counts)
+        stencil2d.reset_launches()
+        rc, iters, relres, wall = cli(torch, None, [
+            "-ini", "ini/input.dat", "-problem", "poisson2d", "-size",
+            str(NX)])
+        default_counts = launch_counts()
+        n64 = default_counts["float64"]
+        for k in counts:
+            counts[k] += default_counts[k]
+        print(f"  ini/input.dat, no device argument: CLI rc {rc}, {iters} "
+              f"iterations, verified relres {relres:.6e}, {wall:.3f} s, "
+              f"f64 stencil launches {n64}")
+        check(rc == 0 and relres < TOL and n64 > 0
+              and iters == readings["input"]["cli_iters"],
+              f"the CLI without a device argument ran on the card: rc {rc}, "
+              f"{iters} iterations, {n64} f64 launches")
+        readings["input_default_device"] = {
+            "cli_s": wall, "cli_iters": iters, "cli_relres": relres,
+            "launches": {"float64": n64}}
 
         A, b, *_ = poisson_fe_manufactured(64)
         grid = {}
@@ -712,33 +776,129 @@ def time_ms(torch, fn, x, reps=200, tries=5, graph=False):
     return best
 
 
-def apply_times(torch, ops, smi):
+def scalar_op(torch, dims, coords, coefs, dtype):
+    """A constant-coefficient StencilNdOperator on the card (K1's form)."""
+    import numpy as np
+    from faspsolver_tpu_torch.ops.operators import StencilNdOperator
+    np_dt = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    return StencilNdOperator([np.full((1, 1), c, dtype=np_dt) for c in coefs],
+                             coords, dims).to("cuda")
+
+
+def conv2d_library(torch, op):
+    """``F.conv2d`` computing a scalar-form operator's apply: a 3 x 3
+    weight with each band's coefficient at its offset, padding 1.  cuDNN's
+    TF32 convolutions are switched off, so f32 is computed in f32."""
+    import torch.nn.functional as F
+    torch.backends.cudnn.allow_tf32 = False
+    ny, nx = op.dims
+    weight = torch.zeros(1, 1, 3, 3, dtype=op.dtype, device="cuda")
+    for b, (dy, dx) in zip(op.bands, op.coords):
+        weight[0, 0, dy + 1, dx + 1] = b.reshape(())
+    return lambda v: F.conv2d(v.view(1, 1, ny, nx), weight, padding=1)
+
+
+def apply_times(torch, ops, smi, reps=200, tries=5, eager=True,
+                library=False):
     """Per-apply times of each (label, operator) through the kernel and
-    through the plain version, in turns: plain, kernel, kernel, plain."""
+    through the plain version, in turns: plain, kernel, kernel, plain;
+    beside them the roofline bound from the plan's bytes, an empty kernel
+    on the kernel's grid, ``torch.mul`` on the same vector (what the card
+    does in practice with one read and one write of it) and, with
+    ``library``, ``F.conv2d``."""
     from faspsolver_tpu_torch.ops import stencil2d
     rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, op in ops:
         plan = op.plan()
         x = torch.ones(op.n, dtype=op.dtype, device="cuda")
+        grid = stencil2d.stencil_tiling(plan.dims, op.dtype.itemsize,
+                                        sms).grid
 
         def plain(v, plan=plan):
             return stencil2d.stencil2d_plain(v.view(plan.dims), plan.bands,
                                              plan.coords)
 
+        def empty(v, grid=grid):
+            stencil2d.launch_empty(grid, v.device)
+
+        def scale(v):
+            return v * 0.9995
+
         ts = {}
-        for graph in (True, False):
-            p1 = time_ms(torch, plain, x, graph=graph)
-            k1 = time_ms(torch, plan, x, graph=graph)
-            k2 = time_ms(torch, plan, x, graph=graph)
-            p2 = time_ms(torch, plain, x, graph=graph)
+        for graph in (True, False) if eager else (True,):
+            kw = dict(reps=reps, tries=tries, graph=graph)
+            p1 = time_ms(torch, plain, x, **kw)
+            k1 = time_ms(torch, plan, x, **kw)
+            k2 = time_ms(torch, plan, x, **kw)
+            p2 = time_ms(torch, plain, x, **kw)
             ts[graph] = (min(k1, k2), min(p1, p2))
-        rows[label] = ts[True]
-        (kg, pg), (ke, pe) = ts[True], ts[False]
-        print(f"  {label}: device time (graph replay) kernel "
-              f"{kg * 1e3:.2f} us, plain {pg * 1e3:.2f} us; eager "
-              f"(host enqueue included) kernel {ke * 1e3:.2f} us, plain "
-              f"{pe * 1e3:.2f} us per apply (best of 5 x 200, CUDA events; "
+        kg, pg = ts[True]
+        bound = stencil2d.stencil_bound_us(plan.dims, op.dtype, plan.bands)
+        row = {"ms": kg, "plain_ms": pg, "bound_ms": bound.us / 1e3,
+               "bound_by": bound.by, "bytes": bound.bytes, "grid": grid,
+               "floor_ms": time_ms(torch, empty, x, reps=reps, tries=tries,
+                                   graph=True),
+               "elementwise_ms": time_ms(torch, scale, x, reps=reps,
+                                         tries=tries, graph=True),
+               "library_ms": None}
+        text = (f"  {label}: device time (graph replay) kernel "
+                f"{kg * 1e3:.2f} us, plain {pg * 1e3:.2f} us, bound "
+                f"{bound.us:.2f} us ({bound.bytes / 1e6:.2f} MB, by "
+                f"{bound.by}; kernel at {bound.us / (kg * 1e3):.0%} of it, "
+                f"{bound.bytes / kg / 1e9:.3f} TB/s), empty kernel on "
+                f"{grid} blocks {row['floor_ms'] * 1e3:.2f} us, torch.mul "
+                f"(x read once, y written once: the scalar and factored "
+                f"forms' traffic) {row['elementwise_ms'] * 1e3:.2f} us")
+        if library:
+            lib = conv2d_library(torch, op)
+            err = float((lib(x).reshape(-1) - plan(x)).abs().max())
+            check(err <= 1e-5 * stencil_bound(op, x),
+                  f"conv2d computes the same function: {label}: {err}")
+            row["library_ms"] = time_ms(torch, lib, x, reps=reps,
+                                        tries=tries, graph=True)
+            text += (f", library F.conv2d (cudnn.allow_tf32=False) "
+                     f"{row['library_ms'] * 1e3:.2f} us")
+        if eager:
+            ke, pe = ts[False]
+            text += (f"; eager (host enqueue included) kernel "
+                     f"{ke * 1e3:.2f} us, plain {pe * 1e3:.2f} us")
+        print(f"{text} per apply (best of {tries} x {reps}, CUDA events; "
               f"{smi})")
+        rows[label] = row
+    return rows
+
+
+def form_times(torch, device, smi):
+    """Phase 5's rows beyond the main paths' operators: the scalar form
+    (K1's) with its library call and the full form (K2's) at 1023^2, then
+    the scalar 5-point stencil and the 1-band stream probe above the L2
+    (4096^2, 8192^2: bench.py's HBM probes), each with its library call,
+    few repetitions there since every apply in a captured graph keeps its
+    own y."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    coefs5 = (-0.2499, -0.2499, 0.99999, -0.2499, -0.2499)
+    rows = {}
+    for dt, tdt in (("f32", torch.float32), ("f64", torch.float64)):
+        rows.update(apply_times(torch, [
+            (f"1023^2 {dt} scalar 5-pt",
+             scalar_op(torch, (NX, NX), coords_5pt(), coefs5, tdt))],
+            smi, eager=False, library=True))
+        rows.update(apply_times(torch, [
+            (f"1023^2 {dt} full 5-pt",
+             make_op("full", (NX, NX), coords_5pt(), dt, rng).to(device))],
+            smi, eager=False))
+    for nh in (4096, 8192):
+        rows.update(apply_times(torch, [
+            (f"{nh}^2 f32 scalar 5-pt",
+             scalar_op(torch, (nh, nh), coords_5pt(), coefs5,
+                       torch.float32)),
+            (f"{nh}^2 f32 scalar 1-band stream probe",
+             scalar_op(torch, (nh, nh), ((0, 1),), (0.9995,),
+                       torch.float32))],
+            smi, reps=10, tries=3, eager=False, library=True))
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -756,6 +916,9 @@ def main(argv) -> int:
     build()
     print("== 3. kernel against plain version")
     worst = check_kernel(torch, device)
+    if "--kernel-only" in argv:
+        print("stopped after phase 3 (--kernel-only)")
+        return 0
     counts, res = {}, {}
     print("== 4. main path: headline")
     hier, counts["headline"], res["headline"] = main_path(torch, device,
@@ -767,6 +930,7 @@ def main(argv) -> int:
         ("341^2 f32 factored 9-pt", hier.levels[1].A),
         ("1023^2 f64 factored 5-pt", hier.fine64)), smi)
     del hier
+    times.update(form_times(torch, device, smi))
     print("== 6. main path: general (classical RS-AMG, P1-FE)")
     A, b = fe_problem()
     hier, counts["general"], res["general"] = general_path(
@@ -790,20 +954,30 @@ def main(argv) -> int:
     print("== 8. main path: drivers (the ini CLI, then the small grid)")
     counts["drivers"], res["drivers"] = drivers_path(torch, device)
 
+    # one entry per kernel, stencil2d<T, K> by element type (the band
+    # count K is the operator's); its times are those of the main paths'
+    # 1023^2 5-point factored operator, for which no single library call
+    # exists, and library_ms that of the 1023^2 scalar 5-point operator,
+    # the one form F.conv2d computes; every timed shape is under "shapes"
     src = "faspsolver_tpu_torch/csrc/stencil2d.cu"
     kernels = []
     for dt, tname, cname, repl, also in (
             ("f32", "float", "float32", "k1", "k2"),
             ("f64", "double", "float64", "k2", "k1")):
-        k5, p5 = times[f"1023^2 {dt} factored 5-pt"]
-        k7, p7 = times[f"1023^2 {dt} factored 7-pt FE"]
+        main_row = times[f"1023^2 {dt} factored 5-pt"]
         by_path = {path: c[cname] for path, c in counts.items()}
         kernels.append({
-            "name": f"stencil2d<{tname}>", "route": "cuda", "source": src,
-            "replaces": REPLACES[repl], "also_replaces": REPLACES[also],
+            "name": f"stencil2d<{tname}>", "route": "cuda",
+            "source": src, "replaces": REPLACES[repl],
+            "also_replaces": REPLACES[also],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": worst[dt], "ms": k5, "plain_ms": p5,
-            "ms_fe7": k7, "plain_ms_fe7": p7})
+            "max_abs_err": worst[dt],
+            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
+            "library_ms": times[f"1023^2 {dt} scalar 5-pt"]["library_ms"],
+            "library_of": f"1023^2 {dt} scalar 5-pt",
+            "shapes": {label: row for label, row in times.items()
+                       if f" {dt} " in label}})
     print(json.dumps({"kernels": kernels, "main_paths": res}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

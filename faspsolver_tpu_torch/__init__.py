@@ -9,11 +9,16 @@ module.  This package imports ``torch`` and never
 ``jax`` (nor ``faspsolver_tpu``, whose ``__init__`` imports jax).
 
 Device and dtype policy (stands in for the JAX package's
-``default_dtype``, which follows ``jax_enable_x64``): every constructor
-and setup function takes ``dtype`` and ``device`` explicitly.  ``None``
-means float64 (the reference's REAL=double, conformance mode) and the
-CPU.  The performance mode passes ``torch.float32``; a hierarchy is built
-on the host and moved in one call with ``hier.to(device)``.
+``default_dtype``, which follows ``jax_enable_x64``, and its ambient
+device): every entry point takes ``dtype`` and ``device`` explicitly.
+``dtype=None`` means float64 (the reference's REAL=double).  The drivers
+and the CLI run on the CUDA device unless the caller asks for the CPU
+(``device="cpu"`` / ``-device cpu``): ``device=None`` follows an operator
+or hierarchy that was passed in already on a device, else
+:func:`default_device`, which raises where there is no CUDA device.  The
+``setup_*`` functions are the exception: their ``device=None`` builds on
+the host and returns the hierarchy there, to be moved in one call with
+``hier.to(device)``.  The performance mode passes ``torch.float32``.
 """
 from __future__ import annotations
 
@@ -26,6 +31,16 @@ __version__ = "0.1.0"
 def default_dtype() -> torch.dtype:
     """float64: conformance mode; performance callers pass float32."""
     return torch.float64
+
+
+def default_device() -> torch.device:
+    """The CUDA device; where there is none it raises instead of running
+    on the CPU unasked."""
+    if torch.cuda.is_available():
+        return torch.device("cuda")
+    raise RuntimeError(
+        "no CUDA device is available; pass device=\"cpu\" (CLI: -device "
+        "cpu) to run on the CPU")
 
 
 def torch_dtype(dtype) -> torch.dtype:

@@ -8,13 +8,14 @@ Usage:
     python -m faspsolver_tpu_torch -ini ini/input.dat
     python -m faspsolver_tpu_torch -solver 1 -precond 2 -maxit 200 \
         -tol 1e-8 -mat data/csrmat_FE.dat -rhs data/rhs_FE.dat
-    python -m faspsolver_tpu_torch -problem poisson2d -size 255
+    python -m faspsolver_tpu_torch -problem poisson2d -size 255 -device cpu
 
 Problems: explicit -mat/-rhs files, or generated (-problem poisson2d|
-poisson3d|fe2d with -size N).  The default is the conformance mode, the
-CPU in float64; ``FASP_TPU_F32=1`` selects the performance mode, the
-CUDA device in float32.  ``main`` also takes the device and dtype
-explicitly.
+poisson3d|fe2d with -size N).  The solve runs on the CUDA device in
+float64; ``-device cpu`` asks for the CPU (without a CUDA device and
+without that flag the run raises), and ``FASP_TPU_F32=1`` selects
+float32.  ``main`` also takes the device and dtype as arguments; the
+flag and the variable apply only where those are ``None``.
 """
 from __future__ import annotations
 
@@ -27,10 +28,10 @@ import torch
 
 
 def main(argv, device=None, dtype=None) -> int:
-    if device is None and dtype is None \
-            and os.environ.get("FASP_TPU_F32") == "1":
-        device, dtype = "cuda", torch.float32
+    if dtype is None and os.environ.get("FASP_TPU_F32") == "1":
+        dtype = torch.float32
 
+    from . import default_device
     from .constants import PrecondType
     from .io import read_csrvec, read_mtx, read_vec
     from .solvers import (krylov, krylov_amg, krylov_diag, krylov_ilu,
@@ -43,11 +44,14 @@ def main(argv, device=None, dtype=None) -> int:
     # split off driver-only flags before the reference flag parser
     args = list(argv)
     extra = {}
-    for key in ("-mat", "-rhs", "-problem", "-size"):
+    for key in ("-mat", "-rhs", "-problem", "-size", "-device"):
         if key in args:
             i = args.index(key)
             extra[key[1:]] = args[i + 1]
             del args[i:i + 2]
+
+    if device is None:
+        device = extra.get("device") or default_device()
 
     inp = apply_cli_overrides(args)
     its, amg, ilu, swz = param_init(inp)

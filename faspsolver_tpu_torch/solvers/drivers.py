@@ -6,9 +6,12 @@ Reference: base/src/SolCSR.c (fasp_solver_dcsr_itsolver :56, _krylov
 SolAMG.c:49 (fasp_solver_amg with its GMRES fallback :128-135),
 SolFAMG.c.
 
-Every driver takes ``dtype`` and ``device`` (``None``: float64 and the
-CPU).  It builds on the host, moves what it built with ``.to(device)``
-and returns a ``SolveResult`` whose ``x`` lies on ``device``.  The BSR,
+Every driver takes ``dtype`` (``None``: float64) and ``device``
+(``None``: the device of an operator or preconditioner passed in already
+on one, else the CUDA device; without one it raises, and ``"cpu"`` asks
+for the CPU).  It builds on the host, moves what it built with
+``.to(device)`` and returns a ``SolveResult`` whose ``x`` lies on
+``device``.  The BSR,
 STR and BLC branches and the ILU, Schwarz, block and sweeping drivers
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
@@ -20,7 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .. import as_tensor, torch_dtype
+from .. import as_tensor, default_device, torch_dtype
 from ..constants import AMGType, SolverType
 from ..formats import BLCMatrix, BSRMatrix, CSRMatrix, STRMatrix
 from ..krylov import (JacobiPrecond, SolveResult, bicgstab, gcg, gcr, gmres,
@@ -80,21 +83,26 @@ def _check_host(A):
         _unported(A, 11)
 
 
-def _as_operator(A, dtype=None, device=None):
-    """The device operator of a host CSR matrix, or A itself when it is
-    already an operator."""
-    _check_host(A)
-    if isinstance(A, CSRMatrix):
-        return device_operator(A, dtype=dtype).to(device or "cpu")
-    return A
-
-
-def _device_of(op, device):
+def _resolve_device(device, *placed) -> torch.device:
+    """``device`` when given; else the device of the first of ``placed``
+    (operators, preconditioners) that already holds tensors; else the
+    CUDA device (``default_device`` raises where there is none)."""
     if device is not None:
         return torch.device(device)
-    for t in (op.buffers() if isinstance(op, torch.nn.Module) else ()):
-        return t.device
-    return torch.device("cpu")
+    for obj in placed:
+        if isinstance(obj, torch.nn.Module):
+            for t in obj.buffers():
+                return t.device
+    return default_device()
+
+
+def _as_operator(A, dtype, device):
+    """The operator of a host CSR matrix on ``device``, or A itself when
+    it is already an operator."""
+    _check_host(A)
+    if isinstance(A, CSRMatrix):
+        return device_operator(A, dtype=dtype).to(device)
+    return A
 
 
 def _vec(v, dtype, device) -> Optional[torch.Tensor]:
@@ -111,8 +119,8 @@ def itsolver(A, b, x0=None, M=None, its: Optional[ITSParam] = None,
     already on ``device`` (reference: fasp_solver_dcsr_itsolver,
     SolCSR.c:56)."""
     its = its or ITSParam()
+    device = _resolve_device(device, A, M)
     op = _as_operator(A, dtype, device)
-    device = _device_of(op, device)
     dt = getattr(op, "dtype", None) or torch_dtype(dtype)
     b = _vec(b, dt, device)
     x0 = _vec(x0, dt, device)
@@ -166,7 +174,8 @@ def krylov_diag(A, b, x0=None, its: Optional[ITSParam] = None, dtype=None,
     _check_host(A)
     if not isinstance(A, CSRMatrix):
         raise FaspError(-41, "krylov_diag needs a host matrix")
-    M = JacobiPrecond.from_csr(A, dtype).to(device or "cpu")
+    device = _resolve_device(device)
+    M = JacobiPrecond.from_csr(A, dtype).to(device)
     return itsolver(A, b, x0=x0, M=M, its=its, dtype=dtype, device=device)
 
 
@@ -189,10 +198,10 @@ def krylov_amg(A, b, x0=None, its: Optional[ITSParam] = None,
     its = its or ITSParam()
     amg = amg or AMGParam()
     _check_host(A)
-    hier = _amg_setup_by_type(A, amg, dtype).to(device or "cpu")
-    res = itsolver(_as_operator(A, dtype, device), b, x0=x0,
-                   M=AMGPrecond(hier, maxit=amg.maxit), its=its,
-                   dtype=dtype, device=device)
+    device = _resolve_device(device)
+    hier = _amg_setup_by_type(A, amg, dtype).to(device)
+    res = itsolver(A, b, x0=x0, M=AMGPrecond(hier, maxit=amg.maxit),
+                   its=its, dtype=dtype, device=device)
     return res, hier
 
 
@@ -204,6 +213,7 @@ def solve_amg(A: CSRMatrix, b, x0=None, amg: Optional[AMGParam] = None,
     a fault on the device raises."""
     amg = amg or AMGParam()
     _check_host(A)
+    device = _resolve_device(device)
     try:
         hier = _amg_setup_by_type(A, amg, dtype)
     except _SETUP_ERRORS as e:
@@ -211,11 +221,10 @@ def solve_amg(A: CSRMatrix, b, x0=None, amg: Optional[AMGParam] = None,
         its = ITSParam(itsolver_type=int(SolverType.GMRES), tol=amg.tol,
                        maxit=max(amg.maxit, 100))
         return itsolver(A, b, x0=x0, its=its, dtype=dtype, device=device)
-    hier = hier.to(device or "cpu")
+    hier = hier.to(device)
     dt = hier.levels[0].A.dtype
-    return amg_solve(hier, _vec(b, dt, device or "cpu"),
-                     _vec(x0, dt, device or "cpu"), tol=amg.tol,
-                     maxit=amg.maxit)
+    return amg_solve(hier, _vec(b, dt, device), _vec(x0, dt, device),
+                     tol=amg.tol, maxit=amg.maxit)
 
 
 def solve_famg(A: CSRMatrix, b, x0=None, amg: Optional[AMGParam] = None,
@@ -223,8 +232,9 @@ def solve_famg(A: CSRMatrix, b, x0=None, amg: Optional[AMGParam] = None,
     """Full AMG as a solver (reference: fasp_solver_famg, SolFAMG.c:41)."""
     amg = amg or AMGParam()
     _check_host(A)
-    hier = _amg_setup_by_type(A, amg, dtype).to(device or "cpu")
-    return famg_solve(hier, _vec(b, hier.levels[0].A.dtype, device or "cpu"),
+    device = _resolve_device(device)
+    hier = _amg_setup_by_type(A, amg, dtype).to(device)
+    return famg_solve(hier, _vec(b, hier.levels[0].A.dtype, device),
                       tol=amg.tol, maxit=amg.maxit)
 
 
@@ -238,15 +248,16 @@ def krylov_amg_nk(A: CSRMatrix, b, nk, x0=None,
     its = its or ITSParam()
     amg = amg or AMGParam()
     _check_host(A)
+    device = _resolve_device(device)
     hier = _amg_setup_by_type(A, amg, dtype)
-    op = _as_operator(A, dtype)
+    op = _as_operator(A, dtype, "cpu")
     nk = np.atleast_2d(np.asarray(nk, dtype=np.float64))
     if nk.shape[0] != A.nrow:
         nk = nk.T
     gram_inv = np.linalg.pinv(nk.T @ A.to_scipy().dot(nk))
     M = AMGNKPrecond(hier, as_tensor(nk, op.dtype),
                      as_tensor(gram_inv, op.dtype), op,
-                     maxit=amg.maxit).to(device or "cpu")
+                     maxit=amg.maxit).to(device)
     res = itsolver(M.A_op, b, x0=x0, M=M, its=its, dtype=dtype,
                    device=device)
     return res, M.mg.hier

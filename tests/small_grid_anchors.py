@@ -39,7 +39,7 @@ def run(pkg: str, cfg, A, b):
     else:
         import faspsolver_tpu_torch.solvers as solvers
         from faspsolver_tpu_torch.utils import params
-    kw = {}
+    kw = {} if pkg == "jax" else {"device": "cpu"}
     if its is not None:
         kw["its"] = params.ITSParam(**its)
     if amg is not None:

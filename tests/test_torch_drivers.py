@@ -68,14 +68,16 @@ def test_every_solver_type_through_itsolver(stype):
     kw = dict(itsolver_type=stype, tol=1e-10, maxit=200, restart=20)
     M, jM = from_jax(JaxAMGPrecond(p["hj"])), JaxAMGPrecond(p["hj"])
     if stype in (1, 2, 3, 4, 5, 6, 7, 8, 11, 12, 13, 14, 15, 16):
-        got = solvers.itsolver(p["A"], p["b"], M=M, its=ITSParam(**kw))
+        got = solvers.itsolver(p["A"], p["b"], M=M, its=ITSParam(**kw),
+                               device="cpu")
         ref = jax_solvers.itsolver(p["Aj"], p["b"], M=jM,
                                    its=jax_params.ITSParam(**kw))
         _assert_same(got, ref)
         assert got.converged and got.x.dtype == torch.float64
     else:
         with pytest.raises(FaspError) as e:
-            solvers.itsolver(p["A"], p["b"], M=M, its=ITSParam(**kw))
+            solvers.itsolver(p["A"], p["b"], M=M, its=ITSParam(**kw),
+                             device="cpu")
         assert e.value.code == -40
         with pytest.raises(RuntimeError, match="-40"):
             jax_solvers.itsolver(p["Aj"], p["b"], M=jM,
@@ -108,7 +110,7 @@ def test_ported_drivers_match_jax(driver, kw):
         nk = np.ones((p["A"].nrow, 1))
         args.append(nk)
         jargs.append(nk)
-    mine, theirs = {}, {}
+    mine, theirs = {"device": "cpu"}, {}
     if "its" in kw:
         mine["its"] = ITSParam(**kw["its"])
         theirs["its"] = jax_params.ITSParam(**kw["its"])
@@ -133,6 +135,62 @@ def test_drivers_take_dtype_and_device():
     assert all(t.dtype != torch.float64 for t in hier.buffers())
 
 
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+NO_DEVICE_CALLS = [
+    ("itsolver", {}), ("itsolver_s", {}), ("krylov", {}), ("krylov_s", {}),
+    ("krylov_diag", {}), ("krylov_amg", {}), ("solve_amg", {}),
+    ("solve_famg", {}), ("krylov_amg_nk", {"nk": True})]
+
+
+@pytest.mark.parametrize("driver,kw", NO_DEVICE_CALLS,
+                         ids=[d for d, _ in NO_DEVICE_CALLS])
+def test_drivers_raise_without_a_cuda_device(driver, kw, monkeypatch):
+    """device=None means the card: where there is none, every driver
+    raises and names device="cpu"; none runs on the CPU unasked."""
+    _no_cuda(monkeypatch)
+    p = _poisson()
+    args = [p["A"], p["b"]] + ([np.ones((p["A"].nrow, 1))] if kw else [])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        getattr(solvers, driver)(*args)
+
+
+def test_cli_raises_without_a_cuda_device(monkeypatch, capsys):
+    """The CLI without -device raises where there is no card, under
+    FASP_TPU_F32=1 too; with -device cpu the same line solves."""
+    _no_cuda(monkeypatch)
+    argv = ["-ini", "ini/input.dat", "-problem", "poisson2d", "-size", "15"]
+    with pytest.raises(RuntimeError, match="-device cpu"):
+        main(argv)
+    monkeypatch.setenv("FASP_TPU_F32", "1")
+    with pytest.raises(RuntimeError, match="-device cpu"):
+        main(argv)
+    monkeypatch.delenv("FASP_TPU_F32")
+    assert "Number of iterations" not in capsys.readouterr().out
+    rc, iters, relres = _cli(main, argv + ["-device", "cpu"], capsys)
+    assert rc == 0 and iters > 0 and relres < 1e-6
+    assert _cli(lambda a: main(a, device="cpu"), argv, capsys)[1] == iters
+
+
+def test_device_none_follows_what_is_already_placed(monkeypatch):
+    """With an operator, or only a preconditioner, already on the CPU,
+    device=None follows it (no CUDA device is asked for)."""
+    _no_cuda(monkeypatch)
+    from faspsolver_tpu_torch.krylov import JacobiPrecond
+    from faspsolver_tpu_torch.ops.operators import device_operator
+    p = _poisson()
+    ref = solvers.krylov(p["A"], p["b"], its=ITSParam(tol=1e-8),
+                         device="cpu")
+    res = solvers.krylov(device_operator(p["A"]), p["b"],
+                         its=ITSParam(tol=1e-8))
+    assert res.x.device.type == "cpu" and res.iters == ref.iters
+    M = JacobiPrecond.from_csr(p["A"])
+    res = solvers.itsolver(p["A"], p["b"], M=M, its=ITSParam(tol=1e-8))
+    assert res.x.device.type == "cpu" and res.converged
+
+
 UNPORTED = [("krylov_ilu", "item 11"), ("krylov_ilu_m", "item 11"),
             ("krylov_swz", "item 11"), ("krylov_blockgs", "item 11"),
             ("krylov_block", "item 11"), ("krylov_sweeping", "item 11"),
@@ -143,7 +201,7 @@ UNPORTED = [("krylov_ilu", "item 11"), ("krylov_ilu_m", "item 11"),
 def test_unported_drivers_raise(driver, item):
     p = _poisson()
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(solvers, driver)(p["A"], p["b"])
+        getattr(solvers, driver)(p["A"], p["b"], device="cpu")
 
 
 def test_unported_formats_raise():
@@ -153,9 +211,9 @@ def test_unported_formats_raise():
     for fn in (solvers.krylov, solvers.krylov_diag, solvers.krylov_amg,
                solvers.solve_amg):
         with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            fn(bsr, p["b"])
+            fn(bsr, p["b"], device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            fn(strm, p["b"])
+            fn(strm, p["b"], device="cpu")
 
 
 def test_solve_amg_falls_back_only_on_host_setup_errors(monkeypatch):
@@ -165,13 +223,15 @@ def test_solve_amg_falls_back_only_on_host_setup_errors(monkeypatch):
     warned = []
     monkeypatch.setattr(messages, "warn", warned.append)
     kw = dict(smoother=99, maxit=30, tol=1e-8)
-    got = solvers.solve_amg(p["A"], p["b"], amg=AMGParam(**kw))
+    got = solvers.solve_amg(p["A"], p["b"], amg=AMGParam(**kw),
+                            device="cpu")
     ref = jax_solvers.solve_amg(p["Aj"], p["b"],
                                 amg=jax_params.AMGParam(**kw))
     _assert_same(got, ref)
     assert len(warned) == 1 and "falling back to GMRES" in warned[0]
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        solvers.solve_amg(p["A"], p["b"], amg=AMGParam(ILU_levels=1))
+        solvers.solve_amg(p["A"], p["b"], amg=AMGParam(ILU_levels=1),
+                          device="cpu")
     assert len(warned) == 1
 
 
@@ -194,7 +254,7 @@ def test_cli_matches_jax(ini, size, capsys):
     rounding level (sa.dat at 31^2 converges in one iteration)."""
     argv = ["-ini", f"ini/{ini}.dat", "-problem", "poisson2d",
             "-size", str(size)]
-    rc, iters, relres = _cli(main, argv, capsys)
+    rc, iters, relres = _cli(main, argv + ["-device", "cpu"], capsys)
     jrc, jiters, jrelres = _cli(jax_main, argv, capsys)
     assert (rc, iters) == (jrc, jiters)
     assert np.isclose(relres, jrelres, rtol=1e-6, atol=1e-13)

@@ -44,6 +44,86 @@ def test_cuda_kernel_matches_plain(form):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["scalar", "factored", "full"])
+def test_cuda_kernel_matches_plain_on_ragged_tiles(form):
+    """Grids that the tile divides in neither direction, more tiles than
+    one block walks at once, f32 and f64, 5 and 9 bands: the kernel
+    against the plain version within 2 k u sum|c||x|, and the tiles'
+    walk in plain PyTorch (CPU) against the same plain version, bit for
+    bit."""
+    _need_cuda()
+    import chip_smoke
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dt, u in (("f32", 2.0 ** -24), ("f64", 2.0 ** -53)):
+        for dims, coords in (((37, 300), chip_smoke.coords_9pt()),
+                             ((1000, 999), chip_smoke.coords_5pt()),
+                             ((24, 1023), chip_smoke.coords_fe7())):
+            til = stencil2d.stencil_tiling(dims, 4, sms)
+            assert dims[0] % til.ty and dims[1] % til.tx
+            op = chip_smoke.make_op(form, dims, coords, dt,
+                                    np.random.default_rng(2))
+            plan = op.plan()
+            xc = torch.randn(op.n, dtype=op.dtype)
+            yp = stencil2d.stencil2d_plain(xc.reshape(dims), plan.bands,
+                                           plan.coords)
+            assert torch.equal(stencil2d.stencil2d_tiled_plain(
+                xc.reshape(dims), plan.bands, plan.coords, til), yp)
+            op = op.to("cuda")
+            yk = op(xc.cuda())
+            torch.cuda.synchronize()
+            err = float((yk.cpu() - yp.reshape(-1)).abs().max())
+            assert err <= 2 * len(coords) * u * chip_smoke.stencil_bound(
+                op, xc.cuda())
+
+
+@pytest.mark.cuda
+def test_every_form_and_order_launches_the_kernel():
+    """Scalar, factored and full bands, in sorted, unsorted and repeated
+    offsets, each launch the kernel once and agree with the plain
+    version."""
+    _need_cuda()
+    import chip_smoke
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for coords in (chip_smoke.coords_5pt(), ((0, 1), (0, 0), (-1, 0)),
+                   ((0, 0), (1, 1), (0, 0), (-1, -1))):
+        for form in ("scalar", "factored", "full"):
+            for dt, tdt in (("f32", torch.float32), ("f64", torch.float64)):
+                op = chip_smoke.make_op(form, (40, 150), coords, dt,
+                                        rng).to("cuda")
+                stencil2d.reset_launches()
+                chip_smoke.kernel_vs_plain(torch, op, gen, form)
+                assert stencil2d.launches[tdt] == 1
+
+
+@pytest.mark.cuda
+def test_cli_and_drivers_default_to_the_card(capsys):
+    """With no device argument the CLI and a driver run on the card: the
+    f64 kernel launches (a CPU apply never counts) and x comes back on
+    the CUDA device."""
+    _need_cuda()
+    from faspsolver_tpu_torch import solvers
+    from faspsolver_tpu_torch.__main__ import main
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    stencil2d.reset_launches()
+    rc = main(["-ini", "ini/input.dat", "-problem", "poisson2d", "-size",
+               "63"])
+    assert rc == 0 and "Number of iterations" in capsys.readouterr().out
+    assert stencil2d.launches[torch.float64] > 0
+    A = poisson_2d(63)
+    b = np.random.default_rng(6).standard_normal(A.nrow)
+    stencil2d.reset_launches()
+    res, hier = solvers.krylov_amg(A, b)
+    assert res.x.is_cuda and res.converged
+    assert all(t.is_cuda for t in hier.buffers())
+    assert stencil2d.launches[torch.float64] > 0
+    stencil2d.reset_launches()
+    cpu = solvers.krylov_amg(A, b, device="cpu")[0]
+    assert not cpu.x.is_cuda and cpu.iters == res.iters
+    assert stencil2d.launches[torch.float64] == 0
+
+
+@pytest.mark.cuda
 def test_kernel_raises_on_mismatched_device_or_dtype():
     """On a CUDA tensor the wrapper launches or raises — never falls
     back to the plain version."""

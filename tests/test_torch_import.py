@@ -83,11 +83,11 @@ def test_port_imports_without_jax():
 
 
 def test_cli_runs_without_jax():
-    """``python -m faspsolver_tpu_torch`` on ini/input.dat solves in the
-    conformance mode and loads no jax."""
+    """``python -m faspsolver_tpu_torch`` on ini/input.dat solves on the
+    CPU when asked to (``-device cpu``) and loads no jax."""
     out = _run("import runpy, sys\n"
                "sys.argv = ['x', '-ini', 'ini/input.dat', '-problem', "
-               "'poisson2d', '-size', '15']\n"
+               "'poisson2d', '-size', '15', '-device', 'cpu']\n"
                "try:\n"
                "    runpy.run_module('faspsolver_tpu_torch', "
                "run_name='__main__')\n"
@@ -95,6 +95,21 @@ def test_cli_runs_without_jax():
                "    assert e.code == 0, e.code\n"
                "assert 'jax' not in sys.modules\n")
     assert "Number of iterations = " in out
+
+
+def test_cli_without_a_device_argument_does_not_fall_back_to_the_cpu():
+    """In a fresh interpreter on a machine without a CUDA device the CLI
+    with no -device exits non-zero with the error that names -device cpu,
+    and prints no result."""
+    env = dict(os.environ, PYTHONPATH=ROOT, PATH="/usr/bin:/bin",
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "faspsolver_tpu_torch", "-ini",
+         "ini/input.dat", "-problem", "poisson2d", "-size", "15"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "-device cpu" in out.stderr
+    assert "Number of iterations" not in out.stdout
 
 
 def test_kernel_module_needs_no_nvcc_or_gpu():

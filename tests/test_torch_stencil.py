@@ -145,3 +145,165 @@ def test_kernel_does_not_cover_3d_or_wide_offsets():
     yw = wide(torch.from_numpy(xw)).numpy().reshape(3, 5)
     np.testing.assert_array_equal(yw[:, :3], xw.reshape(3, 5)[:, 2:])
     np.testing.assert_array_equal(yw[:, 3:], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the tiled kernel's arithmetic, walked in plain PyTorch
+# ---------------------------------------------------------------------------
+
+COORDS = {5: ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0)),
+          7: ((-1, -1), (-1, 0), (0, -1), (0, 0), (0, 1), (1, 0), (1, 1)),
+          9: tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))}
+
+
+def _bands(form, dims, k, dtype, rng):
+    """k Band2d of one form.  "factored" cycles through every layout a
+    FactoredBand produces: indexed rows over (r, nx) and (r, 1), a
+    (1, nx) row vector and a scalar."""
+    ny, nx = dims
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+
+    out = []
+    for b in range(k):
+        if form == "scalar":
+            out.append(stencil2d.Band2d(t(1, 1), None,
+                                        stencil2d.ROW_BROADCAST, 0))
+        elif form == "full":
+            out.append(stencil2d.full_band(t(ny, nx), dims))
+        else:
+            r = 3
+            rows = torch.from_numpy(rng.integers(0, r, ny).astype(np.int32))
+            out.append([
+                stencil2d.Band2d(t(r, nx), rows, stencil2d.ROW_INDEXED, 1),
+                stencil2d.Band2d(t(r, 1), rows, stencil2d.ROW_INDEXED, 0),
+                stencil2d.Band2d(t(1, nx), None, stencil2d.ROW_BROADCAST, 1),
+                stencil2d.Band2d(t(1, 1), None, stencil2d.ROW_BROADCAST, 0),
+            ][b % 4])
+    return out
+
+
+# ragged and degenerate grids; 37x300 has TY, TX dividing neither extent
+TILED_DIMS = [(1, 1), (1, 33), (17, 33), (8, 1023), (1023, 7), (37, 300)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("form", ["scalar", "factored", "full"])
+@pytest.mark.parametrize("dims", TILED_DIMS, ids=lambda d: f"{d[0]}x{d[1]}")
+def test_tiled_walk_is_bit_equal_to_plain(dims, form, dtype):
+    """The kernel's tiles, staged windows (zero-filled halo) and block
+    walk, in plain PyTorch, reproduce stencil2d_plain bit for bit, on one
+    SM (blocks walk many tiles) and on 132 (one tile each or none)."""
+    rng = np.random.default_rng(dims[0] * 1000 + dims[1])
+    x = torch.from_numpy(rng.standard_normal(dims)).to(dtype)
+    for k in (5, 9):
+        bands = _bands(form, dims, k, dtype, rng)
+        ref = stencil2d.stencil2d_plain(x, bands, COORDS[k])
+        for sms in (1, 132):
+            til = stencil2d.stencil_tiling(dims, dtype.itemsize, sms)
+            got = stencil2d.stencil2d_tiled_plain(x, bands, COORDS[k], til)
+            assert got.dtype == dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dims", TILED_DIMS + [(1023, 1023), (341, 341),
+                                               (8192, 8192)],
+                         ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("sms", [1, 7, 132])
+def test_launch_geometry(dims, sms):
+    """The grid never exceeds the SM-derived cap nor the tile count, the
+    blocks' walks partition the tiles, the tiles partition the grid, and
+    the window buffers fit a block's shared memory."""
+    til = stencil2d.stencil_tiling(dims, 8, sms)
+    assert 1 <= til.grid <= min(til.tiles, sms * stencil2d.BLOCKS_PER_SM)
+    assert til.smem_bytes <= 227 * 1024
+    walked = sorted(t for b in range(til.grid) for t in til.block_tiles(b))
+    assert walked == list(range(til.tiles))
+    rows = [til.tile(tj * til.tiles_x)[:2] for tj in range(til.tiles_y)]
+    cols = [til.tile(t)[2:] for t in range(til.tiles_x)]
+    for spans, extent, size in ((rows, dims[0], til.ty),
+                                (cols, dims[1], til.tx)):
+        assert spans[0][0] == 0 and spans[-1][1] == extent
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        assert all(0 < hi - lo <= size for lo, hi in spans)
+
+
+def test_window_zero_fills_the_halo():
+    """A corner tile's staged window: x inside the grid, zeros outside."""
+    x = torch.arange(1.0, 1.0 + 20 * 130).reshape(20, 130)
+    til = stencil2d.stencil_tiling((20, 130), 4, 132)
+    assert (til.tiles_y, til.tiles_x) == (2, 2)
+    win = til.window(x, 3)                     # rows 16.., columns 128..
+    assert win.shape == (til.ty + 2, til.tx + 2)
+    assert torch.equal(win[:5, :3], x[15:20, 127:130])
+    assert float(win[5:].abs().sum()) == 0 and float(win[:, 3:].abs().sum()) == 0
+    first = til.window(x, 0)
+    assert float(first[0].abs().sum()) == 0 and float(first[:, 0].abs().sum()) == 0
+    assert torch.equal(first[1:, 1:], x[:17, :129])
+
+
+def _plan_bands(form, dims, k, dtype=torch.float32):
+    return _bands(form, dims, k, dtype, np.random.default_rng(0))
+
+
+# bytes and bound worked by hand: 2 n itemsize (+ k n itemsize for full
+# bands) over 3.35 TB/s; factored and scalar coefficients are kilobytes
+# (0.5% of the bytes at 1023^2, 4% at 341^2 with 9 bands; tolerance 5%)
+BOUNDS = [
+    ((1023, 1023), torch.float32, "factored", 5, 8.37e6, 2.50),
+    ((1023, 1023), torch.float32, "factored", 7, 8.37e6, 2.50),
+    ((341, 341), torch.float32, "factored", 9, 0.93e6, 0.28),
+    ((1023, 1023), torch.float64, "factored", 5, 16.74e6, 5.00),
+    ((1023, 1023), torch.float64, "factored", 7, 16.74e6, 5.00),
+    ((1023, 1023), torch.float32, "full", 5, 29.30e6, 8.75),
+    ((1023, 1023), torch.float64, "full", 5, 58.61e6, 17.5),
+    ((4096, 4096), torch.float32, "scalar", 5, 134.2e6, 40.1),
+]
+
+
+@pytest.mark.parametrize("dims,dtype,form,k,nbytes,us", BOUNDS)
+def test_stencil_bound(dims, dtype, form, k, nbytes, us):
+    got = stencil2d.stencil_bound_us(dims, dtype,
+                                     _plan_bands(form, dims, k, dtype))
+    assert got.by == "bytes" and got.flops == 2 * k * dims[0] * dims[1]
+    assert nbytes * 0.995 <= got.bytes <= nbytes * 1.05
+    assert got.us == pytest.approx(got.bytes / 3.35e6, rel=1e-12)
+    assert us * 0.995 <= got.us <= us * 1.05
+
+
+def test_stencil_bound_of_the_large_grid():
+    """8192^2 scalar 5-point f32: 536.9 MB, 160.3 us (no array is built:
+    the bound reads shapes only)."""
+    bands = _plan_bands("scalar", (1, 1), 5)
+    got = stencil2d.stencil_bound_us((8192, 8192), torch.float32, bands)
+    assert got.bytes == pytest.approx(536.9e6, rel=1e-3)
+    assert got.us == pytest.approx(160.3, rel=1e-3)
+
+
+def test_unsorted_offsets_go_through_the_kernel():
+    """Bands in any order of offsets, repeated offsets too, are in the
+    kernel's domain: the operator applies through its plan (the kernel on
+    the card), and the tiled walk accumulates them in the order given."""
+    assert stencil2d.kernel_covers(COORDS[7], (4, 5))
+    assert stencil2d.kernel_covers(((0, 1), (0, 0)), (4, 5))
+    assert stencil2d.kernel_covers(((0, 0), (0, 0)), (4, 5))
+    rng = np.random.default_rng(5)
+    bands = [rng.standard_normal((4, 5)) for _ in range(2)]
+    op = StencilNdOperator(bands, ((0, 1), (0, 0)), (4, 5))
+    assert op._kernel
+    ref = StencilNdOperator(bands[::-1], ((0, 0), (0, 1)), (4, 5))
+    x = torch.from_numpy(rng.standard_normal(20))
+    np.testing.assert_allclose(op(x).numpy(), ref(x).numpy(), rtol=1e-14)
+    dims = (37, 300)
+    x2 = torch.from_numpy(rng.standard_normal(dims))
+    for coords in (((0, 1), (0, 0), (-1, 0)),
+                   ((0, 0), (1, 1), (0, 0), (-1, -1))):
+        for form in ("scalar", "factored", "full"):
+            b2 = _bands(form, dims, len(coords), torch.float64, rng)
+            plan = stencil2d.StencilPlan(b2, coords, dims)
+            want = stencil2d.stencil2d_plain(x2, b2, coords)
+            til = stencil2d.stencil_tiling(dims, 8, 132)
+            assert torch.equal(
+                stencil2d.stencil2d_tiled_plain(x2, b2, coords, til), want)
+            assert torch.equal(plan(x2.reshape(-1)), want.reshape(-1))
