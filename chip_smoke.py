@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # the full check (one GPU)
     python3 chip_smoke.py --profile    # plus a torch.profiler pass over one solve
     python3 chip_smoke.py --kernel-only  # phases 1-3, then stop
+    python3 chip_smoke.py --block-only   # phases 1-3 and 9, then stop
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -41,13 +42,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    count and verified relres < 1e-6, then timed again as setup and solve;
    ``input.dat`` once more through the CLI with no device argument, which
    must run on the card; then one float64 solve per new Krylov method, cycle, smoother and
-   setup on poisson_fe_manufactured(64), each held to its JAX anchor.
+   setup on poisson_fe_manufactured(64), each held to its JAX anchor;
+9. block and factorization preconditioners, every solve through the
+   port's drivers or CLI with no device argument, in float64 unless it
+   refines: (a) block_poisson_3d(64, nb=3) (786,432 dof, BSR) under
+   vFGMRES + UA-BSR AMG with ini/bsr.dat's parameters, bench.py's
+   reservoir stanza (f32 UA-BSR, and SA-BSR, inside solve_refined),
+   near-kernel AMG, true block ILU(0) and block Jacobi; (b) ILUk(0) and
+   ILUt under CG through the CLI on poisson_2d(1023), each apply timed as
+   the eager loop over its levels and as the replay of its CUDA graph;
+   (c) forward (GMRES) and symmetric (CG) Schwarz through the CLI on
+   poisson_2d(1023); (d) the ILU / Schwarz level smoothers, energy-min
+   interpolation, CR coarsening, ILU-M, ILUtp and Schwarz on
+   poisson_fe_manufactured(64).  Each is held to its JAX count and its
+   tolerance, and one BsrEll SpMV, block Gauss-Seidel sweep, block ILU,
+   scalar ILU and Schwarz apply on the card is held against the same
+   module on the CPU.
 
 Phases 4, 6 and 7 run each solve once to warm up, then time it with the
 kernel launch counts set to 0 just before it and read just after; both
 dtypes must have launched.  Phase 8 counts the launches of each CLI run
 (setup and solve) and of each timed solve; input.dat's must include the
-f64 kernel.  It prints a JSON line of the kernels, the nvidia-smi line,
+f64 kernel; phase 9 counts the launches of each solve, and its ILU and
+Schwarz solves must have launched the f64 kernel.  It prints a JSON line
+of the kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It needs nothing but this
 checkout and exits non-zero when no CUDA device is available.
 """
@@ -131,10 +149,154 @@ SMALL_GRID = [
 ]
 
 
+# phase 9a, the block (BSR) reservoir path: block_poisson_3d(BSR_NX,
+# nb=3), b = A x for a seeded x, in float64 unless the entry refines.
+# (name, driver, fields, JAX count, allowed distance).  "ini" reads its
+# ITSParam / AMGParam from ini/bsr.dat (vFGMRES(30), tol 1e-9, UA, GS,
+# 2 + 2 sweeps); "refined" is bench.py's reservoir stanza (f32 hierarchy,
+# vFGMRES(30) with maxit 100 inside solve_refined, tol 1e-6, 4 rounds) and
+# counts inner iterations; "nk" passes the component-wise constant basis.
+# block Jacobi runs under CG: the matrix is symmetric positive definite,
+# and a restarted method behind so weak a preconditioner was not tried at
+# this size.  The JAX counts come from
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py bsr <nx>
+# run at the full size (161 s on the CPU).  Allowed distances, here and
+# below: 1 (2 for the GMRES family) for counts under 40 with deterministic
+# sums; max(2, 5%) where ``index_add_`` (atomic on the card), GMRES
+# restarts, float32 or the order of the dot products of a long CG run
+# reorder the sums.
+BSR_NX = 64
+BSR_TOL = 1e-9
+_BSR_ITS = dict(itsolver_type=_VFGMRES, tol=BSR_TOL, maxit=500, restart=30)
+_STANZA = dict(AMG_type=3, coarse_dof=30, aggregation_type=2,
+               strong_coupled=0.08)
+BSR_GRID = [
+    ("vFGMRES + UA-BSR (ini/bsr.dat)", "krylov_amg", "ini", 17, 2),
+    ("refined f32 vFGMRES + UA-BSR (bench stanza)", "refined",
+     dict(amg=_STANZA), 112, 6),
+    ("refined f32 vFGMRES + SA-BSR", "refined",
+     dict(amg=dict(_STANZA, AMG_type=2)), 14, 2),
+    ("vFGMRES + near-kernel UA-BSR", "krylov_nk_amg",
+     dict(its=_BSR_ITS, nk=True,
+          amg=dict(AMG_type=3, aggregation_type=2, coarse_dof=30)),
+     31, 2),
+    ("vFGMRES + block ILU(0)", "krylov_ilu",
+     dict(its=_BSR_ITS, ilu=dict(ILU_lfil=0)), 71, 4),
+    ("CG + block Jacobi", "krylov_diag",
+     dict(its=dict(itsolver_type=_CG, tol=BSR_TOL, maxit=2000)), 213, 11),
+]
+REFINED = dict(tol=1e-6, max_rounds=4)
+REFINED_INNER = dict(maxit=100, restart=30)
+
+# phases 9b and 9c through the CLI on copies of ini/input.dat (CG, tol
+# 1e-6) with these lines replaced; the JAX CLI's counts from
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py cli 4 1023 \
+#         itsolver_maxit=2000 [ILU_type=2 ...]
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py cli 5 1023 \
+#         itsolver_maxit=2000 SWZ_type=3      (solver_type=4 SWZ_type=1)
+# input.dat's 500 iterations do not reach 1e-6 with ILU(0) at 1023^2 (the
+# count is above 500), hence itsolver_maxit.  Forward Schwarz is not
+# symmetric, and CG with it stalls in both packages, so the forward
+# sweep runs under GMRES (solver_type 4) and the symmetric one under CG.
+# Schwarz runs at 1023^2 too: its host setup (Python over 522,753 blocks,
+# their submatrices gathered by array operations) stays under 60 s there.
+SWZ_NX = 1023
+ILU_RUNS = {"ILUk(0)": dict(itsolver_maxit=2000),
+            "ILUt": dict(itsolver_maxit=2000, ILU_type=2)}
+ILU_ANCHORS = {"ILUk(0)": (540, 27), "ILUt": (127, 7)}
+SWZ_RUNS = {"GMRES + forward Schwarz": dict(itsolver_maxit=2000,
+                                            solver_type=4, SWZ_type=1),
+            "CG + symmetric Schwarz": dict(itsolver_maxit=2000, SWZ_type=3)}
+SWZ_ANCHORS = {"GMRES + forward Schwarz": (1122, 56),
+               "CG + symmetric Schwarz": (205, 10)}
+
+# phase 9d, the level smoothers and what phase 8 left out, on the small
+# grid of phase 8 (poisson_fe_manufactured(64), float64): (name, driver,
+# fields, JAX count, allowed distance); the JAX counts from
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py leftover
+_ILU_ITS = dict(tol=1e-10, maxit=2000, restart=60)
+LEFTOVER_GRID = [
+    ("CG + RS-AMG, ILU level smoother", "krylov_amg",
+     dict(its=dict(itsolver_type=_CG, **_AMG_ITS), amg=dict(ILU_levels=1)),
+     8, 1),
+    ("CG + RS-AMG, Schwarz level smoother", "krylov_amg",
+     dict(its=dict(itsolver_type=_CG, **_AMG_ITS), amg=dict(SWZ_levels=1)),
+     6, 1),
+    ("CG + RS-AMG, energy-min interpolation", "krylov_amg",
+     dict(its=dict(itsolver_type=_CG, **_AMG_ITS),
+          amg=dict(interpolation_type=3, smoother=_GS)), 11, 1),
+    ("CG + CR-AMG", "krylov_amg",
+     dict(its=dict(itsolver_type=_CG, **_AMG_ITS),
+          amg=dict(coarsening_type=3, smoother=_GS)), 86, 5),
+    ("CG + ILUk(0), 3,969 dof", "krylov_ilu",
+     dict(its=dict(itsolver_type=_CG, **_ILU_ITS), ilu=dict(ILU_lfil=0)),
+     56, 3),
+    ("CG + ILUk(1)", "krylov_ilu",
+     dict(its=dict(itsolver_type=_CG, **_ILU_ITS), ilu=dict(ILU_lfil=1)),
+     42, 3),
+    ("GMRES + ILUt", "krylov_ilu",
+     dict(its=dict(itsolver_type=_GMRES, **_ILU_ITS), ilu=dict(ILU_type=2)),
+     16, 2),
+    ("GMRES + ILUtp", "krylov_ilu",
+     dict(its=dict(itsolver_type=_GMRES, **_ILU_ITS), ilu=dict(ILU_type=3)),
+     16, 2),
+    ("CG + ILU-M", "krylov_ilu_m",
+     dict(its=dict(itsolver_type=_CG, **_ILU_ITS), ilu=dict(ILU_lfil=0)),
+     56, 3),
+    ("CG + symmetric Schwarz, 3,969 dof", "krylov_swz",
+     dict(its=dict(itsolver_type=_CG, **_ILU_ITS), swz=dict(SWZ_type=3)),
+     26, 2),
+    ("GMRES + forward Schwarz, 3,969 dof", "krylov_swz",
+     dict(its=dict(itsolver_type=_GMRES, **_ILU_ITS), swz=dict(SWZ_type=1)),
+     35, 2),
+]
+
+
 def check(ok, what):
     """A failed check ends the run (explicit, so it holds under -O)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def component_basis(nrow, nb):
+    """The component-wise constant near-kernel basis, (nrow, nb)."""
+    import numpy as np
+    B = np.zeros((nrow, nb))
+    for t in range(nb):
+        B[t::nb, t] = 1.0
+    return B
+
+
+def bsr_problem(nx=None):
+    """block_poisson_3d(nx, nb=3) (nx defaults to BSR_NX) and b = A x for
+    a seeded x."""
+    import numpy as np
+    from faspsolver_tpu_torch.testgen import block_poisson_3d
+    A = block_poisson_3d(nx or BSR_NX, nb=3)
+    return A, A.matvec(np.random.default_rng(SEED).standard_normal(A.nrow))
+
+
+def ini_with(ini, overrides, tmpdir=None):
+    """A copy of ``ini`` in a new temporary directory with the given
+    ``key = value`` lines replaced (appended where the file has none):
+    the CLI has no flag for ILU_type or SWZ_type."""
+    import os
+    import tempfile
+    if not overrides:
+        return ini
+    with open(ini) as f:
+        lines = f.read().splitlines()
+    for key, value in overrides.items():
+        hit = [i for i, ln in enumerate(lines)
+               if ln.split("=")[0].strip() == key]
+        for i in hit:
+            lines[i] = f"{key} = {value}"
+        if not hit:
+            lines.append(f"{key} = {value}")
+    path = os.path.join(tempfile.mkdtemp(dir=tmpdir), os.path.basename(ini))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
 
 
 def sync(torch, device):
@@ -572,27 +734,36 @@ def cli(torch, device, argv):
 
 
 @contextlib.contextmanager
-def timed_calls(targets):
-    """Seconds spent in each ``name: (owner, attribute)`` callable while
-    the block runs (calls nested in one another count once each)."""
-    spent = dict.fromkeys(targets, 0.0)
-    saved = []
+def spied_calls(targets):
+    """While the block runs, every ``name: (owner, attribute)`` callable
+    is timed and its last result kept: ``{name: {"s": seconds, "out":
+    result}}`` (calls nested in one another count once each)."""
+    seen = {n: {"s": 0.0, "out": None} for n in targets}
+    saved = {n: getattr(owner, attr) for n, (owner, attr) in targets.items()}
     for name, (owner, attr) in targets.items():
-        fn = getattr(owner, attr)
-
-        def wrap(*args, _fn=fn, _name=name, **kw):
+        def wrap(*args, _fn=saved[name], _rec=seen[name], **kw):
             t0 = time.perf_counter()
             try:
-                return _fn(*args, **kw)
+                _rec["out"] = _fn(*args, **kw)
+                return _rec["out"]
             finally:
-                spent[_name] += time.perf_counter() - t0
-        saved.append((owner, attr, fn))
+                _rec["s"] += time.perf_counter() - t0
         setattr(owner, attr, wrap)
     try:
-        yield spent
+        yield seen
     finally:
-        for owner, attr, fn in saved:
-            setattr(owner, attr, fn)
+        for name, (owner, attr) in targets.items():
+            setattr(owner, attr, saved[name])
+
+
+SETUP_NAMES = ("setup_ua_bsr", "setup_sa_bsr", "setup_rs", "setup_sa",
+               "setup_ua", "setup_bsr_ilu0", "setup_ilu", "setup_schwarz")
+
+
+def setup_spies():
+    """The drivers' setup calls, for :func:`spied_calls`."""
+    from faspsolver_tpu_torch.solvers import drivers
+    return {name: (drivers, name) for name in SETUP_NAMES}
 
 
 def ini_setup_and_solve(torch, device, ini, A, b):
@@ -615,7 +786,7 @@ def ini_setup_and_solve(torch, device, ini, A, b):
     mods = [sys.modules[f"faspsolver_tpu_torch.precond.amg.setup_{k}"]
             for k in ("sa", "ua")]
     sync(torch, device)
-    with timed_calls({"color_s": (CSRMatrix, "multicolor"),
+    with spied_calls({"color_s": (CSRMatrix, "multicolor"),
                       "aggregate_sa_s": (mods[0], "aggregate"),
                       "aggregate_ua_s": (mods[1], "aggregate")}) as spent:
         t0 = time.perf_counter()
@@ -632,8 +803,9 @@ def ini_setup_and_solve(torch, device, ini, A, b):
     relres = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
     levels = ", ".join(f"{type(l.A).__name__}({l.A.shape[0]})"
                        for l in hier.levels)
-    return {"setup_s": setup_s, "color_s": spent["color_s"],
-            "aggregate_s": spent["aggregate_sa_s"] + spent["aggregate_ua_s"],
+    return {"setup_s": setup_s, "color_s": spent["color_s"]["s"],
+            "aggregate_s": (spent["aggregate_sa_s"]["s"]
+                            + spent["aggregate_ua_s"]["s"]),
             "solve_s": solve_s, "iters": res.iters, "relres": relres,
             "syncs": res.syncs, "launches": counts, "levels": levels}
 
@@ -739,6 +911,281 @@ def drivers_path(torch, device):
         messages.warn = warn
     check(not any("falling back" in w for w in warned),
           f"solve_amg's GMRES fallback did not fire: {warned}")
+    return counts, readings
+
+
+
+# ---------------------------------------------------------------------------
+# phase 9: block and factorization preconditioners
+# ---------------------------------------------------------------------------
+
+def driver_fields(fields):
+    """its / amg / ilu / swz dicts as the port's parameter objects."""
+    from faspsolver_tpu_torch.utils import params
+    kw = {}
+    for key, cls in (("its", params.ITSParam), ("amg", params.AMGParam),
+                     ("ilu", params.ILUParam), ("swz", params.SWZParam)):
+        if fields.get(key) is not None:
+            kw[key] = cls(**fields[key])
+    return kw
+
+
+def device_arg(torch, device):
+    """What phase 9 passes as ``device``: nothing on the card (the entry
+    points must choose it themselves); "cpu" only in a CPU rehearsal."""
+    return None if torch.device(device).type == "cuda" else "cpu"
+
+
+def drive_driver(torch, device, driver, fields, A, b):
+    """One solve through a port driver with no device argument (it must
+    choose the card), float64: the reading, and the preconditioner or
+    hierarchy its setup built (now on the card)."""
+    import numpy as np
+    from faspsolver_tpu_torch import solvers
+    from faspsolver_tpu_torch.ops import stencil2d
+    args = [A, b]
+    if fields.get("nk"):
+        args.append(component_basis(A.nrow, A.nb))
+    sync(torch, device)
+    stencil2d.reset_launches()
+    with spied_calls(setup_spies()) as spy:
+        t0 = time.perf_counter()
+        res = getattr(solvers, driver)(*args, dtype=torch.float64,
+                                       device=device_arg(torch, device),
+                                       **driver_fields(fields))
+        res = res[0] if isinstance(res, tuple) else res
+        x = res.x.cpu().numpy()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(res.x.device.type == torch.device(device).type,
+          f"{driver} ran on {device}")
+    built = [v["out"] for v in spy.values() if v["out"] is not None]
+    setup_s = sum(v["s"] for v in spy.values())
+    relres = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
+    return {"setup_s": setup_s, "solve_s": wall - setup_s,
+            "iters": int(res.iters), "converged": bool(res.converged),
+            "relres": relres, "syncs": int(res.syncs),
+            "launches": counts}, (built[-1] if built else None)
+
+
+def drive_refined(torch, device, A, b, amg_fields):
+    """bench.py's reservoir stanza: the f32 BSR hierarchy on the card,
+    vFGMRES(30) inside solve_refined (f64 residuals on the host)."""
+    import numpy as np
+    from faspsolver_tpu_torch import default_device
+    from faspsolver_tpu_torch.krylov import vfgmres
+    from faspsolver_tpu_torch.ops import device_operator, stencil2d
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    from faspsolver_tpu_torch.precond.amg import setup_sa_bsr, setup_ua_bsr
+    from faspsolver_tpu_torch.solvers import solve_refined
+    from faspsolver_tpu_torch.utils.params import AMGParam
+    param = AMGParam(**amg_fields)
+    setup = setup_sa_bsr if int(param.AMG_type) == 2 else setup_ua_bsr
+    sync(torch, device)
+    stencil2d.reset_launches()
+    t0 = time.perf_counter()
+    if device_arg(torch, device) is None:
+        device = default_device()
+    hier = setup(A, param, dtype=torch.float32, device=device)
+    op = device_operator(A, dtype=torch.float32).to(device)
+    sync(torch, device)
+    setup_s = time.perf_counter() - t0
+    M = AMGPrecond(hier)
+
+    def inner(r, tol):
+        return vfgmres(op, r, M=M, tol=tol, **REFINED_INNER)
+
+    t0 = time.perf_counter()
+    res = solve_refined(A, b, inner, dtype=torch.float32,
+                        device=device_arg(torch, device), **REFINED)
+    solve_s = time.perf_counter() - t0
+    relres = float(np.linalg.norm(b - A.matvec(res.x)) / np.linalg.norm(b))
+    return {"setup_s": setup_s, "solve_s": solve_s,
+            "iters": int(res.inner_iters), "rounds": int(res.rounds),
+            "converged": bool(res.converged), "relres": relres,
+            "syncs": int(res.syncs), "launches": launch_counts()}, hier
+
+
+def report(name, r, tol, anchor, bound):
+    """Print one phase-9 reading and hold it to its tolerance and to its
+    JAX count."""
+    extra = f", rounds {r['rounds']}" if "rounds" in r else ""
+    print(f"  {name:46s} {r['iters']:4d} iterations (JAX {anchor} +- "
+          f"{bound}){extra}, "
+          f"verified relres {r['relres']:.3e}, setup {r['setup_s']:.3f} s, "
+          f"solve {r['solve_s']:.3f} s, host reads "
+          f"{'not counted' if r['syncs'] is None else r['syncs']}, stencil "
+          f"launches {r['launches']}")
+    check(r["converged"] and r["relres"] < tol,
+          f"{name}: converged with verified relres {r['relres']} < {tol}")
+    check(abs(r["iters"] - anchor) <= bound,
+          f"{name}: {r['iters']} iterations within {bound} of {anchor}")
+
+
+def on_card_vs_cpu(torch, label, module, x, scale=None, call=None):
+    """One apply of ``module`` (on the card) against a float64 copy of it
+    on the CPU, same input: max abs error over ``scale`` (default: the
+    largest entry of the CPU result).  Not counted as a main-path
+    launch: the caller has read its counts."""
+    import copy
+    call = call or (lambda m, v: m(v))
+    twin = copy.deepcopy(module).cpu()
+    y_card = call(module, x)
+    sync(torch, x.device)
+    y_cpu = call(twin, x.cpu())
+    scale = float(y_cpu.abs().max()) if scale is None else scale
+    err = float((y_card.cpu() - y_cpu).abs().max()) / scale
+    ok = bool(torch.isfinite(y_card).all()) and err <= 1e-13
+    print(f"  {label}: card against CPU (f64), max abs error / scale "
+          f"{err:.2e} (bound 1e-13) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label} agrees with its CPU version: {err}")
+    return err
+
+
+def apply_seconds(torch, fn, x, reps=5):
+    """Mean host-clock seconds of ``fn(x)`` ended by a synchronize."""
+    fn(x)
+    sync(torch, x.device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(x)
+    sync(torch, x.device)
+    return (time.perf_counter() - t0) / reps
+
+
+def ilu_apply_times(torch, label, M, x, smi):
+    """One preconditioner apply as the eager loop over its levels and as
+    the replay of its captured CUDA graph."""
+    eager = apply_seconds(torch, M.eager, x)
+    graph = apply_seconds(torch, M, x)
+    same = bool(torch.equal(M.eager(x), M(x)))
+    print(f"  {label}: {M.num_levels} levels; one apply eager "
+          f"{eager * 1e3:.2f} ms, from its CUDA graph {graph * 1e3:.2f} ms "
+          f"({eager / graph:.1f}x), results bit-equal: {same} (mean of 5, "
+          f"host clock to a synchronize; {smi})")
+    check(same, f"{label}: the graph replays the eager loop's result")
+    return {"levels": M.num_levels, "eager_ms": eager * 1e3,
+            "graph_ms": graph * 1e3}
+
+
+def cli_run(torch, device, argv, overrides):
+    """The port's CLI with no device argument on a copy of ini/input.dat
+    with ``overrides``; the setup's preconditioner is kept."""
+    from faspsolver_tpu_torch.ops import stencil2d
+    ini = ini_with("ini/input.dat", overrides)
+    stencil2d.reset_launches()
+    with spied_calls(setup_spies()) as spy:
+        rc, iters, relres, wall = cli(torch, device_arg(torch, device),
+                                      ["-ini", ini, *argv])
+    counts = launch_counts()
+    built = [v["out"] for v in spy.values() if v["out"] is not None]
+    setup_s = sum(v["s"] for v in spy.values())
+    return {"setup_s": setup_s, "solve_s": wall - setup_s, "iters": iters,
+            "converged": rc == 0, "relres": relres, "syncs": None,
+            "launches": counts}, built[-1]
+
+
+def block_path(torch, device, smi):
+    """Phase 9.  Returns the stencil launches of its solves and the
+    readings."""
+    import numpy as np
+    from faspsolver_tpu_torch.ops import device_operator
+    from faspsolver_tpu_torch.precond.amg import smooth
+    from faspsolver_tpu_torch.testgen import poisson_fe_manufactured
+    from faspsolver_tpu_torch.utils import params
+    counts = {"float32": 0, "float64": 0}
+    readings = {}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    on_card = torch.device(device).type == "cuda"
+
+    def add(r):
+        for k in counts:
+            counts[k] += r["launches"][k]
+
+    print(f"  9a. block_poisson_3d({BSR_NX}, nb=3)")
+    t0 = time.perf_counter()
+    A, b = bsr_problem()
+    print(f"  {A.nrow_block} block rows, {A.nrow} dof, {A.nnz_block} blocks, "
+          f"{A.nnz_block * A.nb ** 2} scalar nonzeros, generated in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(A.nrow == 3 * BSR_NX ** 3, "phase 9a's size")
+    kept = {}
+    for name, driver, fields, anchor, bound in BSR_GRID:
+        if driver == "refined":
+            r, built = drive_refined(torch, device, A, b, fields["amg"])
+            tol = REFINED["tol"]
+        else:
+            if fields == "ini":
+                its, amg, _, _ = params.param_init(
+                    params.apply_cli_overrides(["-ini", "ini/bsr.dat"]))
+                fields = {"its": vars(its), "amg": vars(amg)}
+            r, built = drive_driver(torch, device, driver, fields, A, b)
+            tol = fields["its"]["tol"]
+        report(name, r, tol, anchor, bound)
+        add(r)
+        readings[name] = r
+        kept[driver] = built
+        del built
+    x = torch.randn(A.nrow, generator=gen, device=device,
+                    dtype=torch.float64)
+    hier = kept["krylov_nk_amg"]
+    op = hier.levels[0].A
+    absop = device_operator(type(A)(A.indptr, A.indices, np.abs(A.data),
+                                    A.shape)).to(device)
+    on_card_vs_cpu(torch, "BsrEllOperator apply (786,432 dof)", op, x,
+                   scale=float(absop(x.abs()).max()))
+    del absop
+    on_card_vs_cpu(
+        torch, "one forward block Gauss-Seidel sweep", hier.levels[0], x,
+        call=lambda lvl, v: smooth(lvl.smoother, lvl.A, torch.zeros_like(v),
+                                   v, 1, True))
+    M = kept["krylov_ilu"]
+    on_card_vs_cpu(torch, "block ILU(0) apply", M, x)
+    readings["block ILU(0) apply"] = ilu_apply_times(
+        torch, "block ILU(0), 786,432 dof", M, x, smi)
+    del kept, hier, op, M, A, b
+
+    print(f"  9b. scalar ILU through the CLI, poisson_2d({NX}), float64")
+    size = ["-precond", "4", "-problem", "poisson2d", "-size", str(NX)]
+    for name, overrides in ILU_RUNS.items():
+        anchor, bound = ILU_ANCHORS[name]
+        r, M = cli_run(torch, device, size, overrides)
+        report(f"CG + {name}", r, TOL, anchor, bound)
+        check(on_card and r["launches"]["float64"] > 0 or not on_card,
+              f"{name}: the solve applied A through the f64 stencil kernel")
+        add(r)
+        readings[name] = r
+        x = torch.randn(NX * NX, generator=gen, device=device,
+                        dtype=torch.float64)
+        on_card_vs_cpu(torch, f"{name} apply ({NX}^2)", M, x)
+        readings[f"{name} apply"] = ilu_apply_times(
+            torch, f"{name}, {NX}^2", M, x, smi)
+        del M
+
+    print(f"  9c. Schwarz through the CLI, poisson_2d({SWZ_NX}), float64")
+    size = ["-precond", "5", "-problem", "poisson2d", "-size", str(SWZ_NX)]
+    for name, overrides in SWZ_RUNS.items():
+        anchor, bound = SWZ_ANCHORS[name]
+        r, M = cli_run(torch, device, size, overrides)
+        report(name, r, TOL, anchor, bound)
+        check(on_card and r["launches"]["float64"] > 0 or not on_card,
+              f"{name}: the sweeps applied A through the f64 stencil kernel")
+        check(r["setup_s"] < 60.0,
+              f"Schwarz host setup at {SWZ_NX}^2 under 60 s: {r['setup_s']}")
+        add(r)
+        readings[name] = r
+        x = torch.randn(SWZ_NX ** 2, generator=gen, device=device,
+                        dtype=torch.float64)
+        on_card_vs_cpu(torch, f"{name} apply ({SWZ_NX}^2)", M, x)
+        del M
+
+    print("  9d. level smoothers and the rest, poisson_fe_manufactured(64)")
+    A, b, *_ = poisson_fe_manufactured(64)
+    for name, driver, fields, anchor, bound in LEFTOVER_GRID:
+        r, _ = drive_driver(torch, device, driver, fields, A, b)
+        report(name, r, 1e-9, anchor, bound)
+        add(r)
+        readings[name] = r
     return counts, readings
 
 
@@ -919,6 +1366,11 @@ def main(argv) -> int:
     if "--kernel-only" in argv:
         print("stopped after phase 3 (--kernel-only)")
         return 0
+    if "--block-only" in argv:
+        print("== 9. main path: block and factorization preconditioners")
+        block_path(torch, device, smi)
+        print("stopped after phase 9 (--block-only)")
+        return 0
     counts, res = {}, {}
     print("== 4. main path: headline")
     hier, counts["headline"], res["headline"] = main_path(torch, device,
@@ -953,6 +1405,9 @@ def main(argv) -> int:
     del A, b
     print("== 8. main path: drivers (the ini CLI, then the small grid)")
     counts["drivers"], res["drivers"] = drivers_path(torch, device)
+    print("== 9. main path: block and factorization preconditioners")
+    counts["block_and_factorization"], res["block_and_factorization"] = \
+        block_path(torch, device, smi)
 
     # one entry per kernel, stencil2d<T, K> by element type (the band
     # count K is the operator's); its times are those of the main paths'

@@ -1,9 +1,10 @@
 """Carry a hierarchy built by the JAX package across to the port.
 
 ``from_jax(obj)`` walks a ``faspsolver_tpu`` structured, classical RS,
-SA or UA AMG hierarchy (or any of its parts: operators, transfers,
-smoothers with their color blocks, coarse solvers, an ``AMGPrecond``) by
-class name and attribute access, reads every array
+SA, UA or BSR AMG hierarchy (or any of its parts: operators, transfers,
+smoothers with their color blocks, near-kernel data, coarse solvers, an
+``AMGPrecond``) or an ILU, block ILU, Schwarz or block Jacobi
+preconditioner by class name and attribute access, reads every array
 leaf with ``np.asarray``, and rebuilds the port's modules on the CPU with
 the same dtypes.  What is shared in the JAX tree stays shared: arrays
 (a dinv used by smoother and transfers) by identity, operators (a level's
@@ -18,18 +19,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.operators import (ConstDiaOperator, CooOperator, DenseOperator,
-                            DiaNdOperator, DiaOperator, EllOperator,
-                            FactoredBand, HybridDiaOperator,
-                            StencilNdOperator, SumOperator)
+from .krylov.precond import BlockJacobiPrecond
+from .ops.operators import (BsrEllOperator, ConstDiaOperator, CooOperator,
+                            DenseOperator, DiaNdOperator, DiaOperator,
+                            EllOperator, FactoredBand, HybridDiaOperator,
+                            StencilNdOperator, SumOperator, block_ell_layout)
+from .precond.amg.bsr_smoothers import BsrColorBlock, BsrSmootherData
 from .precond.amg.hierarchy import (AMGHierarchy, AMGLevel, CoarseSolver,
-                                    IterativeCoarseSolver)
-from .precond.amg.smoothers import ColorBlock, SmootherData
+                                    IterativeCoarseSolver, NearKernel)
+from .precond.amg.smoothers import ColorBlock, PrecondSmoother, SmootherData
 from .precond.amg.structured import (PairProlong, PairRestrict,
                                      SmoothedProlong, SmoothedRestrict)
 from .precond.amg.transfer import (AggProlong, AggRestrict, BandedProlong,
-                                   BandedRestrict, CooProlong, CooRestrict)
+                                   BandedRestrict, BlockAggProlong,
+                                   BlockAggRestrict, CooProlong, CooRestrict)
+from .precond.ilu import (BlockTriangularSolver, BSRILUPrecond, ILUPrecond,
+                          TriangularSolver)
 from .precond.preconditioners import AMGPrecond
+from .precond.schwarz import SchwarzPrecond, _ColorGroup
 
 
 def from_jax(obj):
@@ -72,7 +79,7 @@ class _Converter:
         key = self._key(obj)
         if key not in self.memo:
             name = type(obj).__name__
-            build = getattr(self, "_" + name, None)
+            build = getattr(self, "_" + name.lstrip("_"), None)
             if build is None:
                 raise NotImplementedError(f"no port of {name}")
             self.memo[key] = build(obj)
@@ -115,7 +122,17 @@ class _Converter:
     def _HybridDiaOperator(self, o):
         return HybridDiaOperator(self.conv(o.dia), self.conv(o.rem))
 
+    def _BsrEllOperator(self, o):
+        return BsrEllOperator(self.arr(o.cols), self.arr(o.vals), o.nbrow,
+                              o.nbcol, o.nb)
+
     # -- transfers ---------------------------------------------------------
+
+    def _BlockAggProlong(self, o):
+        return BlockAggProlong(self.arr(o.agg), o.n_fine, o.n_coarse, o.nb)
+
+    def _BlockAggRestrict(self, o):
+        return BlockAggRestrict(self.arr(o.agg), o.n_fine, o.n_coarse, o.nb)
 
     def _PairRestrict(self, o):
         return PairRestrict(o.steps, o.n_fine, o.n_coarse)
@@ -180,11 +197,13 @@ class _Converter:
         return IterativeCoarseSolver(self.conv(o.A), self.arr(o.dinv),
                                      o.iters)
 
+    def _NearKernel(self, o):
+        return NearKernel(self.arr(o.B), self.arr(o.Ainv))
+
     def _AMGLevel(self, o):
-        if o.nk is not None:
-            raise NotImplementedError("near-kernel levels are not ported")
         return AMGLevel(self.conv(o.A), self.conv(o.P), self.conv(o.R),
-                        self.conv(o.smoother), self.conv(o.Asm))
+                        self.conv(o.smoother), self.conv(o.Asm),
+                        nk=self.conv(o.nk))
 
     def _AMGHierarchy(self, o):
         return AMGHierarchy(
@@ -197,3 +216,71 @@ class _Converter:
 
     def _AMGPrecond(self, o):
         return AMGPrecond(self.conv(o.hier), o.maxit)
+
+    # -- block smoothers, ILU, Schwarz ---------------------------------------
+
+    def _BlockJacobiPrecond(self, o):
+        return BlockJacobiPrecond(self.arr(o.dinv))
+
+    def _BsrColorBlock(self, o):
+        return BsrColorBlock(self.arr(o.rows), self.arr(o.cols),
+                             self.arr(o.vals), self.arr(o.dinv))
+
+    def _BsrSmootherData(self, o):
+        return BsrSmootherData(o.kind, o.relax, o.nb, dinv=self.arr(o.dinv),
+                               colors=[self.conv(c) for c in o.colors])
+
+    def _PrecondSmoother(self, o):
+        return PrecondSmoother(self.conv(o.M))
+
+    def _TriangularSolver(self, o):
+        """Both segment kinds become plain levels: a scan segment is cut
+        into its levels and the rows that pad it (index n) removed."""
+        levels = []
+        for seg in o.segments:
+            rows, cols, vals, dinv = (np.asarray(a) for a in (
+                seg.rows, seg.cols, seg.vals, seg.dinv))
+            if rows.ndim == 1:
+                levels.append((rows, cols, vals, dinv))
+                continue
+            for li in range(rows.shape[0]):
+                ok = rows[li] != o.n
+                levels.append((rows[li][ok], cols[li][ok], vals[li][ok],
+                               dinv[li][ok]))
+
+        def cat(i):
+            return torch.from_numpy(np.concatenate(
+                [lv[i].reshape(-1) for lv in levels]))
+
+        return TriangularSolver(cat(0), cat(1), cat(2), cat(3),
+                                [lv[1].shape for lv in levels], o.n)
+
+    def _ILUPrecond(self, o):
+        return ILUPrecond(self.conv(o.Lsolve), self.conv(o.Usolve),
+                          perm_in=self.arr(o.perm_in),
+                          perm_out=self.arr(o.perm_out))
+
+    def _BlockTriangularSolver(self, o):
+        lv = [tuple(np.asarray(a) for a in (l.rows, l.cols, l.vals, l.dinv))
+              for l in o.levels]
+        nb = lv[0][2].shape[-1]
+        dinv = np.concatenate([l[3] for l in lv])
+        unit = np.array_equal(dinv, np.broadcast_to(np.eye(nb), dinv.shape))
+        return BlockTriangularSolver(
+            torch.from_numpy(np.concatenate([l[0] for l in lv])),
+            torch.from_numpy(np.concatenate([l[1].reshape(-1) for l in lv])),
+            torch.cat([block_ell_layout(torch.from_numpy(
+                np.array(l[2], copy=True))).reshape(-1) for l in lv]),
+            None if unit else torch.from_numpy(dinv),
+            [l[1].shape for l in lv], o.n, nb)
+
+    def _BSRILUPrecond(self, o):
+        return BSRILUPrecond(self.conv(o.Lsolve), self.conv(o.Usolve), o.nb)
+
+    def _ColorGroup(self, o):
+        return _ColorGroup(self.arr(o.dofs), self.arr(o.mask),
+                           self.arr(o.inv))
+
+    def _SchwarzPrecond(self, o):
+        return SchwarzPrecond([self.conv(g) for g in o.groups],
+                              self.conv(o.A), o.n, o.swz_type)

@@ -81,11 +81,10 @@ class BSRMatrix:
     def diag_blocks(self) -> np.ndarray:
         """Extract the (ROW, nb, nb) diagonal blocks."""
         out = np.zeros((self.shape[0], self.nb, self.nb), dtype=self.dtype)
-        for i in range(self.shape[0]):
-            s, e = self.indptr[i], self.indptr[i + 1]
-            hit = np.nonzero(self.indices[s:e] == i)[0]
-            if hit.size:
-                out[i] = self.data[s + hit[0]]
+        rows = np.repeat(np.arange(self.shape[0]), np.diff(self.indptr))
+        # written last to first, so a row's first diagonal entry stays
+        hit = np.nonzero(self.indices == rows)[0][::-1]
+        out[rows[hit]] = self.data[hit]
         return out
 
     def diag_inv(self) -> np.ndarray:

@@ -3,10 +3,11 @@ from .gcg_gcr import gcg, gcr
 from .gmres import gmres, vfgmres, vgmres
 from .minres import minres
 from .pcg import pcg
-from .precond import IdentityPrecond, JacobiPrecond
+from .precond import BlockJacobiPrecond, IdentityPrecond, JacobiPrecond
 from .result import SolveResult
 
 __all__ = [
     "bicgstab", "gcg", "gcr", "gmres", "vfgmres", "vgmres", "minres", "pcg",
-    "IdentityPrecond", "JacobiPrecond", "SolveResult",
+    "BlockJacobiPrecond", "IdentityPrecond", "JacobiPrecond",
+    "SolveResult",
 ]

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from .. import as_tensor
+from ..ops.operators import block_diag_apply
 
 
 class IdentityPrecond(nn.Module):
@@ -40,3 +41,20 @@ class JacobiPrecond(nn.Module):
                                       1.0 / np.where(d == 0, 1, d), 1.0),
                              dtype))
 
+
+class BlockJacobiPrecond(nn.Module):
+    """Block-diagonal preconditioner with precomputed block inverses
+    (reference: fasp_precond_dbsr_diag, PreBSR.c:49)."""
+
+    def __init__(self, dinv):
+        super().__init__()
+        self.register_buffer("dinv", dinv if isinstance(dinv, torch.Tensor)
+                             else as_tensor(dinv))       # (nbrow, nb, nb)
+
+    def forward(self, r: torch.Tensor) -> torch.Tensor:
+        return block_diag_apply(self.dinv, r.reshape(-1, self.dinv.shape[1])
+                                ).reshape(-1)
+
+    @classmethod
+    def from_bsr(cls, A, dtype=None) -> "BlockJacobiPrecond":
+        return cls(as_tensor(A.diag_inv(), dtype))

@@ -9,8 +9,10 @@ entries (``dia_from_csr``, ``smoothed_rap``) and the classical RS-AMG
 ones (``dia_hist``, ``dia_split``, ``rap``, ``strength_graph``,
 ``agg_strength``, ``rs_cf_split2``, ``rs_ff_pass``, ``interp_std``,
 ``fgs_sweeps``), the multicolor Gauss-Seidel coloring
-(``greedy_color``) and the aggregation matchers (``pairwise_match``,
-``notay_match``, ``nsympair_match``, ``vmb_aggregate``).  Like the JAX
+(``greedy_color``), the aggregation matchers (``pairwise_match``,
+``notay_match``, ``nsympair_match``, ``vmb_aggregate``), the triangular
+level scheduling (``level_schedule``) and the incomplete factorizations
+(``iluk``, ``ilut``, ``ilutp``, ``bsr_ilu0``).  Like the JAX
 loader, each entry returns None when the library cannot be built; the
 callers then take their NumPy path.
 """
@@ -116,6 +118,24 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.fasp_vmb_aggregate.restype = ctypes.c_int
         lib.fasp_vmb_aggregate.argtypes = [ctypes.c_int, _i32p, _i32p, _f64p,
                                            ctypes.c_int, _i32p]
+        lib.fasp_level_schedule.restype = ctypes.c_int
+        lib.fasp_level_schedule.argtypes = [ctypes.c_int, _i32p, _i32p,
+                                            ctypes.c_int, _i32p]
+        factors = [_i32p, _i32p, _f64p, ctypes.c_int64,
+                   _i32p, _i32p, _f64p, ctypes.c_int64]
+        csr = [ctypes.c_int, _i32p, _i32p, _f64p]
+        lib.fasp_iluk.restype = ctypes.c_int
+        lib.fasp_iluk.argtypes = [*csr, ctypes.c_int, *factors]
+        lib.fasp_ilut.restype = ctypes.c_int
+        lib.fasp_ilut.argtypes = [*csr, ctypes.c_int, ctypes.c_double,
+                                  *factors]
+        lib.fasp_ilutp.restype = ctypes.c_int
+        lib.fasp_ilutp.argtypes = [*csr, ctypes.c_int, ctypes.c_double,
+                                   ctypes.c_double, ctypes.c_int, *factors,
+                                   _i32p]
+        lib.fasp_bsr_ilu0.restype = ctypes.c_int
+        lib.fasp_bsr_ilu0.argtypes = [ctypes.c_int, ctypes.c_int, _i32p,
+                                      _i32p, _f64p, _f64p]
         _lib = lib
         return _lib
 
@@ -464,3 +484,100 @@ def vmb_aggregate(S, max_agg: int) -> Optional[Tuple[np.ndarray, int]]:
     if lib is None:
         return None
     return _match(lib.fasp_vmb_aggregate, S, int(max_agg))
+
+
+def level_schedule(indptr, indices, n: int, lower: bool
+                   ) -> Optional[Tuple[np.ndarray, int]]:
+    """Dependency depth of every row of a triangular CSR pattern:
+    (depth per row int32, level count)."""
+    lib = _load()
+    if lib is None:
+        return None
+    depth = np.zeros(n, dtype=np.int32)
+    nlev = lib.fasp_level_schedule(
+        n, np.ascontiguousarray(indptr, dtype=np.int32),
+        np.ascontiguousarray(indices, dtype=np.int32),
+        1 if lower else 0, depth)
+    return depth, int(nlev)
+
+
+def _ilu_call(fn, A, extra_args, fill_guess: float, pivoted: bool = False):
+    """Run a row-wise incomplete factorization into buffers that double
+    until the factors fit: scipy CSR (L, U), with the column permutation
+    appended when ``pivoted``."""
+    import scipy.sparse as sp
+    m = A.to_scipy().tocsr()
+    m.sort_indices()
+    indptr, indices, data, n = _csr_arrays(m)
+    cap = max(int(m.nnz * fill_guess) + n + 16, 64)
+    for _ in range(6):
+        l_indptr = np.zeros(n + 1, dtype=np.int32)
+        u_indptr = np.zeros(n + 1, dtype=np.int32)
+        l_indices = np.empty(cap, dtype=np.int32)
+        l_data = np.empty(cap, dtype=np.float64)
+        u_indices = np.empty(cap, dtype=np.int32)
+        u_data = np.empty(cap, dtype=np.float64)
+        perm = (np.empty(n, dtype=np.int32),) if pivoted else ()
+        rc = fn(n, indptr, indices, data, *extra_args,
+                l_indptr, l_indices, l_data, cap,
+                u_indptr, u_indices, u_data, cap, *perm)
+        if rc == 0:
+            lnnz = int(l_indptr[n])
+            unnz = int(u_indptr[n])
+            L = sp.csr_matrix((l_data[:lnnz], l_indices[:lnnz], l_indptr),
+                              shape=(n, n))
+            U = sp.csr_matrix((u_data[:unnz], u_indices[:unnz], u_indptr),
+                              shape=(n, n))
+            return (L, U, *(p.astype(np.int64) for p in perm))
+        cap *= 2
+    return None
+
+
+def iluk(A, lfil: int):
+    """ILU(k) factors (L unit-diagonal, U) as scipy CSR."""
+    lib = _load()
+    if lib is None:
+        return None
+    return _ilu_call(lib.fasp_iluk, A, (int(lfil),), 2.0 * (lfil + 1))
+
+
+def ilut(A, lfil: int, droptol: float):
+    """ILUt factors: at most ``lfil`` fill entries per row above
+    ``droptol``."""
+    lib = _load()
+    if lib is None:
+        return None
+    return _ilu_call(lib.fasp_ilut, A, (int(max(lfil, 1)), float(droptol)),
+                     3.0)
+
+
+def ilutp(A, lfil: int, droptol: float, permtol: float = 0.05,
+          mbloc: int = 0):
+    """ILUtp with column pivoting: (L, U, perm) where L U ~= A P with U's
+    columns in permuted numbering and perm[new] = old."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = A.nrow
+    return _ilu_call(lib.fasp_ilutp, A,
+                     (int(max(lfil, 1)), float(droptol), float(permtol),
+                      int(mbloc if mbloc > 0 else n)), 3.0, pivoted=True)
+
+
+def bsr_ilu0(indptr, indices, vals, n: int, nb: int):
+    """Block ILU(0) in the BSR pattern (block rows sorted by column).  A
+    copy of vals (nnzb, nb, nb) is factored; returns (factored vals,
+    inverse diagonal blocks (n, nb, nb)), or None when a diagonal block is
+    missing or singular."""
+    lib = _load()
+    if lib is None:
+        return None
+    v = np.ascontiguousarray(vals, dtype=np.float64).copy()
+    dinv = np.zeros((n, nb, nb), dtype=np.float64)
+    rc = lib.fasp_bsr_ilu0(
+        n, nb, np.ascontiguousarray(indptr, dtype=np.int32),
+        np.ascontiguousarray(indices, dtype=np.int32),
+        v.reshape(-1), dinv.reshape(-1))
+    if rc != 0:
+        return None
+    return v, dinv

@@ -2,9 +2,10 @@
 
 Port of ``faspsolver_tpu/ops/operators.py``: the structured path's
 DiaOperator, DiaNdOperator, FactoredBand, StencilNdOperator and
-DenseOperator, and the general path's EllOperator, ConstDiaOperator,
+DenseOperator, the general path's EllOperator, ConstDiaOperator,
 SumOperator, CooOperator, HybridDiaOperator with the per-level format
-choice ``best_operator`` / ``device_operator``.  Arrays are registered
+choice ``best_operator`` / ``device_operator``, and the block path's
+BsrEllOperator.  Arrays are registered
 buffers, so ``.to(device)`` on any enclosing module moves them.  Every
 2-D stencil apply with offsets in {-1, 0, 1}^2 goes through
 ``ops/stencil2d.py``: the CUDA kernel for CUDA tensors, its plain PyTorch
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import as_tensor, np_dtype
-from ..formats import CSRMatrix
+from ..formats import BSRMatrix, CSRMatrix
 from .stencil2d import (ROW_BROADCAST, ROW_INDEXED, Band2d, StencilPlan,
                         full_band, kernel_covers)
 
@@ -286,6 +287,10 @@ class StencilNdOperator(nn.Module):
             tot += b.size if isinstance(b, FactoredBand) else b.numel()
         return tot * self.dtype.itemsize
 
+    def __getstate__(self):
+        # a copy builds its own plan: the plan holds device pointers
+        return dict(self.__dict__, _plan=None)
+
     def plan(self) -> StencilPlan:
         if self._plan is None:
             self._plan = StencilPlan([self._band2d(b) for b in self.bands],
@@ -463,6 +468,92 @@ class EllOperator(nn.Module):
 
     def padding_ratio(self, A_nnz: int) -> float:
         return self.cols.numel() / max(A_nnz, 1)
+
+
+def block_diag_apply(blocks: torch.Tensor, vb: torch.Tensor) -> torch.Tensor:
+    """(m, nb, nb) blocks times the (m, nb) block vector: one batched
+    product, in full float32 for float32 (no TF32)."""
+    full_precision_matmul()
+    return torch.bmm(blocks, vb.unsqueeze(-1)).squeeze(-1)
+
+
+def block_ell_layout(vals) -> torch.Tensor:
+    """(m, k, nb, nb) blocks as the contiguous ``[r, a, s, b]`` array
+    (row of the block before the slot) that :func:`block_ell_apply`
+    reads as (m, nb, k*nb) matrices with no copy."""
+    return _buf(vals).permute(0, 2, 1, 3).contiguous()
+
+
+def block_ell_apply(blocks: torch.Tensor, cols: torch.Tensor,
+                    xb: torch.Tensor) -> torch.Tensor:
+    """Row sums of block-ELL rows times a block vector: ``blocks`` in
+    :func:`block_ell_layout`, ``cols`` (m, k) block-column ids, ``xb``
+    (ncol, nb); returns (m, nb).  One gather and one batched product, in
+    full float32 for float32 (no TF32)."""
+    full_precision_matmul()
+    m, nb, k, _ = blocks.shape
+    g = xb.index_select(0, cols.reshape(-1)).reshape(m, k * nb, 1)
+    return torch.bmm(blocks.reshape(m, nb, k * nb), g).squeeze(-1)
+
+
+class BsrEllOperator(nn.Module):
+    """Block-ELL operator for BSR matrices: every block row holds k
+    (nb, nb) blocks (zero blocks pad short rows, their column id 0), and
+    the apply contracts them with the gathered (k, nb) pieces of x in one
+    batched product, in place of the reference's per-nb unrolled scalar
+    code (BlaSpmvBSR.c:301-412).
+
+    The blocks are stored in :func:`block_ell_layout`; ``vals`` is the
+    (nbrow, k, nb, nb) view of them.  float32 products run in full
+    float32: ``torch.backends.cuda.matmul.allow_tf32`` is set False before
+    every product, the counterpart of the JAX package's
+    ``Precision.HIGHEST``."""
+
+    def __init__(self, cols, vals, nbrow: int, nbcol: int, nb: int):
+        super().__init__()
+        self.register_buffer("cols", _buf(cols))                # (nbrow, k)
+        self.register_buffer("blocks", block_ell_layout(vals))
+        self.nbrow = int(nbrow)
+        self.nbcol = int(nbcol)
+        self.nb = int(nb)
+
+    @property
+    def vals(self) -> torch.Tensor:
+        return self.blocks.permute(0, 2, 1, 3)
+
+    @property
+    def n(self) -> int:
+        return self.nbrow * self.nb
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.nbrow * self.nb, self.nbcol * self.nb)
+
+    @property
+    def dtype(self):
+        return self.blocks.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return block_ell_apply(self.blocks, self.cols,
+                               x.reshape(self.nbcol, self.nb)).reshape(-1)
+
+    @classmethod
+    def from_bsr(cls, A: BSRMatrix, dtype=None) -> "BsrEllOperator":
+        npdt = np_dtype(dtype)
+        nbrow, nbcol = A.shape
+        nb = A.nb
+        nnz_per_row = np.diff(A.indptr)
+        k = max(int(nnz_per_row.max()) if nbrow else 0, 1)
+        cols = np.zeros((nbrow, k), dtype=np.int32)
+        vals = np.zeros((nbrow, k, nb, nb), dtype=npdt)
+        if A.nnz_block:
+            rows = np.repeat(np.arange(nbrow), nnz_per_row)
+            slot = (np.arange(A.nnz_block)
+                    - np.repeat(A.indptr[:-1], nnz_per_row))
+            cols[rows, slot] = A.indices
+            vals[rows, slot] = A.data.astype(npdt)
+        return cls(torch.from_numpy(cols), torch.from_numpy(vals), nbrow,
+                   nbcol, nb)
 
 
 class CooOperator(nn.Module):
@@ -813,12 +904,12 @@ def _const_compress_dia(bands: np.ndarray, offs, n: int, dtype,
 
 
 def device_operator(A, dtype=None, prefer: Optional[str] = None):
-    """The operator for a host CSR matrix: dense when tiny, DIA when
-    banded, ELL when rows are regular, COO otherwise.  ``prefer``
-    ("dense", "ell" or "coo") forces a format."""
-    if type(A).__name__ == "BSRMatrix":
-        raise NotImplementedError("BSR operators are not ported "
-                                  "(ROADMAP item 10)")
+    """The operator for a host matrix: block-ELL for a BSR matrix; for a
+    CSR matrix dense when tiny, DIA when banded, ELL when rows are
+    regular, COO otherwise.  ``prefer`` ("dense", "ell" or "coo") forces
+    a CSR format."""
+    if isinstance(A, BSRMatrix):
+        return BsrEllOperator.from_bsr(A, dtype=dtype)
     if not isinstance(A, CSRMatrix):
         raise TypeError(f"cannot build device operator from {type(A)}")
     if prefer == "coo":

@@ -73,8 +73,13 @@ def _cycle(hier: AMGHierarchy, l: int, b, x):
         ec = _scale_coarse(levels[l + 1].A, ec, rc)
 
     x = x + lvl.P(ec)
-    return smooth(lvl.smoother, _sm_op(lvl), x, b, hier.postsmooth_iter,
-                  forward=False)
+    x = smooth(lvl.smoother, _sm_op(lvl), x, b, hier.postsmooth_iter,
+               forward=False)
+    if lvl.nk is not None:
+        # the extra near-kernel solve (reference: PreMGCycle.c:369-391):
+        # x += B (B^T A B)^-1 B^T (b - A x)
+        x = x + lvl.nk(b - lvl.A(x))
+    return x
 
 
 def _scale_coarse(A1, e, r):

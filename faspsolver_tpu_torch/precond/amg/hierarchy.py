@@ -1,5 +1,5 @@
 """AMG hierarchy as a module tree (port of
-``faspsolver_tpu/precond/amg/hierarchy.py``: AMGLevel, CoarseSolver,
+``faspsolver_tpu/precond/amg/hierarchy.py``: NearKernel, AMGLevel, CoarseSolver,
 IterativeCoarseSolver, make_coarse_solver, AMGHierarchy).
 
 Reference: AMG_data (base/include/fasp.h:804-888) — per-level {A, R, P,
@@ -20,20 +20,41 @@ from ... import as_tensor, np_dtype
 from ...ops.operators import _buf, full_precision_matmul
 
 
+class NearKernel(nn.Module):
+    """One level's near-kernel (null-space) correction data (reference:
+    AMG_data.near_kernel_basis, fasp.h:849-852; per-level A_nk / P_nk /
+    R_nk, PreAMGSetupUABSR.c:241-266): ``B`` is the basis restricted to
+    the level, (n, m), and ``Ainv`` = (B^T A B)^-1, (m, m), formed dense
+    on the host.  The cycle applies x += B Ainv B^T (b - A x) after
+    post-smoothing (PreMGCycle.c:369-391): two skinny dense products."""
+
+    def __init__(self, B, Ainv):
+        super().__init__()
+        self.register_buffer("B", _buf(B))
+        self.register_buffer("Ainv", _buf(Ainv))
+
+    def forward(self, r: torch.Tensor) -> torch.Tensor:
+        full_precision_matmul()
+        return self.B @ (self.Ainv @ (self.B.T @ r))
+
+
 class AMGLevel(nn.Module):
     """One level: operator, transfers down to the next level, smoother
     (P, R and smoother are None on the coarsest level).  ``Asm``, when
     set, is the operator the smoother sweeps use (filtered smoothing:
     a banded approximation of A, same family as the reference's SA
-    smooth_filter, PreAMGSetupSA.c); residuals and transfers keep A."""
+    smooth_filter, PreAMGSetupSA.c); residuals and transfers keep A.
+    ``nk``, when set, is the level's near-kernel correction."""
 
-    def __init__(self, A, P=None, R=None, smoother=None, Asm=None):
+    def __init__(self, A, P=None, R=None, smoother=None, Asm=None,
+                 nk: Optional[NearKernel] = None):
         super().__init__()
         self.A = A
         self.P = P
         self.R = R
         self.smoother = smoother
         self.Asm = Asm
+        self.nk = nk
 
 
 class CoarseSolver(nn.Module):
@@ -90,9 +111,12 @@ _DENSE_COARSE_LIMIT = 4096
 
 
 def make_coarse_solver(A_host, dtype):
-    """Coarse-grid solver for a host CSR level: the dense inverse for
-    small levels, Jacobi-CG over its operator otherwise."""
+    """Coarse-grid solver for a host CSR (or BSR, through its scalar
+    expansion) level: the dense inverse for small levels, Jacobi-CG over
+    its operator otherwise."""
     from ...ops.operators import device_operator
+    if hasattr(A_host, "to_csr"):
+        A_host = A_host.to_csr()
     n = A_host.nrow
     if n <= _DENSE_COARSE_LIMIT:
         # the level in its working precision, inverted in float64

@@ -1,5 +1,5 @@
-"""Classical Ruge-Stuben AMG setup (port of ``_rap``, ``_smoothing_bands``
-and ``setup_rs`` of ``faspsolver_tpu/precond/amg/setup_rs.py``).
+"""Classical Ruge-Stuben AMG setup (port of ``_rap``, ``_smoothing_bands``,
+``setup_rs`` and ``setup_cr`` of ``faspsolver_tpu/precond/amg/setup_rs.py``).
 
 Reference: fasp_amg_setup_rs (PreAMGSetupRS.c:52): per level
 {coarsen -> guards -> interpolate -> R = P^T -> A_c = R A P} with the
@@ -14,6 +14,7 @@ moves it in one call.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 import warnings
@@ -26,12 +27,13 @@ from ...constants import CGPT, InterpType
 from ...formats import CSRMatrix
 from ...ops.operators import (CooOperator, DiaOperator, EllOperator,
                               best_operator, device_operator)
-from ...utils.params import AMGParam
+from ...utils.errors import FaspError
+from ...utils.params import AMGParam, ILUParam, SWZParam
 from .coarsen_rs import coarsen
 from .cycles import amli_fields
 from .hierarchy import AMGHierarchy, AMGLevel, make_coarse_solver
 from .interp import interpolate
-from .smoothers import build_smoother
+from .smoothers import PrecondSmoother, build_smoother
 from .transfer import banded_transfer, csr_transfer
 
 
@@ -114,6 +116,34 @@ def _fine64(A: CSRMatrix):
     return best_operator(A, dtype=np.float64)
 
 
+# what a host factorization raises; anything else (a device error, an
+# unported option) is not a reason to smooth with something else
+_FACTOR_ERRORS = (FaspError, np.linalg.LinAlgError, ValueError)
+
+
+def _precond_smoother(Al: CSRMatrix, l: int, param: AMGParam, npdt):
+    """ILU or Schwarz as the smoother of one of the finest levels
+    (reference: ILU_levels / SWZ_levels, PreAMGSetupRS.c:131-155), or
+    None: the level is past both counts, or the host factorization
+    failed and the standard smoother takes its place, as in the
+    reference."""
+    try:
+        if l < param.ILU_levels:
+            from ..ilu import setup_ilu
+            return PrecondSmoother(setup_ilu(
+                Al, ILUParam(ILU_type=param.ILU_type, ILU_lfil=param.ILU_lfil,
+                             ILU_droptol=param.ILU_droptol), dtype=npdt))
+        if l < param.SWZ_levels:
+            from ..schwarz import setup_schwarz
+            return PrecondSmoother(setup_schwarz(
+                Al, SWZParam(SWZ_mmsize=param.SWZ_mmsize,
+                             SWZ_maxlvl=param.SWZ_maxlvl,
+                             SWZ_type=param.SWZ_type), dtype=npdt))
+    except _FACTOR_ERRORS:
+        pass
+    return None
+
+
 def setup_rs(A: CSRMatrix, param: Optional[AMGParam] = None,
              dtype=None, keep_f64_fine: bool = False,
              timings: Optional[dict] = None,
@@ -135,9 +165,6 @@ def setup_rs(A: CSRMatrix, param: Optional[AMGParam] = None,
 
     param = param or AMGParam()
     npdt = np_dtype(dtype)
-    if param.ILU_levels > 0 or param.SWZ_levels > 0:
-        raise NotImplementedError("ILU / Schwarz level smoothers are not "
-                                  "ported (ROADMAP item 11)")
     if timings is not None and "host_cores" not in timings:
         timings["host_cores"] = os.cpu_count() or 1
 
@@ -204,10 +231,11 @@ def setup_rs(A: CSRMatrix, param: Optional[AMGParam] = None,
         _tick("transfer_s", t0)
         t0 = time.perf_counter()
         # C/F-ordered Gauss-Seidel (smooth_order = 1) colors C and F apart
-        sm = build_smoother(Al, param.smoother, relax=param.relaxation,
-                            poly_degree=param.polynomial_degree,
-                            cf_marker=(markers[l] if param.smooth_order == 1
-                                       else None), dtype=npdt)
+        sm = _precond_smoother(Al, l, param, npdt) or build_smoother(
+            Al, param.smoother, relax=param.relaxation,
+            poly_degree=param.polynomial_degree,
+            cf_marker=(markers[l] if param.smooth_order == 1 else None),
+            dtype=npdt)
         _tick("smoother_s", t0)
         t0 = time.perf_counter()
         Aop = best_operator(Al, dtype=npdt)
@@ -232,3 +260,12 @@ def setup_rs(A: CSRMatrix, param: Optional[AMGParam] = None,
         coarse_scaling=bool(param.coarse_scaling), fine64=fine64,
         **amli_fields(param))
     return hier if device is None else hier.to(device)
+
+
+def setup_cr(A: CSRMatrix, param: Optional[AMGParam] = None, dtype=None,
+             device=None) -> AMGHierarchy:
+    """Compatible-relaxation AMG setup (reference: fasp_amg_setup_cr,
+    PreAMGSetupCR.c: Brannick-Falgout CR coarsening with classical
+    interpolation)."""
+    param = dataclasses.replace(param or AMGParam(), coarsening_type=3)
+    return setup_rs(A, param, dtype=dtype, device=device)

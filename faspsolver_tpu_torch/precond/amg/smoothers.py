@@ -1,6 +1,7 @@
 """Multigrid smoothers (port of ``faspsolver_tpu/precond/amg/smoothers.py``:
 the Jacobi family, the multicolor Gauss-Seidel family, RBGS, Chebyshev,
-``build_smoother`` for general CSR levels and ``kaczmarz_sweep``).
+``PrecondSmoother``, ``build_smoother`` for general CSR levels and
+``kaczmarz_sweep``).
 
 Reference: base/src/ItrSmootherCSR.c (jacobi :98, gs :251, gs_cf :432,
 sgs :808, sor :932, L1DIAG, kaczmarz :1363), ItrSmootherCSRpoly.c
@@ -104,6 +105,23 @@ class SmootherData(nn.Module):
         if self.rb_red is None:
             return ()
         return (self.rb_red, self.rb_black)
+
+
+class PrecondSmoother(nn.Module):
+    """Any preconditioner as a multigrid smoother: x <- x + M(b - A x)
+    per sweep.  This is how the reference applies ILU and Schwarz as
+    smoothers on the finest AMG levels (ILU_levels / SWZ_levels,
+    PreAMGSetupRS.c:131-155; cycle priority ILU > Schwarz > standard,
+    PreMGCycle.c:100-133)."""
+
+    def __init__(self, M):
+        super().__init__()
+        self.M = M
+
+    def smooth(self, A, x, b, nsweeps: int, forward: bool):
+        for _ in range(nsweeps):
+            x = x + self.M(b - A(x))
+        return x
 
 
 def _ell_rows(A: CSRMatrix, rows: np.ndarray, dtype, drop_diag=True):
@@ -230,7 +248,14 @@ def _color_sweep(sm: SmootherData, x, b, order):
 def smooth(sm: SmootherData, A, x, b, nsweeps: int, forward: bool):
     """Apply ``nsweeps`` smoothing sweeps.  ``forward`` orders the
     Gauss-Seidel colors and the red-black sweeps so pre/post smoothing
-    are adjoint (reference: PreMGSmoother.inl:20-230)."""
+    are adjoint (reference: PreMGSmoother.inl:20-230).  Block (BSR)
+    smoother data goes to the block sweeps, a ``PrecondSmoother`` to its
+    preconditioner."""
+    from .bsr_smoothers import BsrSmootherData, bsr_smooth
+    if isinstance(sm, BsrSmootherData):
+        return bsr_smooth(sm, A, x, b, nsweeps, forward)
+    if isinstance(sm, PrecondSmoother):
+        return sm.smooth(A, x, b, nsweeps, forward)
     kind = sm.kind
     for _ in range(nsweeps):
         if kind == SmootherType.JACOBI:

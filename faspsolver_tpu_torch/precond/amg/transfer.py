@@ -1,5 +1,5 @@
 """Grid transfers as ``nn.Module``s (port of ``AggProlong``/
-``AggRestrict``, ``CooProlong``/``CooRestrict``, ``BandedProlong``/
+``AggRestrict``, ``BlockAggProlong``/``BlockAggRestrict``, ``CooProlong``/``CooRestrict``, ``BandedProlong``/
 ``BandedRestrict``, ``banded_transfer`` and ``csr_transfer`` of
 ``faspsolver_tpu/precond/amg/transfer.py``).
 
@@ -70,6 +70,43 @@ class AggRestrict(_AggTransfer):
 
     def forward(self, rf: torch.Tensor) -> torch.Tensor:
         return rf.new_zeros(self.n_coarse).index_add_(0, self.agg, rf)
+
+
+class _BlockAggTransfer(_AggTransfer):
+    """A boolean block transfer: fine block i belongs to coarse block
+    ``agg[i]`` (reference: form_boolean_p_bsr,
+    PreAMGAggregationBSR.inl)."""
+
+    def __init__(self, agg, n_fine: int, n_coarse: int, nb: int):
+        super().__init__(agg, n_fine, n_coarse)
+        self.nb = int(nb)
+
+
+class BlockAggProlong(_BlockAggTransfer):
+    """Blockwise boolean prolongation: fine block i takes coarse block
+    agg[i]."""
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_fine * self.nb, self.n_coarse * self.nb)
+
+    def forward(self, xc: torch.Tensor) -> torch.Tensor:
+        return xc.reshape(self.n_coarse, self.nb).index_select(
+            0, self.agg).reshape(-1)
+
+
+class BlockAggRestrict(_BlockAggTransfer):
+    """Blockwise boolean restriction: a segment sum of fine blocks by
+    aggregate (``index_add_``: atomic, so not bit-reproducible, on
+    CUDA)."""
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_coarse * self.nb, self.n_fine * self.nb)
+
+    def forward(self, rf: torch.Tensor) -> torch.Tensor:
+        return rf.new_zeros(self.n_coarse, self.nb).index_add_(
+            0, self.agg, rf.reshape(self.n_fine, self.nb)).reshape(-1)
 
 
 class _CooTransfer(nn.Module):

@@ -1,19 +1,24 @@
 """User-facing solver drivers: params -> preconditioner setup -> Krylov
-(port of the CSR drivers of ``faspsolver_tpu/solvers/drivers.py``).
+(port of the CSR and BSR drivers of
+``faspsolver_tpu/solvers/drivers.py``).
 
 Reference: base/src/SolCSR.c (fasp_solver_dcsr_itsolver :56, _krylov
-:249, _krylov_diag :341, _krylov_amg :476, _krylov_amg_nk :748),
-SolAMG.c:49 (fasp_solver_amg with its GMRES fallback :128-135),
-SolFAMG.c.
+:249, _krylov_diag :341, _krylov_swz :401, _krylov_amg :476, _krylov_ilu
+:588, _krylov_ilu_M :668, _krylov_amg_nk :748), SolBSR.c (_krylov_diag
+:186, _krylov_ilu :286, _krylov_amg :349, _krylov_amg_nk :476,
+_krylov_nk_amg :634), SolAMG.c:49 (fasp_solver_amg with its GMRES
+fallback :128-135), SolFAMG.c.
 
 Every driver takes ``dtype`` (``None``: float64) and ``device``
 (``None``: the device of an operator or preconditioner passed in already
 on one, else the CUDA device; without one it raises, and ``"cpu"`` asks
 for the CPU).  It builds on the host, moves what it built with
 ``.to(device)`` and returns a ``SolveResult`` whose ``x`` lies on
-``device``.  The BSR,
-STR and BLC branches and the ILU, Schwarz, block and sweeping drivers
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``device``.  The ILU and Schwarz drivers choose the operator of a CSR
+matrix with ``best_operator``, so a grid matrix applies through the
+stencil kernel.  The STR and BLC branches and the block and sweeping
+drivers raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -21,20 +26,22 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from .. import as_tensor, default_device, torch_dtype
 from ..constants import AMGType, SolverType
 from ..formats import BLCMatrix, BSRMatrix, CSRMatrix, STRMatrix
-from ..krylov import (JacobiPrecond, SolveResult, bicgstab, gcg, gcr, gmres,
-                      minres, pcg, vfgmres, vgmres)
-from ..ops.operators import device_operator
-from ..precond import AMGNKPrecond, AMGPrecond
+from ..krylov import (BlockJacobiPrecond, JacobiPrecond, SolveResult,
+                      bicgstab, gcg, gcr, gmres, minres, pcg, vfgmres, vgmres)
+from ..ops.operators import best_operator, device_operator
+from ..precond import (AMGNKPrecond, AMGPrecond, setup_bsr_ilu0, setup_ilu,
+                       setup_schwarz)
 from ..precond.amg import (amg_solve, famg_solve, setup_rs, setup_sa,
-                           setup_ua)
+                           setup_sa_bsr, setup_ua, setup_ua_bsr)
 from ..utils import messages
 from ..utils.errors import FaspError
-from ..utils.params import AMGParam, ITSParam
+from ..utils.params import AMGParam, ILUParam, ITSParam, SWZParam
 
 _KRYLOV = {
     int(SolverType.CG): pcg,
@@ -77,8 +84,6 @@ def _unported(A, item: int):
 
 
 def _check_host(A):
-    if isinstance(A, BSRMatrix):
-        _unported(A, 10)
     if isinstance(A, (STRMatrix, BLCMatrix)):
         _unported(A, 11)
 
@@ -97,10 +102,10 @@ def _resolve_device(device, *placed) -> torch.device:
 
 
 def _as_operator(A, dtype, device):
-    """The operator of a host CSR matrix on ``device``, or A itself when
-    it is already an operator."""
+    """The operator of a host CSR or BSR matrix on ``device``, or A
+    itself when it is already an operator."""
     _check_host(A)
-    if isinstance(A, CSRMatrix):
+    if isinstance(A, (CSRMatrix, BSRMatrix)):
         return device_operator(A, dtype=dtype).to(device)
     return A
 
@@ -170,17 +175,30 @@ def krylov(A, b, x0=None, its: Optional[ITSParam] = None, dtype=None,
 def krylov_diag(A, b, x0=None, its: Optional[ITSParam] = None, dtype=None,
                 device=None) -> SolveResult:
     """Diagonally preconditioned Krylov (reference: _krylov_diag,
-    SolCSR.c:341)."""
+    SolCSR.c:341; the BSR twin SolBSR.c:186 uses the block-diagonal
+    inverses)."""
     _check_host(A)
-    if not isinstance(A, CSRMatrix):
+    if isinstance(A, BSRMatrix):
+        M = BlockJacobiPrecond.from_bsr(A, dtype)
+    elif isinstance(A, CSRMatrix):
+        M = JacobiPrecond.from_csr(A, dtype)
+    else:
         raise FaspError(-41, "krylov_diag needs a host matrix")
     device = _resolve_device(device)
-    M = JacobiPrecond.from_csr(A, dtype).to(device)
+    M = M.to(device)
     return itsolver(A, b, x0=x0, M=M, its=its, dtype=dtype, device=device)
 
 
-def _amg_setup_by_type(A: CSRMatrix, amg: AMGParam, dtype=None):
+def _amg_setup_by_type(A, amg: AMGParam, dtype=None, nk=None):
+    """The hierarchy ``AMG_type`` asks for.  A BSR matrix takes the
+    BSR-native setups: aggregation on the condensed graph and block
+    smoothers (reference: fasp_solver_dbsr_krylov_amg, SolBSR.c:349, and
+    its SA twin fasp_amg_setup_sa_bsr); ``nk`` is their near-kernel
+    basis."""
     t = int(amg.AMG_type)
+    if isinstance(A, BSRMatrix):
+        setup = setup_sa_bsr if t == AMGType.SA else setup_ua_bsr
+        return setup(A, amg, dtype=dtype, nk=nk)
     if t == AMGType.SA:
         return setup_sa(A, amg, dtype=dtype)
     if t == AMGType.UA:
@@ -238,29 +256,126 @@ def solve_famg(A: CSRMatrix, b, x0=None, amg: Optional[AMGParam] = None,
                       tol=amg.tol, maxit=amg.maxit)
 
 
-def krylov_amg_nk(A: CSRMatrix, b, nk, x0=None,
+def krylov_amg_nk(A, b, nk, x0=None,
                   its: Optional[ITSParam] = None,
                   amg: Optional[AMGParam] = None, dtype=None, device=None
                   ) -> Tuple[SolveResult, object]:
     """AMG-preconditioned Krylov with an extra near-kernel correction
-    (reference: fasp_solver_dcsr_krylov_amg_nk, SolCSR.c:748).  ``nk`` is
-    an (n, m) array of near-kernel vectors."""
+    (reference: fasp_solver_dcsr_krylov_amg_nk, SolCSR.c:748; BSR twin
+    SolBSR.c:476, always over the UA hierarchy).  ``nk`` is an (n, m)
+    array of near-kernel vectors."""
     its = its or ITSParam()
     amg = amg or AMGParam()
     _check_host(A)
     device = _resolve_device(device)
-    hier = _amg_setup_by_type(A, amg, dtype)
+    if isinstance(A, BSRMatrix):
+        hier = setup_ua_bsr(A, amg, dtype=dtype)
+    else:
+        hier = _amg_setup_by_type(A, amg, dtype)
     op = _as_operator(A, dtype, "cpu")
     nk = np.atleast_2d(np.asarray(nk, dtype=np.float64))
     if nk.shape[0] != A.nrow:
         nk = nk.T
-    gram_inv = np.linalg.pinv(nk.T @ A.to_scipy().dot(nk))
+    gram_inv = np.linalg.pinv(nk.T @ (A.to_scipy() @ nk))
     M = AMGNKPrecond(hier, as_tensor(nk, op.dtype),
                      as_tensor(gram_inv, op.dtype), op,
                      maxit=amg.maxit).to(device)
     res = itsolver(M.A_op, b, x0=x0, M=M, its=its, dtype=dtype,
                    device=device)
     return res, M.mg.hier
+
+
+def krylov_nk_amg(A, b, nk, x0=None, its: Optional[ITSParam] = None,
+                  amg: Optional[AMGParam] = None, dtype=None, device=None
+                  ) -> Tuple[SolveResult, object]:
+    """Krylov preconditioned by AMG that carries the near-kernel basis
+    inside the hierarchy: the basis is restricted level by level and the
+    cycle applies the extra near-kernel solve after post-smoothing
+    (reference: fasp_solver_dbsr_krylov_nk_amg, SolBSR.c:634;
+    PreAMGSetupUABSR.c:241-266; PreMGCycle.c:369-391).  BSR only."""
+    its = its or ITSParam()
+    amg = amg or AMGParam()
+    if not isinstance(A, BSRMatrix):
+        raise FaspError(-41, "krylov_nk_amg: BSR path only (reference "
+                        "SolBSR.c:634)")
+    device = _resolve_device(device)
+    hier = _amg_setup_by_type(A, amg, dtype, nk=nk).to(device)
+    res = itsolver(A, b, x0=x0, M=AMGPrecond(hier, maxit=amg.maxit),
+                   its=its, dtype=dtype, device=device)
+    return res, hier
+
+
+def _precond_solve(A, b, x0, M, its, dtype, device) -> SolveResult:
+    """Krylov over ``best_operator(A)`` (a grid matrix: the stencil
+    kernel) for a CSR matrix, or over M's own operator when it has one
+    (Schwarz), preconditioned by M."""
+    if isinstance(A, CSRMatrix):
+        A = getattr(M, "A", None) or best_operator(A, dtype=dtype).to(device)
+    return itsolver(A, b, x0=x0, M=M, its=its, dtype=dtype, device=device)
+
+
+def krylov_ilu(A, b, x0=None, its: Optional[ITSParam] = None,
+               ilu: Optional[ILUParam] = None, dtype=None, device=None
+               ) -> SolveResult:
+    """ILU-preconditioned Krylov (reference: fasp_solver_dcsr_krylov_ilu,
+    SolCSR.c:588; BSR twin SolBSR.c:286).  The factorization runs on the
+    host at setup; the apply is level-scheduled triangular solves on the
+    device.  A BSR matrix with ``ILU_lfil = 0`` takes the true block
+    ILU(0) (fasp_ilu_dbsr_setup) and, should that setup fail or for
+    ``lfil > 0``, the scalar ILU of its CSR expansion."""
+    ilu = ilu or ILUParam()
+    _check_host(A)
+    if not isinstance(A, (BSRMatrix, CSRMatrix)):
+        raise FaspError(-41, "krylov_ilu needs a host matrix")
+    device = _resolve_device(device)
+    M = None
+    if isinstance(A, BSRMatrix) and int(ilu.ILU_lfil) == 0:
+        try:
+            M = setup_bsr_ilu0(A, dtype=dtype)
+        except FaspError:
+            pass
+    if M is None:
+        M = setup_ilu(A.to_csr() if isinstance(A, BSRMatrix) else A, ilu,
+                      dtype=dtype)
+    return _precond_solve(A, b, x0, M.to(device), its, dtype, device)
+
+
+def krylov_ilu_m(A: CSRMatrix, b, x0=None, its: Optional[ITSParam] = None,
+                 ilu: Optional[ILUParam] = None, dtype=None, device=None
+                 ) -> SolveResult:
+    """ILU on the M-matrix massage of A: positive off-diagonals are moved
+    onto the diagonal (row sums kept) before factorization, and the ILU
+    of that M-matrix preconditions the original system (reference:
+    fasp_solver_dcsr_krylov_ilu_M, SolCSR.c:668)."""
+    if not isinstance(A, CSRMatrix):
+        raise FaspError(-41, "krylov_ilu_m needs a CSRMatrix")
+    device = _resolve_device(device)
+    m = A.to_scipy().tocoo()
+    off_pos = (m.row != m.col) & (m.data > 0)
+    diag_add = np.bincount(m.row[off_pos], weights=m.data[off_pos],
+                           minlength=A.nrow)
+    keep = ~off_pos
+    diag = np.arange(A.nrow)
+    M_mat = sp.coo_matrix((np.concatenate([m.data[keep], diag_add]),
+                           (np.concatenate([m.row[keep], diag]),
+                            np.concatenate([m.col[keep], diag]))),
+                          shape=m.shape).tocsr()
+    M_mat.sum_duplicates()
+    M = setup_ilu(CSRMatrix.from_scipy(M_mat), ilu or ILUParam(),
+                  dtype=dtype).to(device)
+    return _precond_solve(A, b, x0, M, its, dtype, device)
+
+
+def krylov_swz(A: CSRMatrix, b, x0=None, its: Optional[ITSParam] = None,
+               swz: Optional[SWZParam] = None, dtype=None, device=None
+               ) -> SolveResult:
+    """Schwarz-preconditioned Krylov (reference:
+    fasp_solver_dcsr_krylov_swz, SolCSR.c:401)."""
+    if not isinstance(A, CSRMatrix):
+        raise FaspError(-41, "krylov_swz needs a CSRMatrix")
+    device = _resolve_device(device)
+    M = setup_schwarz(A, swz or SWZParam(), dtype=dtype).to(device)
+    return _precond_solve(A, b, x0, M, its, dtype, device)
 
 
 def _not_ported(name: str, what: str, item: int):
@@ -273,10 +388,6 @@ def _not_ported(name: str, what: str, item: int):
     return driver
 
 
-krylov_ilu = _not_ported("krylov_ilu", "ILU preconditioning", 11)
-krylov_ilu_m = _not_ported("krylov_ilu_m", "ILU preconditioning", 11)
-krylov_swz = _not_ported("krylov_swz", "Schwarz preconditioning", 11)
 krylov_blockgs = _not_ported("krylov_blockgs", "STR block smoothing", 11)
 krylov_block = _not_ported("krylov_block", "BLC block preconditioning", 11)
 krylov_sweeping = _not_ported("krylov_sweeping", "BLC sweeping", 11)
-krylov_nk_amg = _not_ported("krylov_nk_amg", "BSR near-kernel AMG", 10)

@@ -1,10 +1,14 @@
 """Mixed-precision iterative refinement: f32 inner solves, f64 accuracy
-(port of ``make_resident_refiner`` / ``_refine_body`` /
+(port of ``solve_refined``, ``solve_refined_device``,
+``make_resident_refiner`` / ``_refine_body`` and
 ``solve_refined_resident`` of ``faspsolver_tpu/solvers/refine.py``).
 
-The outer loop computes f64 true residuals with the hierarchy's exact
-f64 fine operator and accumulates the f64 solution on the device; the
-inner solve is an f32 AMG-PCG.  Each round multiplies the achieved
+``solve_refined`` keeps the f64 residuals on the host (any host matrix,
+any inner solver); ``solve_refined_device`` keeps them on the device
+behind an f64 operator.  In the resident form the outer loop computes
+f64 true residuals with the hierarchy's exact f64 fine operator and
+accumulates the f64 solution on the device; the inner solve is an f32
+AMG-PCG.  Each round multiplies the achieved
 accuracy, so 2-3 rounds of an inner 1e-5 solve reach 1e-10.  The loop is
 eager Python: one host read of the f64 relative residual per round (the
 inner PCG reads once per iteration), counted in ``syncs``.
@@ -12,10 +16,13 @@ inner PCG reads once per iteration), counted in ``syncs``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from .. import default_device
+from ..formats import BSRMatrix, CSRMatrix
 
 
 @dataclass
@@ -34,6 +41,107 @@ class RefineOutcome(NamedTuple):
     rounds: int
     iters: int
     syncs: int
+
+
+def _need(tol, relres, inner_tol, inner_floor) -> float:
+    """The inner tolerance of one round: the remaining reduction times a
+    safety factor, between the f32 floor and ``inner_tol``."""
+    return max(min(inner_tol, 0.3 * tol / relres), inner_floor)
+
+
+def solve_refined(A_host, b, inner_solve: Callable, *, tol: float = 1e-8,
+                  max_rounds: int = 6, inner_tol: float = 1e-5,
+                  inner_floor: float = 5e-6, dtype=torch.float32,
+                  device=None) -> RefinedResult:
+    """Outer f64 refinement on the host around an inner reduced-precision
+    solver on ``device`` (``None``: the CUDA device; it raises where
+    there is none).
+
+    ``A_host`` is a host matrix (CSRMatrix / BSRMatrix) for the exact f64
+    residuals; ``inner_solve(r, tol) -> SolveResult`` solves A d = r
+    approximately for a ``dtype`` tensor r on ``device`` (say AMG-vFGMRES
+    in f32).  The inner tolerance adapts: each round asks only for the
+    remaining reduction, so late rounds cost a couple of iterations."""
+    if not isinstance(A_host, (BSRMatrix, CSRMatrix)):
+        raise TypeError("solve_refined needs a host matrix for f64 residuals")
+    device = torch.device(device) if device is not None else default_device()
+
+    b64 = np.asarray(b, dtype=np.float64)
+    bnorm = max(float(np.linalg.norm(b64)), 1e-300)
+    x = np.zeros_like(b64)
+    total_inner = syncs = 0
+    prev_relres = np.inf
+    slow_rounds = 0
+    best_x, best_relres = x, np.inf
+    for rnd in range(max_rounds):
+        r = b64 - A_host.matvec(x)
+        relres = float(np.linalg.norm(r)) / bnorm
+        if relres < best_relres:
+            best_x, best_relres = x, relres
+        if relres < tol:
+            return RefinedResult(x=x, rounds=rnd, inner_iters=total_inner,
+                                 relres=relres, converged=True, syncs=syncs)
+        # stall guard: refinement converges geometrically when it works.
+        # Two consecutive rounds gaining less than 2x while still more
+        # than 10x away from tol mean the inner precision is exhausted:
+        # stop and return the best iterate seen (a diverged inner
+        # correction is not handed back).  One slow round alone is not a
+        # stall, and within 10x of tol the last rounds may crawl.
+        if relres > 0.5 * prev_relres and relres > 10 * tol:
+            slow_rounds += 1
+            if slow_rounds >= 2:
+                return RefinedResult(x=best_x, rounds=rnd,
+                                     inner_iters=total_inner,
+                                     relres=best_relres, converged=False,
+                                     syncs=syncs)
+        else:
+            slow_rounds = 0
+        prev_relres = relres
+        # the residual scaled to O(1) keeps the f32 solve's dynamic range
+        scale = max(float(np.abs(r).max()), 1e-300)
+        res = inner_solve(
+            torch.as_tensor(r / scale).to(device=device, dtype=dtype),
+            _need(tol, relres, inner_tol, inner_floor))
+        total_inner += int(res.iters)
+        syncs += int(getattr(res, "syncs", 0)) + 1
+        x = x + scale * res.x.to(torch.float64).cpu().numpy()
+    relres = float(np.linalg.norm(b64 - A_host.matvec(x))) / bnorm
+    if relres > best_relres:               # the last round made it worse
+        x, relres = best_x, best_relres
+    return RefinedResult(x=x, rounds=max_rounds, inner_iters=total_inner,
+                         relres=relres, converged=relres < tol, syncs=syncs)
+
+
+def solve_refined_device(op_hi, b, inner_solve: Callable, *,
+                         tol: float = 1e-8, max_rounds: int = 6,
+                         inner_tol: float = 1e-5, inner_floor: float = 5e-6,
+                         dtype=torch.float32) -> RefinedResult:
+    """Device-resident refinement around any inner solver: the f64
+    operator ``op_hi``, the solution and the residuals stay on
+    ``op_hi``'s device, and each round reads two scalars back.
+    ``inner_solve(r, tol) -> SolveResult`` as in :func:`solve_refined`."""
+    device = next(op_hi.buffers()).device
+    b64 = torch.as_tensor(np.asarray(b, dtype=np.float64), device=device)
+    bnorm = max(float(torch.linalg.vector_norm(b64)), 1e-300)
+    x = torch.zeros_like(b64)
+    total_inner, syncs, converged = 0, 1, False
+    for rnd in range(max_rounds + 1):
+        r = b64 - op_hi(x)
+        relres = float(torch.linalg.vector_norm(r)) / bnorm
+        syncs += 1
+        converged = relres < tol
+        if converged or rnd == max_rounds:
+            break
+        scale = float(r.abs().max())
+        syncs += 1
+        res = inner_solve((r / scale).to(dtype),
+                          _need(tol, relres, inner_tol, inner_floor))
+        total_inner += int(res.iters)
+        syncs += int(getattr(res, "syncs", 0))
+        x = x + scale * res.x.to(torch.float64)
+    return RefinedResult(x=x.cpu().numpy(), rounds=rnd,
+                         inner_iters=total_inner, relres=relres,
+                         converged=converged, syncs=syncs)
 
 
 def make_resident_refiner(op64, op32, M, *, tol: float = 1e-6,

@@ -3,7 +3,8 @@
 Every ported driver and every SolverType id through ``itsolver`` give
 the JAX package's iterations and status with x within 1e-10; unknown
 ids raise FaspError(-40) and the unported drivers NotImplementedError
-naming their ROADMAP item.  The two CLIs print the same iteration line
+naming their ROADMAP item (the BSR, ILU and Schwarz drivers have their
+own files).  The two CLIs print the same iteration line
 and exit with the same code on the repository's ini files.  Files
 written by one package read back in the other.  The port's counts on
 chip_smoke.py's small grid stay within the recorded JAX anchors."""
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 from native_parity import ensure_native
-from small_grid_anchors import problem, run
+from small_grid_anchors import problem, run, run_fields
 
 import chip_smoke
 import faspsolver_tpu.io as jax_io
@@ -27,7 +28,7 @@ import faspsolver_tpu_torch.solvers as solvers
 from faspsolver_tpu_torch.__main__ import main
 from faspsolver_tpu_torch.constants import AMGType, SolverType
 from faspsolver_tpu_torch.convert import from_jax
-from faspsolver_tpu_torch.formats import BSRMatrix, STRMatrix
+from faspsolver_tpu_torch.formats import BLCMatrix, BSRMatrix, STRMatrix
 from faspsolver_tpu_torch.testgen import poisson_2d
 from faspsolver_tpu_torch.utils import FaspError, messages
 from faspsolver_tpu_torch.utils.params import AMGParam, ITSParam
@@ -191,10 +192,8 @@ def test_device_none_follows_what_is_already_placed(monkeypatch):
     assert res.x.device.type == "cpu" and res.converged
 
 
-UNPORTED = [("krylov_ilu", "item 11"), ("krylov_ilu_m", "item 11"),
-            ("krylov_swz", "item 11"), ("krylov_blockgs", "item 11"),
-            ("krylov_block", "item 11"), ("krylov_sweeping", "item 11"),
-            ("krylov_nk_amg", "item 10")]
+UNPORTED = [("krylov_blockgs", "item 11"), ("krylov_block", "item 11"),
+            ("krylov_sweeping", "item 11")]
 
 
 @pytest.mark.parametrize("driver,item", UNPORTED)
@@ -205,15 +204,25 @@ def test_unported_drivers_raise(driver, item):
 
 
 def test_unported_formats_raise():
+    """STR and BLC matrices wait for ROADMAP item 11 in every driver; a
+    BSR matrix (item 10, ported) solves."""
     p = _poisson()
     bsr = BSRMatrix.from_csr(p["A"], 1)
     strm = STRMatrix.__new__(STRMatrix)
+    blc = BLCMatrix.__new__(BLCMatrix)
     for fn in (solvers.krylov, solvers.krylov_diag, solvers.krylov_amg,
-               solvers.solve_amg):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            fn(bsr, p["b"], device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            fn(strm, p["b"], device="cpu")
+               solvers.solve_amg, solvers.krylov_ilu):
+        for mat in (strm, blc):
+            with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+                fn(mat, p["b"], device="cpu")
+        res = fn(bsr, p["b"], device="cpu")
+        res = res[0] if isinstance(res, tuple) else res
+        assert res.x.shape == p["b"].shape
+        assert bool(torch.isfinite(res.x).all())
+
+
+def _raise_not_implemented(*args, **kwargs):
+    raise NotImplementedError("an unported option")
 
 
 def test_solve_amg_falls_back_only_on_host_setup_errors(monkeypatch):
@@ -230,8 +239,11 @@ def test_solve_amg_falls_back_only_on_host_setup_errors(monkeypatch):
     _assert_same(got, ref)
     assert len(warned) == 1 and "falling back to GMRES" in warned[0]
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        solvers.solve_amg(p["A"], p["b"], amg=AMGParam(ILU_levels=1),
-                          device="cpu")
+        solvers.solve_amg(STRMatrix.__new__(STRMatrix), p["b"],
+                          amg=AMGParam(**kw), device="cpu")
+    monkeypatch.setattr(solvers.drivers, "setup_rs", _raise_not_implemented)
+    with pytest.raises(NotImplementedError, match="an unported option"):
+        solvers.solve_amg(p["A"], p["b"], amg=AMGParam(), device="cpu")
     assert len(warned) == 1
 
 
@@ -285,6 +297,19 @@ def test_small_grid_within_the_recorded_anchors(cfg):
     A, b = problem()
     res, x = run("port", cfg, A, b)
     name, _, _, _, anchor, bound = cfg
+    assert res.converged and res.status == 0
+    assert abs(res.iters - anchor) <= bound, (name, res.iters, anchor)
+    assert np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b) < 1e-9
+
+
+@pytest.mark.parametrize("cfg", chip_smoke.LEFTOVER_GRID,
+                         ids=[c[0] for c in chip_smoke.LEFTOVER_GRID])
+def test_leftover_grid_within_the_recorded_anchors(cfg):
+    """Phase 9d's configs (level smoothers, energy-min, CR, ILU
+    variants, Schwarz) on the CPU against the recorded JAX counts."""
+    A, b = problem()
+    name, driver, fields, anchor, bound = cfg
+    res, x = run_fields("port", driver, fields, A, b)
     assert res.converged and res.status == 0
     assert abs(res.iters - anchor) <= bound, (name, res.iters, anchor)
     assert np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b) < 1e-9

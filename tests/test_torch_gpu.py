@@ -250,3 +250,75 @@ def test_drivers_on_the_card_match_the_cpu(fn, kw):
     assert card.x.is_cuda and card.converged
     assert card.iters == cpu.iters
     assert float((card.x.cpu() - cpu.x).abs().max()) < 1e-10
+
+
+BLOCK_DRIVERS = [
+    ("krylov_amg", dict(its=dict(itsolver_type=6, tol=1e-9, restart=30),
+                        amg=dict(AMG_type=3, aggregation_type=2,
+                                 coarse_dof=30, smoother=2))),
+    ("krylov_nk_amg", dict(its=dict(itsolver_type=6, tol=1e-9, restart=30),
+                           amg=dict(AMG_type=3, aggregation_type=2,
+                                    coarse_dof=30), nk=True)),
+    ("krylov_ilu", dict(its=dict(itsolver_type=4, tol=1e-9, restart=30))),
+    ("krylov_diag", dict(its=dict(itsolver_type=1, tol=1e-9, maxit=500))),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("driver,fields", BLOCK_DRIVERS,
+                         ids=[d for d, _ in BLOCK_DRIVERS])
+def test_block_drivers_on_the_card_match_the_cpu(driver, fields):
+    """The BSR drivers with no device argument run on the card; counts
+    within 2 of the CPU's (the block restriction adds atomically) and x
+    within 1e-8."""
+    _need_cuda()
+    import chip_smoke
+    from faspsolver_tpu_torch import solvers
+    A, b = chip_smoke.bsr_problem(10)
+    args = [A, b] + ([chip_smoke.component_basis(A.nrow, A.nb)]
+                     if fields.get("nk") else [])
+    kw = chip_smoke.driver_fields(fields)
+    card = getattr(solvers, driver)(*args, **kw)
+    cpu = getattr(solvers, driver)(*args, device="cpu", **kw)
+    card, cpu = (r[0] if isinstance(r, tuple) else r for r in (card, cpu))
+    assert card.x.device.type == "cuda" and card.converged
+    assert abs(card.iters - cpu.iters) <= 2
+    assert float((card.x.cpu() - cpu.x).abs().max()) < 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ILUk", "ILUt", "block ILU(0)", "Schwarz"])
+def test_factorization_preconditioners_on_the_card_match_the_cpu(kind):
+    """One apply on the card against the same module on the CPU; the ILU
+    applies replay a CUDA graph whose result equals the eager loop's bit
+    for bit, and a move drops the graph."""
+    _need_cuda()
+    import copy
+    import chip_smoke
+    from faspsolver_tpu_torch.precond import (setup_bsr_ilu0, setup_ilu,
+                                              setup_schwarz)
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    from faspsolver_tpu_torch.utils.params import ILUParam
+    if kind == "block ILU(0)":
+        A, _ = chip_smoke.bsr_problem(8)
+        M = setup_bsr_ilu0(A)
+    elif kind == "Schwarz":
+        A = poisson_2d(40)
+        M = setup_schwarz(A)
+    else:
+        A = poisson_2d(40)
+        M = setup_ilu(A, ILUParam(ILU_type=1 if kind == "ILUk" else 2))
+    card = copy.deepcopy(M).to("cuda")
+    r = torch.randn(A.nrow, dtype=torch.float64)
+    z = card(r.cuda())
+    want = M(r)
+    assert float((z.cpu() - want).abs().max()) <= \
+        1e-12 * float(want.abs().max())
+    if kind != "Schwarz":
+        assert card._graph is not None
+        assert torch.equal(card(r.cuda()), card.eager(r.cuda()))
+        r2 = torch.randn(A.nrow, dtype=torch.float64)
+        assert torch.equal(card(r2.cuda()), card.eager(r2.cuda()))
+        assert card.to(torch.float32)._graph is None
+    else:
+        assert stencil2d.launches[torch.float64] > 0

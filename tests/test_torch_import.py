@@ -31,6 +31,7 @@ MODULES = [
     "faspsolver_tpu_torch.krylov.gmres",
     "faspsolver_tpu_torch.krylov.minres",
     "faspsolver_tpu_torch.krylov.pcg",
+    "faspsolver_tpu_torch.krylov.precond",
     "faspsolver_tpu_torch.native",
     "faspsolver_tpu_torch.ops",
     "faspsolver_tpu_torch.ops.blas1",
@@ -40,10 +41,12 @@ MODULES = [
     "faspsolver_tpu_torch.precond.amg",
     "faspsolver_tpu_torch.precond.amg.aggregation",
     "faspsolver_tpu_torch.precond.amg.band_algebra",
+    "faspsolver_tpu_torch.precond.amg.bsr_smoothers",
     "faspsolver_tpu_torch.precond.amg.coarsen_rs",
     "faspsolver_tpu_torch.precond.amg.cycles",
     "faspsolver_tpu_torch.precond.amg.hierarchy",
     "faspsolver_tpu_torch.precond.amg.interp",
+    "faspsolver_tpu_torch.precond.amg.setup_bsr",
     "faspsolver_tpu_torch.precond.amg.setup_rs",
     "faspsolver_tpu_torch.precond.amg.setup_sa",
     "faspsolver_tpu_torch.precond.amg.setup_ua",
@@ -51,11 +54,16 @@ MODULES = [
     "faspsolver_tpu_torch.precond.amg.solve",
     "faspsolver_tpu_torch.precond.amg.structured",
     "faspsolver_tpu_torch.precond.amg.transfer",
+    "faspsolver_tpu_torch.precond.ilu",
+    "faspsolver_tpu_torch.precond.preconditioners",
+    "faspsolver_tpu_torch.precond.schwarz",
     "faspsolver_tpu_torch.solvers",
     "faspsolver_tpu_torch.solvers.drivers",
     "faspsolver_tpu_torch.solvers.refine",
     "faspsolver_tpu_torch.testgen",
+    "faspsolver_tpu_torch.testgen.fdm",
     "faspsolver_tpu_torch.testgen.fem",
+    "faspsolver_tpu_torch.testgen.structural",
     "faspsolver_tpu_torch.utils",
     "faspsolver_tpu_torch.utils.build",
     "faspsolver_tpu_torch.utils.messages",
@@ -132,13 +140,6 @@ def test_kernel_module_needs_no_nvcc_or_gpu():
                        9.0, 10.0, 11.0, 0.0]
 
 
-# public names of a copied module that the port leaves out, and why
-NOT_COPIED = {
-    # waits with setup_cr and the energy-min interpolation
-    "faspsolver_tpu_torch.precond.amg.interp": {"interp_energymin"},
-}
-
-
 @pytest.mark.parametrize("module", ["faspsolver_tpu_torch.constants",
                                     "faspsolver_tpu_torch.utils.params",
                                     "faspsolver_tpu_torch.utils.messages",
@@ -151,6 +152,7 @@ NOT_COPIED = {
                                     "faspsolver_tpu_torch.io.writers",
                                     "faspsolver_tpu_torch.testgen.fdm",
                                     "faspsolver_tpu_torch.testgen.fem",
+                                    "faspsolver_tpu_torch.testgen.structural",
                                     "faspsolver_tpu_torch.precond.amg"
                                     ".aggregation",
                                     "faspsolver_tpu_torch.precond.amg"
@@ -166,5 +168,5 @@ def test_copied_host_modules_match_reference(module):
     names = {n for n in vars(ref) if not n.startswith("_")
              and getattr(getattr(ref, n), "__module__", ref.__name__)
              == ref.__name__}
-    missing = names - set(vars(port)) - NOT_COPIED.get(module, set())
+    missing = names - set(vars(port))
     assert not missing, missing

@@ -29,6 +29,7 @@ from faspsolver_tpu.precond.amg.cycles import mgcycle as jax_mgcycle
 from faspsolver_tpu.precond.amg.setup_rs import _rap as jax_rap
 from faspsolver_tpu.precond.amg.setup_rs import \
     _smoothing_bands as jax_smoothing_bands
+from faspsolver_tpu.precond.amg.setup_rs import setup_cr as jax_setup_cr
 from faspsolver_tpu.precond.amg.setup_rs import setup_rs as jax_setup_rs
 from faspsolver_tpu.solvers import solve_refined_resident as jax_refined
 from faspsolver_tpu.utils.params import AMGParam as JaxAMGParam
@@ -39,8 +40,12 @@ from faspsolver_tpu_torch.ops import operators as ops
 from faspsolver_tpu_torch.precond import AMGPrecond
 from faspsolver_tpu_torch.precond.amg import build_smoother, mgcycle, setup_rs
 from faspsolver_tpu_torch.precond.amg.coarsen_rs import coarsen
-from faspsolver_tpu_torch.precond.amg.interp import interpolate
-from faspsolver_tpu_torch.precond.amg.setup_rs import _rap, _smoothing_bands
+from faspsolver_tpu_torch.formats import BSRMatrix
+from faspsolver_tpu_torch.precond.amg.interp import (interp_energymin,
+                                                     interpolate)
+from faspsolver_tpu_torch.precond.amg.setup_rs import (_rap,
+                                                       _smoothing_bands,
+                                                       setup_cr)
 from faspsolver_tpu_torch.solvers import solve_refined_resident
 from faspsolver_tpu_torch.testgen import assemble_poisson, unit_square_mesh
 from faspsolver_tpu_torch.utils.params import AMGParam
@@ -431,14 +436,107 @@ def test_filtered_smoothing_on_gather_levels():
 
 
 def test_not_ported_branches_raise():
-    A, _ = _fe(65)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        setup_rs(A, AMGParam(**dict(KW, ILU_levels=1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        setup_rs(A, AMGParam(**dict(KW, SWZ_levels=1)))
+    """The branches that used to wait for later items are ported: ILU and
+    Schwarz level smoothers, energy-minimizing interpolation, a BSR
+    operator.  What is not a host matrix still raises."""
+    A, _ = _fe(33)
+    for kw in (dict(ILU_levels=1), dict(SWZ_levels=1)):
+        hier = setup_rs(A, AMGParam(**dict(KW, coarse_dof=100, **kw)))
+        assert type(hier.levels[0].smoother).__name__ == "PrecondSmoother"
     marker, S = coarsen(A, 0.3, 0.9)
-    with pytest.raises(NotImplementedError, match="energy-minimizing"):
-        interpolate(A, marker, S, interp_type=int(InterpType.ENERGYMIN))
-    bsr = type("BSRMatrix", (), {})()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        ops.device_operator(bsr)
+    P = interpolate(A, marker, S, interp_type=int(InterpType.ENERGYMIN))
+    assert P.shape[0] == A.nrow
+    bsr = BSRMatrix.from_csr(A, 1)
+    assert type(ops.device_operator(bsr)).__name__ == "BsrEllOperator"
+    with pytest.raises(TypeError, match="cannot build device operator"):
+        ops.device_operator(object())
+
+
+SMOOTHER_LEVELS = {
+    "ILU_levels=1": dict(ILU_levels=1),
+    "ILU_levels=2 ILUt": dict(ILU_levels=2, ILU_type=2, ILU_droptol=1e-2),
+    "SWZ_levels=1": dict(SWZ_levels=1, SWZ_maxlvl=2, SWZ_type=3),
+}
+
+
+@pytest.mark.parametrize("case", list(SMOOTHER_LEVELS))
+def test_precond_smoother_levels_match_jax(case):
+    """ILU / Schwarz as the smoother of the finest levels: the same
+    levels carry a PrecondSmoother in both packages and one V-cycle
+    agrees to 1e-12."""
+    A, _ = _fe(33)
+    kw = dict(coarse_dof=100, presmooth_iter=1, postsmooth_iter=1,
+              **SMOOTHER_LEVELS[case])
+    got = setup_rs(A, AMGParam(**kw))
+    ref = jax_setup_rs(_j(A), JaxAMGParam(**kw), dtype=jnp.float64)
+    names = [type(l.smoother).__name__ for l in got.levels]
+    assert names == [type(l.smoother).__name__ for l in ref.levels]
+    nsm = kw.get("ILU_levels", 0) + kw.get("SWZ_levels", 0)
+    assert names[:nsm] == ["PrecondSmoother"] * nsm
+    assert names[nsm] != "PrecondSmoother"
+    inner = "ILUPrecond" if "ILU_levels" in kw else "SchwarzPrecond"
+    assert type(got.levels[0].smoother.M).__name__ == inner
+    b = np.random.default_rng(9).standard_normal(A.nrow)
+    z_ref = np.asarray(jax.jit(lambda v: jax_mgcycle(ref, v))(jnp.asarray(b)))
+    assert _rel(mgcycle(got, torch.from_numpy(b)), z_ref) < 1e-12
+    assert _rel(mgcycle(from_jax(ref), torch.from_numpy(b)), z_ref) < 1e-12
+
+
+def test_level_smoother_falls_back_on_host_factorization_errors_only(
+        monkeypatch):
+    """A FaspError from the host factorization leaves the level its
+    standard smoother, as the reference does; any other error raises."""
+    from faspsolver_tpu_torch.precond import ilu as port_ilu
+    from faspsolver_tpu_torch.utils import FaspError
+    A, _ = _fe(33)
+    param = AMGParam(coarse_dof=100, ILU_levels=1)
+
+    def fail(exc):
+        def setup(*args, **kwargs):
+            raise exc
+        return setup
+
+    monkeypatch.setattr(port_ilu, "setup_ilu", fail(FaspError(-45, "ILU")))
+    hier = setup_rs(A, param)
+    assert type(hier.levels[0].smoother).__name__ == "SmootherData"
+    for exc in (RuntimeError("CUDA error"), NotImplementedError("later")):
+        monkeypatch.setattr(port_ilu, "setup_ilu", fail(exc))
+        with pytest.raises(type(exc)):
+            setup_rs(A, param)
+
+
+def test_interp_energymin_bit_equal_to_jax():
+    A, _ = _fe(33)
+    marker, S = coarsen(A, 0.3, 0.9)
+    jmarker, jS = jax_coarsen.coarsen(_j(A), 0.3, 0.9)
+    np.testing.assert_array_equal(marker, jmarker)
+    P = interp_energymin(A, marker, S)
+    Pj = jax_interp.interp_energymin(_j(A), jmarker, jS)
+    for f in ("indptr", "indices", "data"):
+        np.testing.assert_array_equal(getattr(P, f), getattr(Pj, f))
+    assert P.shape == Pj.shape
+    # partition of unity on the rows that interpolate
+    rs = np.asarray(P.to_scipy().sum(axis=1)).ravel()
+    assert np.allclose(rs[np.abs(rs) > 0], 1.0)
+    got = setup_rs(A, AMGParam(coarse_dof=100,
+                               interpolation_type=int(InterpType.ENERGYMIN)))
+    ref = jax_setup_rs(_j(A), JaxAMGParam(
+        coarse_dof=100, interpolation_type=int(InterpType.ENERGYMIN)),
+        dtype=jnp.float64)
+    for lg, lr in zip(got.levels, ref.levels):
+        assert_same_tree(lg.A, lr.A)
+
+
+def test_setup_cr_hierarchy_equal_to_jax():
+    A, _ = _fe(33)
+    kw = dict(coarse_dof=100)
+    got = setup_cr(A, AMGParam(**kw))
+    ref = jax_setup_cr(_j(A), JaxAMGParam(**kw), dtype=jnp.float64)
+    assert got.num_levels == ref.num_levels >= 2
+    for lg, lr in zip(got.levels, ref.levels):
+        assert_same_tree(lg.A, lr.A)
+        if lr.P is not None:
+            assert_same_tree(lg.P, lr.P)
+    b = np.random.default_rng(10).standard_normal(A.nrow)
+    z_ref = np.asarray(jax.jit(lambda v: jax_mgcycle(ref, v))(jnp.asarray(b)))
+    assert _rel(mgcycle(got, torch.from_numpy(b)), z_ref) < 1e-12
