@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile    # plus a torch.profiler pass over one solve
     python3 chip_smoke.py --kernel-only  # phases 1-3, then stop
     python3 chip_smoke.py --block-only   # phases 1-3 and 9, then stop
+    python3 chip_smoke.py --surface-only # phases 1-3 and 10, then stop
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -57,14 +58,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    poisson_fe_manufactured(64).  Each is held to its JAX count and its
    tolerance, and one BsrEll SpMV, block Gauss-Seidel sweep, block ILU,
    scalar ILU and Schwarz apply on the card is held against the same
-   module on the CPU.
+   module on the CPU;
+10. the rest of the solver surface, every solve through the port's
+   drivers (or its GMG, Krylov, eigen and C API entry points) with no
+   device argument, in float64: (a) block_poisson_3d(64, nb=3) in band
+   form (STR, 786,432 dof): its operator against the BSR one, CG + block
+   diagonal, vFGMRES + banded block ILU(0) / ILU(1), block Gauss-Seidel
+   and Schwarz; (b) the same matrix field by field as a 3 x 3 BLC under
+   the block preconditioner in its four modes, and poisson_3d(96) in 12
+   z-slabs (884,736 dof) under the sweeping preconditioner; (c) matrix-
+   free geometric multigrid at n = 1024 (2-D) and 128 (3-D), held to the
+   O(h^2) error too; (d) a MatFreeOperator over the f64 1023^2 stencil
+   operator (it must launch the f64 kernel) and through the six matfree
+   Krylov methods, maxeig on the host and on the card, and the four C
+   API functions.  Each count is held to its JAX count, and one apply of
+   each new operator and preconditioner on the card against the CPU.
 
 Phases 4, 6 and 7 run each solve once to warm up, then time it with the
 kernel launch counts set to 0 just before it and read just after; both
 dtypes must have launched.  Phase 8 counts the launches of each CLI run
 (setup and solve) and of each timed solve; input.dat's must include the
-f64 kernel; phase 9 counts the launches of each solve, and its ILU and
-Schwarz solves must have launched the f64 kernel.  It prints a JSON line
+f64 kernel; phases 9 and 10 count the launches of each solve, and the
+ILU and Schwarz solves of phase 9 and the MatFree solve of phase 10 must
+have launched the f64 kernel.  It prints a JSON line
 of the kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It needs nothing but this
 checkout and exits non-zero when no CUDA device is available.
@@ -252,6 +268,88 @@ LEFTOVER_GRID = [
 ]
 
 
+# phase 10, the rest of the solver surface through the drivers with no
+# device argument, float64; (name, driver, fields, JAX count, allowed
+# distance), fields as in BSR_GRID plus "kw", the driver's own keyword
+# arguments.  The JAX counts come from
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py str 64
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py blc 64
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py sweep 96 12
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py gmg 1024 128
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py surface 1023
+# (10a) block_poisson_3d(64, nb=3) in band form (STR, str_problem), under
+# ini/bsr.dat's ITSParam (_BSR_ITS: vFGMRES(30), tol 1e-9, maxit 500)
+# but for CG + block Jacobi, which runs as in phase 9a.  The JAX STR ILU
+# schedules its solves on the 1-D index (262,144 levels per factor at
+# 64^3, beyond what JAX can trace), so its anchors apply the JAX
+# package's factor with the JAX BlockTriangularSolver over grid
+# wavefronts that the anchor script builds itself (the same arithmetic:
+# it drops only the steps that wrap, whose blocks it checks are zero).
+STR_NX = 64
+STR_GRID = [
+    ("CG + STR block diag", "krylov_diag",
+     dict(its=dict(itsolver_type=_CG, tol=BSR_TOL, maxit=2000)), 213, 11),
+    ("vFGMRES + STR ILU(0)", "krylov_ilu",
+     dict(its=_BSR_ITS, ilu=dict(ILU_lfil=0)), 71, 4),
+    ("vFGMRES + STR ILU(1)", "krylov_ilu",
+     dict(its=_BSR_ITS, ilu=dict(ILU_lfil=1)), 52, 3),
+    ("vFGMRES + STR block GS", "krylov_blockgs",
+     dict(its=_BSR_ITS, kw=dict(smoother="blockgs")), 87, 5),
+    ("vFGMRES + STR Schwarz", "krylov_blockgs",
+     dict(its=_BSR_ITS, kw=dict(smoother="schwarz")), 31, 2),
+]
+# (10b) the same matrix field by field, a 3 x 3 BLC of 262,144-row blocks
+# (blc_problem), UA-AMG on the diagonal blocks; then poisson_3d(96) cut
+# into 12 z-slabs of 8 planes, a block-tridiagonal 12 x 12 BLC of
+# 73,728-row blocks (sweep_problem), under the layered sweeping
+# preconditioner
+BLC_NX = 64
+BLC_GRID = [(f"vFGMRES + BLC {mode}", "krylov_block",
+             dict(its=_BSR_ITS, kw=dict(mode=mode)), anchor, bound)
+            for mode, anchor, bound in (("diag", 28, 2), ("lower", 26, 2),
+                                        ("upper", 26, 2), ("sgs", 25, 2))]
+SWEEP_N, SWEEP_SLABS = 96, 12
+SWEEP_GRID = [("vFGMRES + sweeping, 12 slabs", "krylov_sweeping",
+               dict(its=_BSR_ITS), 43, 3)]
+# (10c) matrix-free geometric multigrid: -Δu = f with f = dπ² Π sin(π x_i)
+# on the unit square (n = 1024: 1,046,529 interior unknowns) and cube
+# (n = 128: 2,048,383), default tol 1e-8: (name, function, dimension,
+# keyword arguments, JAX count, allowed distance)
+GMG_N2, GMG_N3 = 1024, 128
+GMG_GRID = [
+    ("GMG V-cycles 2-D", "poisson_gmg_2d", 2, {}, 7, 1),
+    ("GMG V-cycles 2-D, full-MG start", "poisson_gmg_2d", 2,
+     dict(full_first=True), 2, 1),
+    ("GMG-CG 2-D", "poisson_gmgcg_2d", 2, {}, 3, 1),
+    ("GMG V-cycles 3-D", "poisson_gmg_3d", 3, {}, 9, 1),
+    ("GMG-CG 3-D", "poisson_gmgcg_3d", 3, {}, 6, 1),
+    ("GMG 1-D (direct)", "poisson_gmg_1d", 1, {}, 1, 0),
+]
+# (10d) regression/runner.py:matfree_configs: an ELL operator behind a
+# MatFreeOperator, Jacobi, maxit 4000, on phase 8's small grid, at tol
+# 1e-10: the runner's 1e-13 is this grid's rounding floor, where the order
+# of the sums decides the counts (BiCGstab took 88 on the card against the
+# JAX package's 82 there): (name, Krylov function, restart, JAX count,
+# allowed distance)
+MATFREE_GRID = [("matfree CG", "pcg", None, 100, 5),
+                ("matfree BiCGstab", "bicgstab", None, 69, 4),
+                ("matfree MinRes", "minres", None, 99, 5),
+                ("matfree GMRES", "gmres", 60, 132, 7),
+                ("matfree vFGMRES", "vfgmres", 60, 132, 7),
+                ("matfree GCG", "gcg", None, 99, 5)]
+MATFREE_ITS = dict(tol=1e-10, maxit=4000)
+# the f64 1023^2 stencil operator behind a MatFreeOperator, CG + Jacobi
+MATFREE_STENCIL = dict(tol=1e-6, maxit=5000)
+MATFREE_STENCIL_ANCHOR = (297, 15)
+# the C API at 1023^2 (CSR, b = A x for a seeded x) and on phase 9a's
+# matrix (BSR): (function, keyword arguments, JAX count, allowed distance)
+CAPI_GRID = [("dcsr_krylov_amg", dict(tol=1e-6, maxit=500), 4, 1),
+             ("dcsr_amg", dict(tol=1e-6, maxit=100), 5, 1),
+             ("dcsr_krylov_ilu", dict(tol=1e-6, maxit=2000), 90, 5),
+             ("dbsr_krylov_amg", dict(tol=1e-9, maxit=500), 23, 2)]
+MAXEIG_ANCHOR = 8303774.513804946
+
+
 def check(ok, what):
     """A failed check ends the run (explicit, so it holds under -O)."""
     if not ok:
@@ -274,6 +372,77 @@ def bsr_problem(nx=None):
     from faspsolver_tpu_torch.testgen import block_poisson_3d
     A = block_poisson_3d(nx or BSR_NX, nb=3)
     return A, A.matvec(np.random.default_rng(SEED).standard_normal(A.nrow))
+
+
+def str_problem(nx=None):
+    """block_poisson_3d(nx, nb=3) in band form (nx defaults to STR_NX):
+    the STRMatrix with offsets +-1, +-nx, +-nx^2 whose bands are the BSR
+    matrix's own blocks (zero where a band leaves the grid), so the two
+    are one matrix; returns (STR, BSR, b) with b that of
+    :func:`bsr_problem`."""
+    import numpy as np
+    from faspsolver_tpu_torch.formats import STRMatrix
+    nx = nx or STR_NX
+    A, b = bsr_problem(nx)
+    ng = A.nrow_block
+    rows = np.repeat(np.arange(ng), np.diff(A.indptr))
+    dist = A.indices - rows
+    offsets = (1, -1, nx, -nx, nx * nx, -nx * nx)
+
+    def band(o):
+        out = np.zeros((ng, A.nb, A.nb))
+        hit = dist == o
+        out[rows[hit]] = A.data[hit]
+        return out
+
+    check(np.isin(dist, (0,) + offsets).all(), "every block lies in a band")
+    return (STRMatrix(nx, nx, nx, A.nb, band(0), offsets,
+                      [band(o) for o in offsets]), A, b)
+
+
+def blc_problem(nx=None):
+    """The same matrix field by field (nx defaults to BLC_NX): the 3 x 3
+    BLCMatrix whose block (p, q) is blk[p, q] poisson_3d(nx), blk = I +
+    0.1 (J - I), and b of :func:`bsr_problem` in that order."""
+    import numpy as np
+    from faspsolver_tpu_torch.formats import BLCMatrix, CSRMatrix
+    from faspsolver_tpu_torch.testgen import poisson_3d
+    nx = nx or BLC_NX
+    P = poisson_3d(nx)
+    blk = np.eye(3) + 0.1 * (np.ones((3, 3)) - np.eye(3))
+    A = BLCMatrix([[CSRMatrix(P.indptr, P.indices, P.data * blk[p, q],
+                              P.shape) for q in range(3)] for p in range(3)])
+    _, b = bsr_problem(nx)
+    return A, b.reshape(-1, 3).T.reshape(-1)
+
+
+def sweep_problem(n=None, slabs=None):
+    """poisson_3d(n) cut into ``slabs`` z-slabs (defaults SWEEP_N,
+    SWEEP_SLABS): in its z-major order a block-tridiagonal BLCMatrix;
+    b = A x for a seeded x."""
+    import numpy as np
+    from faspsolver_tpu_torch.formats import BLCMatrix, CSRMatrix
+    from faspsolver_tpu_torch.testgen import poisson_3d
+    n, slabs = n or SWEEP_N, slabs or SWEEP_SLABS
+    P = poisson_3d(n)
+    m = P.to_scipy()
+    size = n * n * (n // slabs)
+    check(size * slabs == P.nrow, "the slabs tile the grid")
+    A = BLCMatrix([[CSRMatrix.from_scipy(
+        m[i * size:(i + 1) * size, j * size:(j + 1) * size])
+        if abs(i - j) <= 1 else None for j in range(slabs)]
+        for i in range(slabs)])
+    return A, P.matvec(np.random.default_rng(SEED).standard_normal(P.nrow))
+
+
+def gmg_problem(n, dim):
+    """(f, u) on the (n+1)^dim grid with the boundary: u = prod
+    sin(pi x_i), f = dim pi^2 u (so -Δu = f exactly)."""
+    import numpy as np
+    xs = np.arange(n + 1) / n
+    grids = np.meshgrid(*([xs] * dim), indexing="ij")
+    u = np.prod([np.sin(np.pi * g) for g in grids], axis=0)
+    return dim * np.pi ** 2 * u, u
 
 
 def ini_with(ini, overrides, tmpdir=None):
@@ -757,7 +926,9 @@ def spied_calls(targets):
 
 
 SETUP_NAMES = ("setup_ua_bsr", "setup_sa_bsr", "setup_rs", "setup_sa",
-               "setup_ua", "setup_bsr_ilu0", "setup_ilu", "setup_schwarz")
+               "setup_ua", "setup_bsr_ilu0", "setup_ilu", "setup_schwarz",
+               "setup_str_diag", "setup_str_ilu", "setup_str_blockgs",
+               "setup_str_schwarz", "setup_blc_precond", "setup_blc_sweeping")
 
 
 def setup_spies():
@@ -936,10 +1107,12 @@ def device_arg(torch, device):
     return None if torch.device(device).type == "cuda" else "cpu"
 
 
-def drive_driver(torch, device, driver, fields, A, b):
+def drive_driver(torch, device, driver, fields, A, b, split=None):
     """One solve through a port driver with no device argument (it must
     choose the card), float64: the reading, and the preconditioner or
-    hierarchy its setup built (now on the card)."""
+    hierarchy its setup built (now on the card).  ``split`` ({name:
+    (owner, attribute)}) times parts of the setup as well, under
+    "split" in the reading."""
     import numpy as np
     from faspsolver_tpu_torch import solvers
     from faspsolver_tpu_torch.ops import stencil2d
@@ -948,11 +1121,13 @@ def drive_driver(torch, device, driver, fields, A, b):
         args.append(component_basis(A.nrow, A.nb))
     sync(torch, device)
     stencil2d.reset_launches()
-    with spied_calls(setup_spies()) as spy:
+    with spied_calls(setup_spies()) as spy, \
+            spied_calls(split or {}) as parts:
         t0 = time.perf_counter()
         res = getattr(solvers, driver)(*args, dtype=torch.float64,
                                        device=device_arg(torch, device),
-                                       **driver_fields(fields))
+                                       **driver_fields(fields),
+                                       **fields.get("kw", {}))
         res = res[0] if isinstance(res, tuple) else res
         x = res.x.cpu().numpy()
         wall = time.perf_counter() - t0
@@ -964,8 +1139,9 @@ def drive_driver(torch, device, driver, fields, A, b):
     relres = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
     return {"setup_s": setup_s, "solve_s": wall - setup_s,
             "iters": int(res.iters), "converged": bool(res.converged),
-            "relres": relres, "syncs": int(res.syncs),
-            "launches": counts}, (built[-1] if built else None)
+            "relres": relres, "syncs": int(res.syncs), "launches": counts,
+            "split": {k: v["s"] for k, v in parts.items()}}, (
+                built[-1] if built else None)
 
 
 def drive_refined(torch, device, A, b, amg_fields):
@@ -1007,9 +1183,12 @@ def drive_refined(torch, device, A, b, amg_fields):
 
 
 def report(name, r, tol, anchor, bound):
-    """Print one phase-9 reading and hold it to its tolerance and to its
-    JAX count."""
+    """Print one phase-9 or phase-10 reading and hold it to its tolerance
+    and to its JAX count."""
     extra = f", rounds {r['rounds']}" if "rounds" in r else ""
+    if r.get("split"):
+        extra += " (setup: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in r["split"].items()) + ")"
     print(f"  {name:46s} {r['iters']:4d} iterations (JAX {anchor} +- "
           f"{bound}){extra}, "
           f"verified relres {r['relres']:.3e}, setup {r['setup_s']:.3f} s, "
@@ -1186,6 +1365,286 @@ def block_path(torch, device, smi):
         report(name, r, 1e-9, anchor, bound)
         add(r)
         readings[name] = r
+    return counts, readings
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the rest of the solver surface
+# ---------------------------------------------------------------------------
+
+def apply_ms(torch, module, x):
+    """Mean host-clock ms of one apply ended by a synchronize."""
+    return apply_seconds(torch, module, x) * 1e3
+
+
+def surface_str(torch, device, smi, add):
+    """10a: the STR family on block_poisson_3d(STR_NX, nb=3) in band
+    form."""
+    import numpy as np
+    from faspsolver_tpu_torch.ops import device_operator
+    from faspsolver_tpu_torch.ops.str_ops import StrOperator
+    from faspsolver_tpu_torch.precond import str_precond
+    readings = {}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t0 = time.perf_counter()
+    A, Ab, b = str_problem(STR_NX)
+    print(f"  10a. STR: block_poisson_3d({STR_NX}, nb=3) in band form, "
+          f"{A.ngrid} grid points, {A.nrow} dof, offsets {A.offsets}, "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    x = torch.randn(A.nrow, generator=gen, device=device,
+                    dtype=torch.float64)
+    op = StrOperator.from_str(A).to(device)
+    absop = device_operator(type(Ab)(Ab.indptr, Ab.indices, np.abs(Ab.data),
+                                     Ab.shape)).to(device)
+    scale = float(absop(x.abs()).max())
+    err = float((op(x) - device_operator(Ab).to(device)(x)).abs().max())
+    print(f"  StrOperator against BsrEllOperator on the card, max abs error "
+          f"/ scale {err / scale:.2e} (bound 1e-13)")
+    check(err <= 1e-13 * scale, f"StrOperator is the BSR operator: {err}")
+    del absop
+    on_card_vs_cpu(torch, f"StrOperator apply ({A.nrow:,} dof)", op, x,
+                   scale=scale)
+    readings["StrOperator apply ms"] = apply_ms(torch, op, x)
+    split = {"factor_s": (str_precond, "str_ilu_factor_banded"),
+             "wavefronts_s": (str_precond, "_grid_wavefronts"),
+             "patch_inverses_s": (str_precond, "_schwarz_patches")}
+    kept = {}
+    for name, driver, fields, anchor, bound in STR_GRID:
+        r, built = drive_driver(torch, device, driver, fields, A, b, split)
+        r["split"] = {k: v for k, v in r["split"].items() if v}
+        if built is not None:
+            r["apply_ms"] = apply_ms(torch, built, x)
+        report(name, r, fields["its"]["tol"], anchor, bound)
+        add(r)
+        readings[name] = r
+        kept[name] = built
+    for name in ("vFGMRES + STR block GS", "vFGMRES + STR ILU(0)",
+                 "vFGMRES + STR Schwarz"):
+        on_card_vs_cpu(torch, f"{name[10:]} apply", kept[name], x)
+    for name in ("vFGMRES + STR ILU(0)", "vFGMRES + STR ILU(1)"):
+        readings[f"{name[10:]} apply"] = ilu_apply_times(
+            torch, f"{name[10:]}, {A.nrow:,} dof", kept[name], x, smi)
+    return readings
+
+
+def surface_blc(torch, device, add):
+    """10b: the same matrix as a 3 x 3 BLC, then the sweeping
+    preconditioner on the z-slabs of poisson_3d."""
+    from faspsolver_tpu_torch.ops import device_operator
+    from faspsolver_tpu_torch.precond.blc_precond import BlcOperator
+    readings = {}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t0 = time.perf_counter()
+    A, b = blc_problem(BLC_NX)
+    print(f"  10b. BLC: the same matrix field by field, 3 x 3 blocks of "
+          f"{A.row_sizes()[0]:,} rows, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    Ab, _ = bsr_problem(BLC_NX)
+    x = torch.randn(A.nrow, generator=gen, device=device,
+                    dtype=torch.float64)
+    op = BlcOperator.from_blc(A).to(device)
+    ng = Ab.nrow_block
+    yb = device_operator(Ab).to(device)(x.view(3, ng).T.reshape(-1))
+    y = op(x)
+    err = float((y - yb.view(ng, 3).T.reshape(-1)).abs().max())
+    scale = float(y.abs().max())
+    print(f"  BlcOperator against the permuted BsrEllOperator on the card, "
+          f"max abs error / scale {err / scale:.2e} (bound 1e-13)")
+    check(err <= 1e-13 * scale, f"BlcOperator is the BSR operator: {err}")
+    readings["BlcOperator apply ms"] = apply_ms(torch, op, x)
+    kept = {}
+    for name, driver, fields, anchor, bound in BLC_GRID:
+        r, built = drive_driver(torch, device, driver, fields, A, b)
+        r["apply_ms"] = apply_ms(torch, built, x)
+        report(name, r, fields["its"]["tol"], anchor, bound)
+        add(r)
+        readings[name] = r
+        kept[name] = built
+    on_card_vs_cpu(torch, "BLC sgs apply", kept["vFGMRES + BLC sgs"], x)
+    del kept, op, A, Ab
+    n, slabs = SWEEP_N, SWEEP_SLABS
+    A, b = sweep_problem(n, slabs)
+    print(f"  sweeping: poisson_3d({n}) in {slabs} z-slabs of "
+          f"{A.row_sizes()[0]:,} rows, {A.nrow:,} dof")
+    for name, driver, fields, anchor, bound in SWEEP_GRID:
+        r, built = drive_driver(torch, device, driver, fields, A, b)
+        xs = torch.randn(A.nrow, generator=gen, device=device,
+                         dtype=torch.float64)
+        r["apply_ms"] = apply_ms(torch, built, xs)
+        report(name, r, fields["its"]["tol"], anchor, bound)
+        add(r)
+        readings[name] = r
+        on_card_vs_cpu(torch, "sweeping apply", built, xs)
+    return readings
+
+
+def surface_gmg(torch, device, smi):
+    """10c: matrix-free geometric multigrid, held to the JAX counts and
+    to the O(h^2) discretisation error.  The solves take f as a NumPy
+    array and no device argument, as a user calls them."""
+    from faspsolver_tpu_torch.precond import gmg
+    readings = {}
+    n2, n3 = GMG_N2, GMG_N3
+    print(f"  10c. GMG on the unit square (n={n2}) and cube (n={n3})")
+    for dim, n in ((2, n2), (3, n3)):
+        f, _ = gmg_problem(n, dim)
+        fc = torch.from_numpy(f).to(device)
+
+        def vcycle(v, n=n, dim=dim):
+            return gmg._vcycle(torch.zeros_like(v), v, n, dim)
+
+        card = vcycle(fc)
+        sync(torch, device)
+        cpu = vcycle(fc.cpu())
+        err = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+        ms = apply_ms(torch, vcycle, fc)
+        print(f"  one {dim}-D V-cycle at n={n}: {ms:.2f} ms ({smi}); "
+              f"card against CPU max abs error / scale {err:.2e} (bound "
+              f"1e-13)")
+        check(err <= 1e-13, f"{dim}-D V-cycle agrees with the CPU: {err}")
+        readings[f"{dim}-D V-cycle ms"] = ms
+    for name, fn, dim, kw, anchor, bound in GMG_GRID:
+        n = n3 if dim == 3 else n2
+        f, u = gmg_problem(n, dim)
+        sync(torch, device)
+        t0 = time.perf_counter()
+        res = getattr(gmg, fn)(f, n, **kw)
+        x = res.x.cpu().numpy()
+        wall = time.perf_counter() - t0
+        err = float(abs(x - u).max())
+        print(f"  {name:36s} n={n:5d} {res.iters:3d} iterations (JAX "
+              f"{anchor} +- {bound}), relres {res.relres:.3e}, max |u - "
+              f"exact| {err:.3e} (h^2 {1 / n ** 2:.3e}), solve "
+              f"{wall:.3f} s, host reads {res.syncs}")
+        check(res.x.device.type == "cuda" and res.converged and abs(res.iters - anchor) <= bound
+              and err <= 1.0 / n ** 2,
+              f"{name}: {res.iters} iterations, relres {res.relres}, "
+              f"error {err}")
+        readings[name] = {"iters": res.iters, "relres": res.relres,
+                          "max_err": err, "solve_s": wall,
+                          "syncs": res.syncs}
+    return readings
+
+
+def surface_leftovers(torch, add):
+    """10d: MatFreeOperator over the f64 stencil operator and through the
+    six matfree Krylov methods, maxeig on the host and on the card, and
+    the C API."""
+    import numpy as np
+    from faspsolver_tpu_torch import capi, default_device, krylov
+    from faspsolver_tpu_torch.krylov import JacobiPrecond
+    from faspsolver_tpu_torch.ops import (MatFreeOperator, best_operator,
+                                          device_operator, eigen, stencil2d)
+    from faspsolver_tpu_torch.solvers import itsolver
+    from faspsolver_tpu_torch.testgen import (poisson_2d,
+                                              poisson_fe_manufactured)
+    from faspsolver_tpu_torch.utils.params import ITSParam
+    readings = {}
+    place = default_device()
+    print(f"  10d. MatFreeOperator, eigen and the C API")
+    P = poisson_2d(NX)
+    bp = P.matvec(np.random.default_rng(SEED).standard_normal(P.nrow))
+    op = best_operator(P, dtype=torch.float64).to(place)
+    mf = MatFreeOperator(op, P.nrow, torch.float64)
+    M = JacobiPrecond.from_csr(P).to(place)
+    stencil2d.reset_launches()
+    t0 = time.perf_counter()
+    res = itsolver(mf, bp, M=M, its=ITSParam(**MATFREE_STENCIL))
+    x = res.x.cpu().numpy()
+    wall = time.perf_counter() - t0
+    r = {"iters": res.iters, "converged": res.converged, "syncs": res.syncs,
+         "relres": float(np.linalg.norm(bp - P.matvec(x))
+                         / np.linalg.norm(bp)),
+         "setup_s": 0.0, "solve_s": wall, "launches": launch_counts()}
+    anchor, bound = MATFREE_STENCIL_ANCHOR
+    report(f"MatFree {NX}^2 f64 stencil, CG + Jacobi", r,
+           MATFREE_STENCIL["tol"], anchor, bound)
+    check(r["launches"]["float64"] > 0,
+          "the MatFree solve launched the f64 stencil kernel")
+    add(r)
+    readings["MatFree stencil CG"] = r
+
+    A, b, *_ = poisson_fe_manufactured(64)
+    ell = device_operator(A, prefer="ell").to(place)
+    Mj = JacobiPrecond.from_csr(A).to(place)
+    bt = torch.from_numpy(b).to(place)
+    for name, fn, restart, anchor, bound in MATFREE_GRID:
+        kw = dict(MATFREE_ITS, **({"restart": restart} if restart else {}))
+        t0 = time.perf_counter()
+        res = getattr(krylov, fn)(MatFreeOperator(ell, A.nrow, torch.float64),
+                                  bt, M=Mj, **kw)
+        x = res.x.cpu().numpy()
+        wall = time.perf_counter() - t0
+        rel = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
+        print(f"  {name:20s} {res.iters:5d} iterations (JAX {anchor} +- "
+              f"{bound}), status {res.status}, verified relres {rel:.3e}, "
+              f"{wall:.3f} s, host reads {res.syncs}")
+        check(abs(res.iters - anchor) <= bound and rel < 1e-9,
+              f"{name}: {res.iters} iterations, relres {rel}")
+        readings[name] = {"iters": res.iters, "relres": rel, "s": wall}
+
+    t0 = time.perf_counter()
+    lam = eigen.maxeig(P)
+    t1 = time.perf_counter()
+    lam50 = eigen.maxeig(P, iters=50, tol=0.0)
+    v0 = torch.from_numpy(np.random.default_rng(0).standard_normal(P.nrow))
+    sync(torch, place)
+    t2 = time.perf_counter()
+    lam_dev = float(eigen.maxeig_device(op, 50, v0=v0.to(place)))
+    t3 = time.perf_counter()
+    ref = MAXEIG_ANCHOR
+    print(f"  maxeig({NX}^2) on the host {lam!r} (JAX {ref!r}), "
+          f"{t1 - t0:.3f} s; 50 power steps on the card from the host's "
+          f"start vector {lam_dev!r} against the host's {lam50!r} "
+          f"(relative {abs(lam_dev - lam50) / lam50:.1e}, bound 1e-8), "
+          f"{t3 - t2:.3f} s")
+    check(abs(lam - ref) <= 1e-10 * ref, f"maxeig {lam} is JAX's {ref}")
+    check(abs(lam_dev - lam50) <= 1e-8 * lam50,
+          f"maxeig_device {lam_dev} follows the host's {lam50}")
+    readings["maxeig"] = {"host": lam, "device": lam_dev,
+                          "host_s": t1 - t0, "device_s": t3 - t2}
+
+    Ab, bb = bsr_problem()
+    for fn, kw, anchor, bound in CAPI_GRID:
+        stencil2d.reset_launches()
+        t0 = time.perf_counter()
+        if fn == "dbsr_krylov_amg":
+            xc, it, rr = capi.dbsr_krylov_amg(
+                Ab.nb, Ab.nrow_block, Ab.indptr, Ab.indices,
+                Ab.data.reshape(-1), bb, **kw)
+            rel = np.linalg.norm(bb - Ab.matvec(xc)) / np.linalg.norm(bb)
+        else:
+            xc, it, rr = getattr(capi, fn)(P.nrow, P.indptr, P.indices,
+                                           P.data, bp, **kw)
+            rel = np.linalg.norm(bp - P.matvec(xc)) / np.linalg.norm(bp)
+        wall = time.perf_counter() - t0
+        r = {"iters": it, "converged": True, "relres": float(rel),
+             "setup_s": 0.0, "solve_s": wall, "syncs": None,
+             "launches": launch_counts()}
+        check(isinstance(xc, np.ndarray), f"capi.{fn} returns NumPy")
+        report(f"capi.{fn} (setup + solve)", r, kw["tol"], anchor, bound)
+        add(r)
+        readings[f"capi.{fn}"] = r
+    return readings
+
+
+def surface_path(torch, device, smi):
+    """Phase 10.  Returns the stencil launches of its solves and the
+    readings."""
+    counts = {"float32": 0, "float64": 0}
+
+    def add(r):
+        for k in counts:
+            counts[k] += r["launches"][k]
+
+    t0 = time.perf_counter()
+    readings = {"str": surface_str(torch, device, smi, add),
+                "blc": surface_blc(torch, device, add),
+                "gmg": surface_gmg(torch, device, smi),
+                "leftovers": surface_leftovers(torch, add)}
+    readings["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 10 took {readings['phase_s']:.1f} s; stencil launches "
+          f"{counts}")
     return counts, readings
 
 
@@ -1371,6 +1830,11 @@ def main(argv) -> int:
         block_path(torch, device, smi)
         print("stopped after phase 9 (--block-only)")
         return 0
+    if "--surface-only" in argv:
+        print("== 10. main path: the solver surface")
+        surface_path(torch, device, smi)
+        print("stopped after phase 10 (--surface-only)")
+        return 0
     counts, res = {}, {}
     print("== 4. main path: headline")
     hier, counts["headline"], res["headline"] = main_path(torch, device,
@@ -1408,6 +1872,9 @@ def main(argv) -> int:
     print("== 9. main path: block and factorization preconditioners")
     counts["block_and_factorization"], res["block_and_factorization"] = \
         block_path(torch, device, smi)
+    print("== 10. main path: the solver surface")
+    counts["solver_surface"], res["solver_surface"] = surface_path(
+        torch, device, smi)
 
     # one entry per kernel, stencil2d<T, K> by element type (the band
     # count K is the operator's); its times are those of the main paths'

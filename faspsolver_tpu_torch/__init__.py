@@ -1,11 +1,14 @@
 """faspsolver_tpu_torch: the PyTorch/CUDA port of faspsolver_tpu.
 
-The drivers and ini CLI over CSR matrices (``solvers/drivers.py``,
-``__main__.py``), the Krylov family, classical / SA / UA / structured
-AMG with their cycles, and f64 refinement, with every 2-D stencil apply
-going through a hand-written CUDA kernel (``ops/stencil2d.py``,
+The drivers and ini CLI over every matrix family (CSR, BSR, the
+structured-grid STR and the block-composite BLC: ``solvers/drivers.py``,
+``__main__.py``), the flat-array C API (``capi.py``), the Krylov family,
+classical / SA / UA / structured / block AMG with their cycles, ILU,
+Schwarz, the STR and BLC preconditioners, matrix-free geometric
+multigrid and f64 refinement, with every 2-D stencil apply going through
+a hand-written CUDA kernel (``ops/stencil2d.py``,
 ``csrc/stencil2d.cu``).  The layout mirrors the JAX package module for
-module.  This package imports ``torch`` and never
+module, and the top level re-exports the JAX package's names.  This package imports ``torch`` and never
 ``jax`` (nor ``faspsolver_tpu``, whose ``__init__`` imports jax).
 
 Device and dtype policy (stands in for the JAX package's
@@ -63,3 +66,18 @@ def as_tensor(a, dtype=None, device=None) -> torch.Tensor:
     arr = np.array(a, dtype=np_dtype(dtype) if dtype is not None else None,
                    copy=True, order="C")
     return torch.from_numpy(arr).to(device or "cpu")
+
+
+# the sub-packages import the helpers above from this module, so they
+# come after them
+from . import constants  # noqa: E402
+from .constants import (AMGType, AggregationType, CoarseningType,  # noqa: E402
+                        CycleType, ILUType, InterpType, PrecondType,
+                        PrintLevel, SchwarzType, SmootherType, SolverType,
+                        StopType)
+from .formats import BLCMatrix, BSRMatrix, CSRMatrix, STRMatrix  # noqa: E402
+from .ops import (BsrEllOperator, CooOperator, DenseOperator,  # noqa: E402
+                  EllOperator, MatFreeOperator, device_operator)
+from .utils import (AMGParam, FaspError, ILUParam, ITSParam,  # noqa: E402
+                    InputParam, SWZParam, apply_cli_overrides, param_init,
+                    parse_ini)

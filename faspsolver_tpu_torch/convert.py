@@ -3,8 +3,8 @@
 ``from_jax(obj)`` walks a ``faspsolver_tpu`` structured, classical RS,
 SA, UA or BSR AMG hierarchy (or any of its parts: operators, transfers,
 smoothers with their color blocks, near-kernel data, coarse solvers, an
-``AMGPrecond``) or an ILU, block ILU, Schwarz or block Jacobi
-preconditioner by class name and attribute access, reads every array
+``AMGPrecond``), an ILU, block ILU, Schwarz or block Jacobi
+preconditioner, or an STR or BLC operator or preconditioner by class name and attribute access, reads every array
 leaf with ``np.asarray``, and rebuilds the port's modules on the CPU with
 the same dtypes.  What is shared in the JAX tree stays shared: arrays
 (a dinv used by smoother and transfers) by identity, operators (a level's
@@ -19,11 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .krylov.precond import BlockJacobiPrecond
+from .krylov.precond import BlockJacobiPrecond, JacobiPrecond
 from .ops.operators import (BsrEllOperator, ConstDiaOperator, CooOperator,
                             DenseOperator, DiaNdOperator, DiaOperator,
                             EllOperator, FactoredBand, HybridDiaOperator,
                             StencilNdOperator, SumOperator, block_ell_layout)
+from .ops.str_ops import StrOperator
 from .precond.amg.bsr_smoothers import BsrColorBlock, BsrSmootherData
 from .precond.amg.hierarchy import (AMGHierarchy, AMGLevel, CoarseSolver,
                                     IterativeCoarseSolver, NearKernel)
@@ -35,8 +36,11 @@ from .precond.amg.transfer import (AggProlong, AggRestrict, BandedProlong,
                                    BlockAggRestrict, CooProlong, CooRestrict)
 from .precond.ilu import (BlockTriangularSolver, BSRILUPrecond, ILUPrecond,
                           TriangularSolver)
+from .precond.blc_precond import BlcOperator, BlcPrecond, BlcSweepingPrecond
 from .precond.preconditioners import AMGPrecond
 from .precond.schwarz import SchwarzPrecond, _ColorGroup
+from .precond.str_precond import (StrBlockGSPrecond, StrDiagPrecond,
+                                  StrSchwarzSmoother)
 
 
 def from_jax(obj):
@@ -284,3 +288,44 @@ class _Converter:
     def _SchwarzPrecond(self, o):
         return SchwarzPrecond([self.conv(g) for g in o.groups],
                               self.conv(o.A), o.n, o.swz_type)
+
+    # -- STR and BLC -----------------------------------------------------------
+
+    def _StrOperator(self, o):
+        return StrOperator(self.arr(o.diag), [self.arr(b) for b in o.bands],
+                           o.offsets, o.ng, o.nc)
+
+    def _StrDiagPrecond(self, o):
+        return StrDiagPrecond(self.arr(o.dinv))
+
+    def _StrBlockGSPrecond(self, o):
+        return StrBlockGSPrecond(self.conv(o.A), self.arr(o.dinv),
+                                 [self.arr(m) for m in o.masks], o.nsweeps)
+
+    def _StrSchwarzSmoother(self, o):
+        return StrSchwarzSmoother(self.conv(o.A), self.arr(o.inv),
+                                  self.arr(o.members), self.arr(o.valid),
+                                  [self.arr(c) for c in o.colors], o.nsweeps)
+
+    def _grid(self, rows):
+        """{(i, j): port operator} of a JAX tuple-of-tuples block grid
+        (None: a zero block)."""
+        return {(i, j): self.conv(op) for i, row in enumerate(rows)
+                for j, op in enumerate(row) if op is not None}
+
+    def _BlcOperator(self, o):
+        return BlcOperator(self._grid(o.ops), o.row_sizes, o.col_sizes)
+
+    def _JacobiApply(self, o):
+        return JacobiPrecond(self.arr(o.dinv))
+
+    def _BlcPrecond(self, o):
+        return BlcPrecond([self.conv(m) for m in o.solvers],
+                          self._grid(o.offdiag), o.mode, o.sizes)
+
+    def _BlcSweepingPrecond(self, o):
+        def layers(ops):
+            return {i: self.conv(op) for i, op in enumerate(ops)
+                    if op is not None}
+        return BlcSweepingPrecond([self.conv(m) for m in o.solvers],
+                                  layers(o.lower), layers(o.upper), o.sizes)

@@ -46,27 +46,27 @@ class STRMatrix:
 
     def to_csr(self) -> CSRMatrix:
         """Expand bands to CSR (reference: fasp_format_dstr_dcsr,
-        BlaFormat.c)."""
+        BlaFormat.c).  The entries are listed in the JAX package's order
+        (the diagonal blocks, then each band's blocks, each block row by
+        row), built by array operations instead of one Python append per
+        entry, so the CSR is the same bit for bit."""
         ng, nc = self.ngrid, self.nc
-        rows, cols, vals = [], [], []
-
-        def add_block(g_row, g_col, block):
-            r0, c0 = g_row * nc, g_col * nc
-            for a in range(nc):
-                for b in range(nc):
-                    rows.append(r0 + a)
-                    cols.append(c0 + b)
-                    vals.append(block[a, b])
-
-        for g in range(ng):
-            add_block(g, g, self.diag[g])
+        g = np.arange(ng)
+        grow, gcol, blocks = [g], [g], [self.diag]
         for off, band in zip(self.offsets, self.offdiag):
-            for g in range(ng):
-                h = g + off
-                if 0 <= h < ng:
-                    add_block(g, h, band[g])
-        return CSRMatrix.from_coo(np.array(rows), np.array(cols),
-                                  np.array(vals), (ng * nc, ng * nc))
+            ok = g[(g + off >= 0) & (g + off < ng)]
+            grow.append(ok)
+            gcol.append(ok + off)
+            blocks.append(band[ok])
+        grow, gcol = np.concatenate(grow), np.concatenate(gcol)
+        a = np.arange(nc)
+        rows = grow[:, None, None] * nc + a[None, :, None]
+        cols = gcol[:, None, None] * nc + a[None, None, :]
+        shape = (len(grow), nc, nc)
+        return CSRMatrix.from_coo(np.broadcast_to(rows, shape).reshape(-1),
+                                  np.broadcast_to(cols, shape).reshape(-1),
+                                  np.concatenate(blocks).reshape(-1),
+                                  (ng * nc, ng * nc))
 
     def matvec(self, x: np.ndarray) -> np.ndarray:
         """Banded block SpMV (host reference; device version in ops/spmv)."""

@@ -4,8 +4,8 @@ Port of ``faspsolver_tpu/ops/operators.py``: the structured path's
 DiaOperator, DiaNdOperator, FactoredBand, StencilNdOperator and
 DenseOperator, the general path's EllOperator, ConstDiaOperator,
 SumOperator, CooOperator, HybridDiaOperator with the per-level format
-choice ``best_operator`` / ``device_operator``, and the block path's
-BsrEllOperator.  Arrays are registered
+choice ``best_operator`` / ``device_operator``, the block path's
+BsrEllOperator, and MatFreeOperator over any callable.  Arrays are registered
 buffers, so ``.to(device)`` on any enclosing module moves them.  Every
 2-D stencil apply with offsets in {-1, 0, 1}^2 goes through
 ``ops/stencil2d.py``: the CUDA kernel for CUDA tensors, its plain PyTorch
@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import as_tensor, np_dtype
+from .. import as_tensor, np_dtype, torch_dtype
 from ..formats import BSRMatrix, CSRMatrix
 from .stencil2d import (ROW_BROADCAST, ROW_INDEXED, Band2d, StencilPlan,
                         full_band, kernel_covers)
@@ -672,6 +672,29 @@ class SumOperator(nn.Module):
             if hasattr(p, "diagonal"):
                 y = y + p.diagonal()
         return y
+
+
+class MatFreeOperator(nn.Module):
+    """Any callable ``x -> A x`` as an operator with ``shape`` and
+    ``dtype`` (reference: mxv_matfree, fasp.h:1109-1117).  A callable that
+    is an ``nn.Module`` becomes a child, so ``.to()`` moves its buffers."""
+
+    def __init__(self, fn, n: int, _dtype):
+        super().__init__()
+        self.fn = fn
+        self.n = int(n)
+        self._dtype = torch_dtype(_dtype)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n, self.n)
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
 
 
 class HybridDiaOperator(nn.Module):

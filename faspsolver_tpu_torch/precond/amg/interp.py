@@ -1,10 +1,11 @@
-"""Classical AMG interpolation operators: direct / standard / extended,
-with truncation (port of ``faspsolver_tpu/precond/amg/interp.py``; host
-NumPy/SciPy and the shared native C++ entry, the same code as the JAX
-package's).  Energy-minimizing interpolation is not ported yet (ROADMAP).
+"""Classical AMG interpolation operators: direct / standard / extended
+with truncation, and energy-minimizing (``interp_energymin``) (port of
+``faspsolver_tpu/precond/amg/interp.py``; host NumPy/SciPy and the
+shared native C++ entry, the same code as the JAX package's).
 
 Reference: base/src/PreAMGInterp.c:64 (fasp_amg_interp dispatch ->
-interp_DIR / interp_STD / interp_EXT + amg_interp_trunc).  The resulting
+interp_DIR / interp_STD / interp_EXT + amg_interp_trunc) and
+PreAMGInterpEM.c (energy-minimizing interpolation).  The resulting
 P becomes a banded or COO transfer module (``transfer.py``).
 """
 from __future__ import annotations

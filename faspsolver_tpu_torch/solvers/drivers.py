@@ -1,12 +1,13 @@
 """User-facing solver drivers: params -> preconditioner setup -> Krylov
-(port of the CSR and BSR drivers of
-``faspsolver_tpu/solvers/drivers.py``).
+(port of ``faspsolver_tpu/solvers/drivers.py``).
 
 Reference: base/src/SolCSR.c (fasp_solver_dcsr_itsolver :56, _krylov
 :249, _krylov_diag :341, _krylov_swz :401, _krylov_amg :476, _krylov_ilu
 :588, _krylov_ilu_M :668, _krylov_amg_nk :748), SolBSR.c (_krylov_diag
 :186, _krylov_ilu :286, _krylov_amg :349, _krylov_amg_nk :476,
-_krylov_nk_amg :634), SolAMG.c:49 (fasp_solver_amg with its GMRES
+_krylov_nk_amg :634), SolSTR.c (_krylov_diag :175, _krylov_ilu :236,
+_krylov_blockgs :323), SolBLC.c (_krylov_block3/4 :188, :390,
+_krylov_sweeping :507), SolAMG.c:49 (fasp_solver_amg with its GMRES
 fallback :128-135), SolFAMG.c.
 
 Every driver takes ``dtype`` (``None``: float64) and ``device``
@@ -16,9 +17,12 @@ for the CPU).  It builds on the host, moves what it built with
 ``.to(device)`` and returns a ``SolveResult`` whose ``x`` lies on
 ``device``.  The ILU and Schwarz drivers choose the operator of a CSR
 matrix with ``best_operator``, so a grid matrix applies through the
-stencil kernel.  The STR and BLC branches and the block and sweeping
-drivers raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+stencil kernel.  Every driver takes the matrix families the JAX
+package's does: CSR and BSR everywhere, an STR matrix in the
+unpreconditioned, diagonal, ILU and block-smoother drivers, a BLC matrix
+in the unpreconditioned, block and sweeping drivers.  The AMG drivers
+raise a TypeError for STR and BLC matrices, and ``solve_amg`` answers it
+with its GMRES fallback, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -35,8 +39,12 @@ from ..formats import BLCMatrix, BSRMatrix, CSRMatrix, STRMatrix
 from ..krylov import (BlockJacobiPrecond, JacobiPrecond, SolveResult,
                       bicgstab, gcg, gcr, gmres, minres, pcg, vfgmres, vgmres)
 from ..ops.operators import best_operator, device_operator
-from ..precond import (AMGNKPrecond, AMGPrecond, setup_bsr_ilu0, setup_ilu,
-                       setup_schwarz)
+from ..ops.str_ops import StrOperator
+from ..precond import (AMGNKPrecond, AMGPrecond, setup_blc_precond,
+                       setup_blc_sweeping, setup_bsr_ilu0, setup_ilu,
+                       setup_schwarz, setup_str_blockgs, setup_str_diag,
+                       setup_str_ilu, setup_str_schwarz)
+from ..precond.blc_precond import BlcOperator
 from ..precond.amg import (amg_solve, famg_solve, setup_rs, setup_sa,
                            setup_sa_bsr, setup_ua, setup_ua_bsr)
 from ..utils import messages
@@ -72,20 +80,16 @@ _BASE_TO_SAFE = {
     int(SolverType.VFGMRES): int(SolverType.SVFGMRES),
 }
 
+
+class _NoAMGFormat(TypeError):
+    """An STR or BLC matrix given to an AMG setup, which takes CSR and
+    BSR matrices (the JAX package's setups raise a TypeError from
+    ``device_operator`` for them)."""
+
+
 # host-setup failures that send solve_amg to its GMRES fallback; an
-# unported option (NotImplementedError) and anything raised on the
-# device are not among them
-_SETUP_ERRORS = (FaspError, ValueError, np.linalg.LinAlgError)
-
-
-def _unported(A, item: int):
-    raise NotImplementedError(
-        f"{type(A).__name__} drivers are not ported (ROADMAP item {item})")
-
-
-def _check_host(A):
-    if isinstance(A, (STRMatrix, BLCMatrix)):
-        _unported(A, 11)
+# unported option and anything raised on the device are not among them
+_SETUP_ERRORS = (FaspError, ValueError, np.linalg.LinAlgError, _NoAMGFormat)
 
 
 def _resolve_device(device, *placed) -> torch.device:
@@ -102,12 +106,17 @@ def _resolve_device(device, *placed) -> torch.device:
 
 
 def _as_operator(A, dtype, device):
-    """The operator of a host CSR or BSR matrix on ``device``, or A
-    itself when it is already an operator."""
-    _check_host(A)
+    """The operator of a host CSR, BSR, STR or BLC matrix on ``device``,
+    or A itself when it is already an operator."""
     if isinstance(A, (CSRMatrix, BSRMatrix)):
-        return device_operator(A, dtype=dtype).to(device)
-    return A
+        op = device_operator(A, dtype=dtype)
+    elif isinstance(A, STRMatrix):
+        op = StrOperator.from_str(A, dtype=dtype)
+    elif isinstance(A, BLCMatrix):
+        op = BlcOperator.from_blc(A, dtype=dtype)
+    else:
+        return A
+    return op.to(device)
 
 
 def _vec(v, dtype, device) -> Optional[torch.Tensor]:
@@ -175,13 +184,14 @@ def krylov(A, b, x0=None, its: Optional[ITSParam] = None, dtype=None,
 def krylov_diag(A, b, x0=None, its: Optional[ITSParam] = None, dtype=None,
                 device=None) -> SolveResult:
     """Diagonally preconditioned Krylov (reference: _krylov_diag,
-    SolCSR.c:341; the BSR twin SolBSR.c:186 uses the block-diagonal
-    inverses)."""
-    _check_host(A)
+    SolCSR.c:341; the BSR twin SolBSR.c:186 and the STR twin SolSTR.c:175
+    use the block-diagonal inverses)."""
     if isinstance(A, BSRMatrix):
         M = BlockJacobiPrecond.from_bsr(A, dtype)
     elif isinstance(A, CSRMatrix):
         M = JacobiPrecond.from_csr(A, dtype)
+    elif isinstance(A, STRMatrix):
+        M = setup_str_diag(A, dtype)
     else:
         raise FaspError(-41, "krylov_diag needs a host matrix")
     device = _resolve_device(device)
@@ -194,7 +204,9 @@ def _amg_setup_by_type(A, amg: AMGParam, dtype=None, nk=None):
     BSR-native setups: aggregation on the condensed graph and block
     smoothers (reference: fasp_solver_dbsr_krylov_amg, SolBSR.c:349, and
     its SA twin fasp_amg_setup_sa_bsr); ``nk`` is their near-kernel
-    basis."""
+    basis.  An STR or BLC matrix raises a TypeError."""
+    if isinstance(A, (STRMatrix, BLCMatrix)):
+        raise _NoAMGFormat(f"cannot build device operator from {type(A)}")
     t = int(amg.AMG_type)
     if isinstance(A, BSRMatrix):
         setup = setup_sa_bsr if t == AMGType.SA else setup_ua_bsr
@@ -215,7 +227,6 @@ def krylov_amg(A, b, x0=None, its: Optional[ITSParam] = None,
     matrix."""
     its = its or ITSParam()
     amg = amg or AMGParam()
-    _check_host(A)
     device = _resolve_device(device)
     hier = _amg_setup_by_type(A, amg, dtype).to(device)
     res = itsolver(A, b, x0=x0, M=AMGPrecond(hier, maxit=amg.maxit),
@@ -227,10 +238,10 @@ def solve_amg(A: CSRMatrix, b, x0=None, amg: Optional[AMGParam] = None,
               dtype=None, device=None) -> SolveResult:
     """AMG as a standalone solver, with the reference's GMRES fallback
     when the host setup fails (fasp_solver_amg, SolAMG.c:49, fallback
-    :128-135).  Only host-setup errors fall back; an unported option or
-    a fault on the device raises."""
+    :128-135).  Only host-setup errors (and an STR or BLC matrix, which
+    no AMG setup takes) fall back; an unported option or a fault on the
+    device raises."""
     amg = amg or AMGParam()
-    _check_host(A)
     device = _resolve_device(device)
     try:
         hier = _amg_setup_by_type(A, amg, dtype)
@@ -249,7 +260,6 @@ def solve_famg(A: CSRMatrix, b, x0=None, amg: Optional[AMGParam] = None,
                dtype=None, device=None) -> SolveResult:
     """Full AMG as a solver (reference: fasp_solver_famg, SolFAMG.c:41)."""
     amg = amg or AMGParam()
-    _check_host(A)
     device = _resolve_device(device)
     hier = _amg_setup_by_type(A, amg, dtype).to(device)
     return famg_solve(hier, _vec(b, hier.levels[0].A.dtype, device),
@@ -266,7 +276,6 @@ def krylov_amg_nk(A, b, nk, x0=None,
     array of near-kernel vectors."""
     its = its or ITSParam()
     amg = amg or AMGParam()
-    _check_host(A)
     device = _resolve_device(device)
     if isinstance(A, BSRMatrix):
         hier = setup_ua_bsr(A, amg, dtype=dtype)
@@ -318,14 +327,16 @@ def krylov_ilu(A, b, x0=None, its: Optional[ITSParam] = None,
                ilu: Optional[ILUParam] = None, dtype=None, device=None
                ) -> SolveResult:
     """ILU-preconditioned Krylov (reference: fasp_solver_dcsr_krylov_ilu,
-    SolCSR.c:588; BSR twin SolBSR.c:286).  The factorization runs on the
-    host at setup; the apply is level-scheduled triangular solves on the
-    device.  A BSR matrix with ``ILU_lfil = 0`` takes the true block
-    ILU(0) (fasp_ilu_dbsr_setup) and, should that setup fail or for
-    ``lfil > 0``, the scalar ILU of its CSR expansion."""
+    SolCSR.c:588; BSR twin SolBSR.c:286; STR twin SolSTR.c:236).  The
+    factorization runs on the host at setup; the apply is level-scheduled
+    triangular solves on the device.  A BSR matrix with ``ILU_lfil = 0``
+    takes the true block ILU(0) (fasp_ilu_dbsr_setup) and, should that
+    setup fail or for ``lfil > 0``, the scalar ILU of its CSR expansion.
+    An STR matrix with ``ILU_lfil`` 0 or 1 takes the banded-block ILU
+    factored in band space (fasp_ilu_dstr_setup0/1), and the scalar ILU
+    of its CSR expansion for more fill."""
     ilu = ilu or ILUParam()
-    _check_host(A)
-    if not isinstance(A, (BSRMatrix, CSRMatrix)):
+    if not isinstance(A, (BSRMatrix, CSRMatrix, STRMatrix)):
         raise FaspError(-41, "krylov_ilu needs a host matrix")
     device = _resolve_device(device)
     M = None
@@ -334,8 +345,10 @@ def krylov_ilu(A, b, x0=None, its: Optional[ITSParam] = None,
             M = setup_bsr_ilu0(A, dtype=dtype)
         except FaspError:
             pass
+    if isinstance(A, STRMatrix) and int(ilu.ILU_lfil) <= 1:
+        M = setup_str_ilu(A, fill=int(ilu.ILU_lfil), dtype=dtype)
     if M is None:
-        M = setup_ilu(A.to_csr() if isinstance(A, BSRMatrix) else A, ilu,
+        M = setup_ilu(A if isinstance(A, CSRMatrix) else A.to_csr(), ilu,
                       dtype=dtype)
     return _precond_solve(A, b, x0, M.to(device), its, dtype, device)
 
@@ -378,16 +391,50 @@ def krylov_swz(A: CSRMatrix, b, x0=None, its: Optional[ITSParam] = None,
     return _precond_solve(A, b, x0, M, its, dtype, device)
 
 
-def _not_ported(name: str, what: str, item: int):
-    def driver(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: {what} is not ported (ROADMAP item {item})")
-    driver.__name__ = driver.__qualname__ = name
-    driver.__doc__ = (f"The JAX package's ``{name}``; {what} waits for "
-                      f"ROADMAP item {item}.")
-    return driver
+def krylov_blockgs(A, b, x0=None, its: Optional[ITSParam] = None,
+                   nsweeps: int = 2, smoother: str = "blockgs", dtype=None,
+                   device=None) -> SolveResult:
+    """Block-smoother-preconditioned Krylov for structured-grid matrices
+    (reference: fasp_solver_dstr_krylov_blockgs, SolSTR.c:323).
+    ``smoother="schwarz"`` takes the overlapping-patch Schwarz smoother
+    instead (reference: fasp_smoother_dstr_swz, ItrSmootherSTR.c:1665).
+    Krylov runs over the smoother's own StrOperator."""
+    if not isinstance(A, STRMatrix):
+        raise FaspError(-41, "krylov_blockgs needs an STRMatrix")
+    device = _resolve_device(device)
+    if smoother == "schwarz":
+        M = setup_str_schwarz(A, nsweeps=nsweeps, dtype=dtype)
+    else:
+        M = setup_str_blockgs(A, nsweeps=nsweeps, dtype=dtype)
+    M = M.to(device)
+    return itsolver(M.A, b, x0=x0, M=M, its=its, dtype=dtype, device=device)
 
 
-krylov_blockgs = _not_ported("krylov_blockgs", "STR block smoothing", 11)
-krylov_block = _not_ported("krylov_block", "BLC block preconditioning", 11)
-krylov_sweeping = _not_ported("krylov_sweeping", "BLC sweeping", 11)
+def krylov_block(A, b, x0=None, its: Optional[ITSParam] = None,
+                 mode: str = "diag", diag_solver: str = "amg",
+                 amg: Optional[AMGParam] = None, dtype=None, device=None
+                 ) -> SolveResult:
+    """Block-preconditioned Krylov for block-composite systems
+    (reference: fasp_solver_dblc_krylov_block3/_block4, SolBLC.c:188,
+    :390: block diag / lower / upper / SGS with AMG on the diagonal
+    blocks; one driver serves any block count)."""
+    if not isinstance(A, BLCMatrix):
+        raise FaspError(-41, "krylov_block needs a BLCMatrix")
+    device = _resolve_device(device)
+    M = setup_blc_precond(A, mode=mode, diag_solver=diag_solver, amg=amg,
+                          dtype=dtype).to(device)
+    return itsolver(A, b, x0=x0, M=M, its=its, dtype=dtype, device=device)
+
+
+def krylov_sweeping(A, b, x0=None, its: Optional[ITSParam] = None,
+                    diag_solver: str = "amg",
+                    amg: Optional[AMGParam] = None, dtype=None, device=None
+                    ) -> SolveResult:
+    """Layered sweeping-preconditioned Krylov for block-tridiagonal
+    systems (reference: fasp_solver_dblc_krylov_sweeping, SolBLC.c:507)."""
+    if not isinstance(A, BLCMatrix):
+        raise FaspError(-41, "krylov_sweeping needs a BLCMatrix")
+    device = _resolve_device(device)
+    M = setup_blc_sweeping(A, diag_solver=diag_solver, amg=amg,
+                           dtype=dtype).to(device)
+    return itsolver(A, b, x0=x0, M=M, its=its, dtype=dtype, device=device)

@@ -6,6 +6,13 @@ anchors the port is held to on the card).
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py leftover   # phase 9d
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py bsr 64     # phase 9a
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py cli 4 1023 # phase 9b/c
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py str 64     # phase 10a
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py blc 64     # phase 10b
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py sweep 96 12
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py gmg 1024 128  # 10c
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py surface 1023  # 10d
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py matfree 1e-13
+    python tests/small_grid_anchors.py matfree 1e-13 cuda   # on the card
 
 ``small`` (the default) prints the count of every ``chip_smoke.SMALL_GRID``
 config on poisson_fe_manufactured(64) (3,969 dof), ``leftover`` those of
@@ -13,7 +20,16 @@ config on poisson_fe_manufactured(64) (3,969 dof), ``leftover`` those of
 ``chip_smoke.BSR_GRID`` on block_poisson_3d(nx, nb=3), and ``cli <precond>
 <size> [key=value ...]`` the JAX CLI's count on ini/input.dat with the
 given preconditioner id, grid size and ini overrides (as chip_smoke's
-phases 9b and 9c write them into a temporary ini).
+phases 9b and 9c write them into a temporary ini).  ``str <nx>``,
+``blc <nx>`` and ``sweep <n> <slabs>`` print the counts of
+``chip_smoke.STR_GRID``, ``BLC_GRID`` and ``SWEEP_GRID`` on
+``str_problem(nx)``, ``blc_problem(nx)`` and ``sweep_problem(n, slabs)``;
+``gmg <n2> <n3>`` those of ``chip_smoke.GMG_GRID``; ``surface <nx>`` the
+matrix-free runs (``MATFREE_GRID`` on the small grid, the stencil
+operator at nx^2), ``maxeig`` at nx^2 and the C API (``CAPI_GRID``: CSR
+at nx^2, BSR on ``bsr_problem()``).  ``matfree <tol>`` prints
+``MATFREE_GRID``'s counts at ``tol`` through both packages on the CPU,
+``matfree <tol> cuda`` the port's on the CUDA device without JAX.
 ``tests/test_torch_drivers.py`` runs the port's side with :func:`run`.
 Not collected by pytest (no ``test_`` prefix).
 """
@@ -48,8 +64,16 @@ def _packages(pkg: str):
 
 
 def _to_jax(A):
+    """The JAX package's container of a port CSR, BSR, STR or BLC
+    matrix."""
     from faspsolver_tpu import formats
     cls = getattr(formats, type(A).__name__)
+    name = type(A).__name__
+    if name == "STRMatrix":
+        return cls(A.nx, A.ny, A.nz, A.nc, A.diag, A.offsets, A.offdiag)
+    if name == "BLCMatrix":
+        return cls([[None if b is None else _to_jax(b) for b in row]
+                    for row in A.blocks])
     return cls(A.indptr, A.indices, A.data, A.shape)
 
 
@@ -67,6 +91,7 @@ def run_fields(pkg: str, driver: str, fields: dict, A, b):
     args = [_to_jax(A) if pkg == "jax" else A, b]
     if fields.get("nk"):
         args.append(chip_smoke.component_basis(A.nrow, A.nb))
+    kw.update(fields.get("kw", {}))
     res = getattr(solvers, driver)(*args, **kw)
     res = res[0] if isinstance(res, tuple) else res
     x = np.asarray(res.x) if pkg == "jax" else res.x.numpy()
@@ -77,6 +102,209 @@ def run(pkg: str, cfg, A, b):
     """One SMALL_GRID config (name, driver, its, amg, ...)."""
     _, driver, its, amg, *_ = cfg
     return run_fields(pkg, driver, dict(its=its, amg=amg), A, b)
+
+
+def _step_ok(A, o):
+    """(ng,) bool: whether the step from grid point g to g + o stays on the
+    nx x ny x nz grid, o decomposed as dx + nx dy + nx ny dz with every
+    step in {-1, 0, 1} (the 7-point stencil and the ILU(1) fill it
+    makes)."""
+    nx, ny, nz = A.nx, A.ny, A.nz
+    hits = [(dx, dy, dz) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+            for dx in (-1, 0, 1) if dx + nx * dy + nx * ny * dz == o]
+    assert len(hits) == 1, (o, hits)
+    g = np.arange(A.ngrid)
+    ok = np.ones(A.ngrid, dtype=bool)
+    for c, d, n in zip((g % nx, g // nx % ny, g // (nx * ny)), hits[0],
+                       (nx, ny, nz)):
+        ok &= (c + d >= 0) & (c + d < n)
+    return ok
+
+
+def _anchor_solver(bands, tri, ng, nc, lower, ok):
+    """One triangle of the JAX factor's bands as JAX ``_BTriLevel``s, on
+    the longest-path levels of the dependencies that stay on the grid
+    (node by node, as the JAX package's ``_grid_wavefronts`` walks
+    them)."""
+    import jax.numpy as jnp
+    from faspsolver_tpu.precond.ilu import BlockTriangularSolver, _BTriLevel
+    lvl = np.zeros(ng, dtype=np.int64)
+    deps = [(o, ok[o].tolist()) for o in tri]
+    for g in (range(ng) if lower else range(ng - 1, -1, -1)):
+        lvl[g] = max([lvl[g + o] + 1 for o, m in deps if m[g]], default=0)
+    order = np.argsort(lvl, kind="stable")
+    bounds = np.searchsorted(lvl[order], np.arange(lvl.max() + 2))
+    dinv = None if lower else np.linalg.inv(bands[0])
+    levels = []
+    for a, z in zip(bounds[:-1], bounds[1:]):
+        rows = order[a:z]
+        cols = np.full((len(rows), len(tri)), ng, dtype=np.int32)
+        blks = np.zeros((len(rows), len(tri), nc, nc))
+        for s, o in enumerate(tri):
+            sel = ok[o][rows]
+            cols[sel, s] = rows[sel] + o
+            blks[sel, s] = bands[o][rows[sel]]
+        di = np.broadcast_to(np.eye(nc), (len(rows), nc, nc)) if lower \
+            else dinv[rows]
+        levels.append(_BTriLevel(
+            rows=jnp.asarray(rows.astype(np.int32)), cols=jnp.asarray(cols),
+            vals=jnp.asarray(blks), dinv=jnp.asarray(di)))
+    return BlockTriangularSolver(levels=tuple(levels), n=ng)
+
+
+def jax_str_ilu(A, fill: int):
+    """The JAX package's banded block ILU of an STR matrix (its factor,
+    ``str_ilu_factor_banded``), applied by the JAX BlockTriangularSolver
+    over the grid's wavefronts.  The JAX setup schedules the solves on
+    the 1-D index (262,144 single-row levels per factor at 64^3), which
+    JAX cannot trace at that size.  Here every dependency whose step
+    leaves the grid is dropped, after checking that the factor's block
+    on it is zero: the solves compute the same sums, on 190 levels per
+    factor at 64^3."""
+    from faspsolver_tpu.precond import str_precond as jax_str
+    from faspsolver_tpu.precond.ilu import BSRILUPrecond
+    bands, offs = jax_str.str_ilu_factor_banded(_to_jax(A), fill)
+    ng = A.ngrid
+    g = np.arange(ng)
+    ok = {}
+    for o in offs:
+        if o:
+            ok[o] = _step_ok(A, o)
+            wraps = ~ok[o] & (g + o >= 0) & (g + o < ng)
+            assert not np.any(bands[o][wraps]), f"band {o} wraps"
+    lower = sorted(o for o in ok if o < 0)
+    upper = sorted(o for o in ok if o > 0)
+    return BSRILUPrecond(
+        Lsolve=_anchor_solver(bands, lower, ng, A.nc, True, ok),
+        Usolve=_anchor_solver(bands, upper, ng, A.nc, False, ok), nb=A.nc)
+
+
+def str_run(A, b, driver, fields):
+    """One STR_GRID entry through the JAX package: its driver, or for
+    krylov_ilu its itsolver over :func:`jax_str_ilu`."""
+    if driver != "krylov_ilu":
+        return run_fields("jax", driver, fields, A, b)
+    from faspsolver_tpu.solvers.drivers import itsolver
+    from faspsolver_tpu.utils.params import ITSParam
+    res = itsolver(_to_jax(A), b, M=jax_str_ilu(A, fields["ilu"]["ILU_lfil"]),
+                   its=ITSParam(**fields["its"]))
+    return res, np.asarray(res.x)
+
+
+def _print_grid(label, grid, A, b, run):
+    for name, driver, fields, anchor, _ in grid:
+        t0 = time.perf_counter()
+        res, x = run(A, b, driver, fields)
+        relres = np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b)
+        print(f"{label} {name:36s} {int(res.iters):5d} iterations, status "
+              f"{int(res.status)}, relres {relres:.3e}  (recorded {anchor}; "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def _gmg(n2: int, n3: int):
+    import jax.numpy as jnp
+    from faspsolver_tpu.precond import gmg
+    for name, fn, dim, kw, anchor, _ in chip_smoke.GMG_GRID:
+        n = n3 if dim == 3 else n2
+        f, u = chip_smoke.gmg_problem(n, dim)
+        t0 = time.perf_counter()
+        res = getattr(gmg, fn)(jnp.asarray(f), n, **kw)
+        err = np.abs(np.asarray(res.x) - u).max()
+        print(f"n={n} {name:34s} {int(res.iters):4d} iterations, relres "
+              f"{float(res.relres):.3e}, max |u - exact| {err:.3e}  "
+              f"(recorded {anchor}; {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+
+def _surface(nx: int):
+    import jax.numpy as jnp
+    from faspsolver_tpu import capi, krylov
+    from faspsolver_tpu.krylov import JacobiPrecond
+    from faspsolver_tpu.ops import MatFreeOperator, device_operator
+    from faspsolver_tpu.ops.eigen import maxeig
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    A, b = problem()
+    Aj = _to_jax(A)
+    for name, fn, restart, anchor, _ in chip_smoke.MATFREE_GRID:
+        op = device_operator(Aj, prefer="ell")
+        kw = dict(chip_smoke.MATFREE_ITS)
+        if restart:
+            kw["restart"] = restart
+        res = getattr(krylov, fn)(MatFreeOperator(fn=op, n=A.nrow,
+                                                  _dtype=op.dtype),
+                                  jnp.asarray(b), M=JacobiPrecond.from_csr(Aj),
+                                  **kw)
+        print(f"{name:20s} {int(res.iters):5d} iterations, status "
+              f"{int(res.status)}  (recorded {anchor})", flush=True)
+    P = poisson_2d(nx)
+    Pj = _to_jax(P)
+    bp = P.matvec(np.random.default_rng(chip_smoke.SEED)
+                  .standard_normal(P.nrow))
+    op = device_operator(Pj)
+    t0 = time.perf_counter()
+    res = krylov.pcg(MatFreeOperator(fn=op, n=P.nrow, _dtype=op.dtype),
+                     jnp.asarray(bp), M=JacobiPrecond.from_csr(Pj),
+                     **chip_smoke.MATFREE_STENCIL)
+    print(f"matfree {nx}^2 stencil CG + Jacobi {int(res.iters):5d} "
+          f"iterations, status {int(res.status)}  (recorded "
+          f"{chip_smoke.MATFREE_STENCIL_ANCHOR[0]}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"maxeig({nx}^2) = {maxeig(Pj)!r}  (recorded "
+          f"{chip_smoke.MAXEIG_ANCHOR!r})", flush=True)
+    Ab, bb = chip_smoke.bsr_problem(chip_smoke.STR_NX)
+    for fn, kw, anchor, _ in chip_smoke.CAPI_GRID:
+        t0 = time.perf_counter()
+        if fn == "dbsr_krylov_amg":
+            out = capi.dbsr_krylov_amg(Ab.nb, Ab.nrow_block, Ab.indptr,
+                                       Ab.indices, Ab.data.reshape(-1), bb,
+                                       **kw)
+        else:
+            out = getattr(capi, fn)(P.nrow, P.indptr, P.indices, P.data,
+                                    bp, **kw)
+        print(f"capi.{fn:16s} {out[1]:5d} iterations, relres {out[2]:.3e}"
+              f"  (recorded {anchor}; {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+
+def _matfree(tol: float, device: str):
+    """``MATFREE_GRID`` at ``tol`` on the small grid: the port's count on
+    ``device`` and, on the CPU, the JAX package's beside it, each with
+    its status and verified relres."""
+    import torch
+    from faspsolver_tpu_torch import krylov
+    from faspsolver_tpu_torch.krylov import JacobiPrecond
+    from faspsolver_tpu_torch.ops import MatFreeOperator, device_operator
+    A, b = problem()
+    ell = device_operator(A, prefer="ell").to(device)
+    M = JacobiPrecond.from_csr(A).to(device)
+    bt = torch.from_numpy(b).to(device)
+
+    def relres(x):
+        return np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b)
+
+    for name, fn, restart, *_ in chip_smoke.MATFREE_GRID:
+        kw = dict(chip_smoke.MATFREE_ITS, tol=tol,
+                  **({"restart": restart} if restart else {}))
+        res = getattr(krylov, fn)(MatFreeOperator(ell, A.nrow, torch.float64),
+                                  bt, M=M, **kw)
+        line = (f"tol {tol:g} {name:18s} port ({device}) {res.iters:5d} "
+                f"iterations, status {res.status}, relres "
+                f"{relres(res.x.cpu().numpy()):.3e}")
+        if device == "cpu":
+            import jax.numpy as jnp
+            from faspsolver_tpu import krylov as jax_krylov
+            from faspsolver_tpu.krylov import JacobiPrecond as JaxJacobi
+            from faspsolver_tpu.ops import MatFreeOperator as JaxMatFree
+            from faspsolver_tpu.ops import device_operator as jax_operator
+            Aj = _to_jax(A)
+            op = jax_operator(Aj, prefer="ell")
+            ref = getattr(jax_krylov, fn)(
+                JaxMatFree(fn=op, n=A.nrow, _dtype=op.dtype), jnp.asarray(b),
+                M=JaxJacobi.from_csr(Aj), **kw)
+            line += (f"; JAX {int(ref.iters):5d} iterations, status "
+                     f"{int(ref.status)}, relres "
+                     f"{relres(np.asarray(ref.x)):.3e}")
+        print(line, flush=True)
 
 
 def ini_fields(params, ini: str) -> dict:
@@ -110,6 +338,9 @@ def jax_refined(A, b, amg_fields: dict):
 
 
 def _main(argv):
+    if argv[:1] == ["matfree"] and argv[2:] == ["cuda"]:
+        _matfree(float(argv[1]), "cuda")        # the port alone, no JAX
+        return
     import jax
     jax.config.update("jax_enable_x64", True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -124,6 +355,29 @@ def _main(argv):
         rc = main(["-ini", ini, "-precond", argv[1], "-problem",
                    "poisson2d", "-size", argv[2]])
         print(f"rc {rc}, {time.perf_counter() - t0:.1f} s")
+        return
+    if mode == "str":
+        A, _, b = chip_smoke.str_problem(int(argv[1]))
+        _print_grid(f"nx={argv[1]}", chip_smoke.STR_GRID, A, b, str_run)
+        return
+    if mode == "blc":
+        A, b = chip_smoke.blc_problem(int(argv[1]))
+        _print_grid(f"nx={argv[1]}", chip_smoke.BLC_GRID, A, b,
+                    lambda A, b, d, f: run_fields("jax", d, f, A, b))
+        return
+    if mode == "sweep":
+        A, b = chip_smoke.sweep_problem(int(argv[1]), int(argv[2]))
+        _print_grid(f"n={argv[1]}", chip_smoke.SWEEP_GRID, A, b,
+                    lambda A, b, d, f: run_fields("jax", d, f, A, b))
+        return
+    if mode == "gmg":
+        _gmg(int(argv[1]), int(argv[2]))
+        return
+    if mode == "surface":
+        _surface(int(argv[1]))
+        return
+    if mode == "matfree":
+        _matfree(float(argv[1]), "cpu")
         return
     if mode == "bsr":
         nx = int(argv[1])

@@ -2,9 +2,8 @@
 
 Every ported driver and every SolverType id through ``itsolver`` give
 the JAX package's iterations and status with x within 1e-10; unknown
-ids raise FaspError(-40) and the unported drivers NotImplementedError
-naming their ROADMAP item (the BSR, ILU and Schwarz drivers have their
-own files).  The two CLIs print the same iteration line
+ids raise FaspError(-40) (the BSR, ILU, Schwarz, STR and BLC drivers
+have their own files).  The two CLIs print the same iteration line
 and exit with the same code on the repository's ini files.  Files
 written by one package read back in the other.  The port's counts on
 chip_smoke.py's small grid stay within the recorded JAX anchors."""
@@ -13,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 from native_parity import ensure_native
-from small_grid_anchors import problem, run, run_fields
+from small_grid_anchors import _to_jax, problem, run, run_fields
 
 import chip_smoke
 import faspsolver_tpu.io as jax_io
@@ -28,7 +27,6 @@ import faspsolver_tpu_torch.solvers as solvers
 from faspsolver_tpu_torch.__main__ import main
 from faspsolver_tpu_torch.constants import AMGType, SolverType
 from faspsolver_tpu_torch.convert import from_jax
-from faspsolver_tpu_torch.formats import BLCMatrix, BSRMatrix, STRMatrix
 from faspsolver_tpu_torch.testgen import poisson_2d
 from faspsolver_tpu_torch.utils import FaspError, messages
 from faspsolver_tpu_torch.utils.params import AMGParam, ITSParam
@@ -192,33 +190,29 @@ def test_device_none_follows_what_is_already_placed(monkeypatch):
     assert res.x.device.type == "cpu" and res.converged
 
 
-UNPORTED = [("krylov_blockgs", "item 11"), ("krylov_block", "item 11"),
-            ("krylov_sweeping", "item 11")]
+STR_BLC_CALLS = [("krylov_diag", "str", {}), ("krylov_ilu", "str", {}),
+                 ("krylov_blockgs", "str", {}), ("krylov", "blc", {}),
+                 ("krylov_block", "blc", {}), ("krylov_sweeping", "sweep", {})]
 
 
-@pytest.mark.parametrize("driver,item", UNPORTED)
-def test_unported_drivers_raise(driver, item):
-    p = _poisson()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(solvers, driver)(p["A"], p["b"], device="cpu")
-
-
-def test_unported_formats_raise():
-    """STR and BLC matrices wait for ROADMAP item 11 in every driver; a
-    BSR matrix (item 10, ported) solves."""
-    p = _poisson()
-    bsr = BSRMatrix.from_csr(p["A"], 1)
-    strm = STRMatrix.__new__(STRMatrix)
-    blc = BLCMatrix.__new__(BLCMatrix)
-    for fn in (solvers.krylov, solvers.krylov_diag, solvers.krylov_amg,
-               solvers.solve_amg, solvers.krylov_ilu):
-        for mat in (strm, blc):
-            with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-                fn(mat, p["b"], device="cpu")
-        res = fn(bsr, p["b"], device="cpu")
-        res = res[0] if isinstance(res, tuple) else res
-        assert res.x.shape == p["b"].shape
-        assert bool(torch.isfinite(res.x).all())
+@pytest.mark.parametrize("driver,family,kw", STR_BLC_CALLS,
+                         ids=[d for d, _, _ in STR_BLC_CALLS])
+def test_str_and_blc_drivers_raise_without_a_cuda_device(driver, family, kw,
+                                                         monkeypatch):
+    """The STR and BLC drivers take device=None as the card, as every
+    driver does: without one they raise and name device="cpu"; with it
+    they solve on the CPU."""
+    _no_cuda(monkeypatch)
+    if family == "str":
+        A, _, b = chip_smoke.str_problem(3)
+    elif family == "blc":
+        A, b = chip_smoke.blc_problem(3)
+    else:
+        A, b = chip_smoke.sweep_problem(6, 3)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        getattr(solvers, driver)(A, b, **kw)
+    res = getattr(solvers, driver)(A, b, device="cpu", **kw)
+    assert res.x.device.type == "cpu" and res.converged
 
 
 def _raise_not_implemented(*args, **kwargs):
@@ -226,8 +220,9 @@ def _raise_not_implemented(*args, **kwargs):
 
 
 def test_solve_amg_falls_back_only_on_host_setup_errors(monkeypatch):
-    """A setup ValueError (an unknown smoother id) falls back to GMRES
-    as in the JAX package; an unported option raises instead."""
+    """A setup ValueError (an unknown smoother id) and an STR matrix fall
+    back to GMRES as in the JAX package; an unported option raises
+    instead."""
     p = _poisson()
     warned = []
     monkeypatch.setattr(messages, "warn", warned.append)
@@ -238,13 +233,17 @@ def test_solve_amg_falls_back_only_on_host_setup_errors(monkeypatch):
                                 amg=jax_params.AMGParam(**kw))
     _assert_same(got, ref)
     assert len(warned) == 1 and "falling back to GMRES" in warned[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        solvers.solve_amg(STRMatrix.__new__(STRMatrix), p["b"],
-                          amg=AMGParam(**kw), device="cpu")
+    # an STR matrix, which no AMG setup takes, falls back too (the JAX
+    # package's setup raises a TypeError for it and its except catches all)
+    A, _, b = chip_smoke.str_problem(3)
+    got = solvers.solve_amg(A, b, amg=AMGParam(**kw), device="cpu")
+    _assert_same(got, jax_solvers.solve_amg(_to_jax(A), b,
+                                            amg=jax_params.AMGParam(**kw)))
+    assert len(warned) == 2 and "cannot build device operator" in warned[1]
     monkeypatch.setattr(solvers.drivers, "setup_rs", _raise_not_implemented)
     with pytest.raises(NotImplementedError, match="an unported option"):
         solvers.solve_amg(p["A"], p["b"], amg=AMGParam(), device="cpu")
-    assert len(warned) == 1
+    assert len(warned) == 2
 
 
 def _cli(fn, argv, capsys):

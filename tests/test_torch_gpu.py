@@ -322,3 +322,108 @@ def test_factorization_preconditioners_on_the_card_match_the_cpu(kind):
         assert card.to(torch.float32)._graph is None
     else:
         assert stencil2d.launches[torch.float64] > 0
+
+
+def _str_modules():
+    import chip_smoke
+    from faspsolver_tpu_torch.ops.str_ops import StrOperator
+    from faspsolver_tpu_torch.precond import str_precond
+    A, _, _ = chip_smoke.str_problem(8)
+    return A, {"StrOperator": StrOperator.from_str(A),
+               "STR diag": str_precond.setup_str_diag(A),
+               "STR block GS": str_precond.setup_str_blockgs(A),
+               "STR ILU(0)": str_precond.setup_str_ilu(A, 0),
+               "STR ILU(1)": str_precond.setup_str_ilu(A, 1),
+               "STR Schwarz": str_precond.setup_str_schwarz(A, nsweeps=2)}
+
+
+def _blc_modules():
+    import chip_smoke
+    from faspsolver_tpu_torch.precond import blc_precond
+    from faspsolver_tpu_torch.utils.params import AMGParam
+    A, _ = chip_smoke.blc_problem(6)
+    S, _ = chip_smoke.sweep_problem(8, 4)
+    amg = AMGParam(coarse_dof=40)
+    mods = {"BlcOperator": (A, blc_precond.BlcOperator.from_blc(A)),
+            "sweeping": (S, blc_precond.setup_blc_sweeping(S, amg=amg))}
+    for mode in ("diag", "lower", "upper", "sgs"):
+        mods[f"BLC {mode}"] = (A, blc_precond.setup_blc_precond(
+            A, mode=mode, amg=amg))
+    return mods
+
+
+@pytest.mark.cuda
+def test_str_and_blc_modules_on_the_card_match_the_cpu():
+    """One apply of every STR and BLC operator and preconditioner on the
+    card against the same module on the CPU (f64, 1e-12 of the scale);
+    the STR ILU replays its CUDA graph bit-equal to its eager loop."""
+    _need_cuda()
+    import copy
+    A, mods = _str_modules()
+    pairs = [(A, name, M) for name, M in mods.items()]
+    pairs += [(B, name, M) for name, (B, M) in _blc_modules().items()]
+    for mat, name, M in pairs:
+        card = copy.deepcopy(M).to("cuda")
+        r = torch.randn(mat.nrow, dtype=torch.float64)
+        z, want = card(r.cuda()), M(r)
+        assert float((z.cpu() - want).abs().max()) <= \
+            1e-12 * float(want.abs().max()), name
+        if name.startswith("STR ILU"):
+            assert card._graph is not None
+            assert torch.equal(card(r.cuda()), card.eager(r.cuda()))
+
+
+@pytest.mark.cuda
+def test_str_blc_and_gmg_solves_on_the_card_match_the_cpu():
+    """The STR, BLC and GMG solves with no device argument run on the
+    card, with the CPU's counts (within 1) and x within 1e-8."""
+    _need_cuda()
+    import chip_smoke
+    from faspsolver_tpu_torch import solvers
+    from faspsolver_tpu_torch.precond import gmg
+    from faspsolver_tpu_torch.utils.params import ITSParam
+    its = ITSParam(itsolver_type=6, tol=1e-9, restart=30)
+    A, _, b = chip_smoke.str_problem(8)
+    B, bb = chip_smoke.blc_problem(6)
+    runs = [(solvers.krylov_ilu, A, b, {}),
+            (solvers.krylov_blockgs, A, b, dict(smoother="schwarz")),
+            (solvers.krylov_block, B, bb, dict(mode="sgs"))]
+    for fn, mat, rhs, kw in runs:
+        card = fn(mat, rhs, its=its, **kw)
+        cpu = fn(mat, rhs, its=its, device="cpu", **kw)
+        assert card.x.is_cuda and card.converged, fn.__name__
+        assert abs(card.iters - cpu.iters) <= 1, fn.__name__
+        assert float((card.x.cpu() - cpu.x).abs().max()) < 1e-8
+    f, _ = chip_smoke.gmg_problem(64, 2)
+    card = gmg.poisson_gmgcg_2d(f, 64)          # a NumPy f goes to the card
+    cpu = gmg.poisson_gmgcg_2d(f, 64, device="cpu")
+    assert card.x.is_cuda and card.iters == cpu.iters
+    assert float((card.x.cpu() - cpu.x).abs().max()) < 1e-10
+
+
+@pytest.mark.cuda
+def test_matfree_eigen_and_capi_on_the_card():
+    """A MatFreeOperator over the f64 stencil operator launches the
+    kernel; maxeig_device on the card follows the host iterates; the C
+    API with no device argument solves on the card and hands x back as
+    a NumPy array."""
+    _need_cuda()
+    from faspsolver_tpu_torch import capi
+    from faspsolver_tpu_torch.krylov import JacobiPrecond
+    from faspsolver_tpu_torch.ops import MatFreeOperator, best_operator, eigen
+    from faspsolver_tpu_torch.solvers import itsolver
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    A = poisson_2d(63)
+    b = np.random.default_rng(7).standard_normal(A.nrow)
+    op = MatFreeOperator(best_operator(A), A.nrow, torch.float64).to("cuda")
+    stencil2d.reset_launches()
+    res = itsolver(op, b, M=JacobiPrecond.from_csr(A).to("cuda"))
+    assert res.x.is_cuda and res.converged
+    assert stencil2d.launches[torch.float64] > res.iters
+    v0 = np.random.default_rng(0).standard_normal(A.nrow)
+    lam = float(eigen.maxeig_device(op, 50, v0=torch.from_numpy(v0).cuda()))
+    assert abs(lam - eigen.maxeig(A, iters=50, tol=0.0)) <= 1e-8 * lam
+    x, it, rr = capi.dcsr_krylov_amg(A.nrow, A.indptr, A.indices, A.data, b,
+                                     tol=1e-8)
+    assert isinstance(x, np.ndarray) and rr < 1e-8
+    assert np.linalg.norm(b - A.matvec(x)) < 1e-7 * np.linalg.norm(b)

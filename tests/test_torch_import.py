@@ -14,6 +14,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "faspsolver_tpu_torch",
     "faspsolver_tpu_torch.__main__",
+    "faspsolver_tpu_torch.capi",
     "faspsolver_tpu_torch.constants",
     "faspsolver_tpu_torch.convert",
     "faspsolver_tpu_torch.formats",
@@ -35,8 +36,10 @@ MODULES = [
     "faspsolver_tpu_torch.native",
     "faspsolver_tpu_torch.ops",
     "faspsolver_tpu_torch.ops.blas1",
+    "faspsolver_tpu_torch.ops.eigen",
     "faspsolver_tpu_torch.ops.operators",
     "faspsolver_tpu_torch.ops.stencil2d",
+    "faspsolver_tpu_torch.ops.str_ops",
     "faspsolver_tpu_torch.precond",
     "faspsolver_tpu_torch.precond.amg",
     "faspsolver_tpu_torch.precond.amg.aggregation",
@@ -54,9 +57,12 @@ MODULES = [
     "faspsolver_tpu_torch.precond.amg.solve",
     "faspsolver_tpu_torch.precond.amg.structured",
     "faspsolver_tpu_torch.precond.amg.transfer",
+    "faspsolver_tpu_torch.precond.blc_precond",
+    "faspsolver_tpu_torch.precond.gmg",
     "faspsolver_tpu_torch.precond.ilu",
     "faspsolver_tpu_torch.precond.preconditioners",
     "faspsolver_tpu_torch.precond.schwarz",
+    "faspsolver_tpu_torch.precond.str_precond",
     "faspsolver_tpu_torch.solvers",
     "faspsolver_tpu_torch.solvers.drivers",
     "faspsolver_tpu_torch.solvers.refine",
@@ -66,6 +72,7 @@ MODULES = [
     "faspsolver_tpu_torch.testgen.structural",
     "faspsolver_tpu_torch.utils",
     "faspsolver_tpu_torch.utils.build",
+    "faspsolver_tpu_torch.utils.graphics",
     "faspsolver_tpu_torch.utils.messages",
     "faspsolver_tpu_torch.utils.params",
 ]
@@ -88,6 +95,24 @@ def test_port_imports_without_jax():
          "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
          " or m == 'faspsolver_tpu' or m.startswith('faspsolver_tpu.')]\n"
          "assert not bad, bad\n")
+
+
+def test_package_import_alone_gives_the_top_level_names():
+    """``import faspsolver_tpu_torch as fasp`` alone (the helpers come
+    before the sub-packages that import them) loads no jax, builds no
+    library, and ``fasp.device_operator(A)`` works."""
+    out = _run("import sys, numpy as np\n"
+               "import faspsolver_tpu_torch as fasp\n"
+               "from faspsolver_tpu_torch import native\n"
+               "from faspsolver_tpu_torch.ops import stencil2d\n"
+               "assert 'jax' not in sys.modules\n"
+               "assert native._lib is None and not native._tried\n"
+               "assert stencil2d._lib is None\n"
+               "A = fasp.CSRMatrix.eye(4)\n"
+               "op = fasp.device_operator(A)\n"
+               "print(type(op).__name__, op(fasp.as_tensor(np.ones(4))).sum()"
+               ".item())\n")
+    assert out.split() == ["DenseOperator", "4.0"]
 
 
 def test_cli_runs_without_jax():
@@ -153,6 +178,7 @@ def test_kernel_module_needs_no_nvcc_or_gpu():
                                     "faspsolver_tpu_torch.testgen.fdm",
                                     "faspsolver_tpu_torch.testgen.fem",
                                     "faspsolver_tpu_torch.testgen.structural",
+                                    "faspsolver_tpu_torch.utils.graphics",
                                     "faspsolver_tpu_torch.precond.amg"
                                     ".aggregation",
                                     "faspsolver_tpu_torch.precond.amg"
