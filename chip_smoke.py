@@ -6,12 +6,14 @@
     python3 chip_smoke.py --kernel-only  # phases 1-3, then stop
     python3 chip_smoke.py --block-only   # phases 1-3 and 9, then stop
     python3 chip_smoke.py --surface-only # phases 1-3 and 10, then stop
+    python3 chip_smoke.py --harness-only # phases 1-3 and 11, then stop
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. the card: nvidia-smi name and power limit, torch / CUDA / nvcc versions;
 2. build the CUDA stencil kernel (nvcc, sm_90a) and the native setup
-   library (g++) from the sources in this checkout;
+   library (g++, from faspsolver_tpu_torch/csrc/, whose paths it prints)
+   from the sources in this checkout;
 3. the kernel against its plain PyTorch version on the card, for every
    coefficient form (scalar, factored, full) in f32 and f64, at the main
    paths' shapes (1023^2 5-point, 341^2 9-point, 1023^2 7-point P1-FE) and
@@ -72,7 +74,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    operator (it must launch the f64 kernel) and through the six matfree
    Krylov methods, maxeig on the host and on the card, and the four C
    API functions.  Each count is held to its JAX count, and one apply of
-   each new operator and preconditioner on the card against the CPU.
+   each new operator and preconditioner on the card against the CPU;
+11. the benchmark harness, checkpoint and profiling, every call through
+   the port's entry points with no device argument: (a) the six
+   generated rows (65,025 to 1,046,529 dof) as run_generated("amg")
+   scores them in float64 (lMVU, a warm and a timed call of the whole
+   solver), x verified on the host, (b) the same in the f32 refined mode,
+   (c) main(["--corpus"]) over the first ten corpus rows at 255^2 (all
+   20 with --harness-only), each count held to the JAX package's CPU
+   count or flagged as a reference anomaly;
+   (d) the headline hierarchy and input.dat's RS hierarchy saved and
+   loaded back onto the card bit-equal, solving as the originals do;
+   (e) the 1023^2 row's f64 solve, its setup and solve halves each
+   annotated, inside profiling.trace, the device
+   busy share read from the trace file, and the memory report of the
+   headline hierarchy beside the allocator's growth.
 
 Phases 4, 6 and 7 run each solve once to warm up, then time it with the
 kernel launch counts set to 0 just before it and read just after; both
@@ -80,7 +96,8 @@ dtypes must have launched.  Phase 8 counts the launches of each CLI run
 (setup and solve) and of each timed solve; input.dat's must include the
 f64 kernel; phases 9 and 10 count the launches of each solve, and the
 ILU and Schwarz solves of phase 9 and the MatFree solve of phase 10 must
-have launched the f64 kernel.  It prints a JSON line
+have launched the f64 kernel; phase 11 counts those of each harness row
+and of the corpus run.  It prints a JSON line
 of the kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It needs nothing but this
 checkout and exits non-zero when no CUDA device is available.
@@ -349,6 +366,60 @@ CAPI_GRID = [("dcsr_krylov_amg", dict(tol=1e-6, maxit=500), 4, 1),
              ("dbsr_krylov_amg", dict(tol=1e-9, maxit=500), 23, 2)]
 MAXEIG_ANCHOR = 8303774.513804946
 
+# phase 11, the benchmark harness: the JAX package's own harness
+# functions on the CPU, one solve per row (iterations, "rescue" /
+# "escalate" where the f32 ladder needed its fallbacks), printed by
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f64
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f32
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness corpus f64
+# Each count is held within max(2, 5%) (f64 sums in another order under
+# vGMRES restarts; the f32 mode's rounding); a row that
+# reference_anomalies() flags is printed as such and held only to
+# convergence and its verified relres.  None of these anchors is flagged.
+HARNESS_GEN_F64 = {
+    "fdm2d-255x255": (6, ""), "fdm2d-511x511": (6, ""),
+    "fdm2d-1023x1023": (6, ""), "fdm3d-31^3": (6, ""), "fdm3d-47^3": (6, ""),
+    "fdm3d-101^3": (6, "")}
+HARNESS_GEN_F32 = {
+    "fdm2d-255x255": (8, ""), "fdm2d-511x511": (8, ""),
+    "fdm2d-1023x1023": (9, ""), "fdm3d-31^3": (8, ""), "fdm3d-47^3": (8, ""),
+    "fdm3d-101^3": (8, "")}
+HARNESS_CORPUS_F64 = {
+    "poisson2d": (6, ""), "poisson3d": (6, ""), "aniso-x-1e1": (5, ""),
+    "aniso-x-1e2": (5, ""), "aniso-x-1e3": (4, ""), "aniso-y-1e1": (5, ""),
+    "aniso-y-1e2": (5, ""), "aniso-y-1e3": (4, ""), "aniso3d-weak": (5, ""),
+    "aniso3d-mixed": (4, ""), "jump-1e2": (7, ""), "jump-1e4": (7, ""),
+    "jump-1e6": (7, ""), "jump-inv-1e4": (6, ""), "convdiff-mild": (6, ""),
+    "convdiff-strong": (8, ""), "convdiff-grid": (11, ""),
+    "stretched-1e1": (7, ""), "stretched-1e2": (7, ""),
+    "stretched-1e3": (7, "")}
+HARNESS_TOL = 1e-8        # the harness solvers' own tolerance
+
+
+def family(name):
+    """A harness row's problem family: its name up to the first "-"."""
+    return name.split("-")[0]
+
+
+def reference_anomalies(table):
+    """{row: why} for the rows of a harness anchor table ({row: (JAX
+    iterations, "" | "rescue" | "escalate")}) whose JAX run the f32
+    ladder rescued or escalated, or that took more than 10 x the median
+    count of their family: flagged, never matched silently."""
+    import statistics
+    median = {}
+    for name, (iters, _) in table.items():
+        median.setdefault(family(name), []).append(iters)
+    median = {f: statistics.median(v) for f, v in median.items()}
+    out = {}
+    for name, (iters, flag) in table.items():
+        if flag:
+            out[name] = f"the JAX f32 ladder had to {flag}"
+        elif iters > 10 * median[family(name)]:
+            out[name] = (f"{iters} iterations, over 10 x the median "
+                         f"{median[family(name)]:g} of {family(name)}-*")
+    return out
+
 
 def check(ok, what):
     """A failed check ends the run (explicit, so it holds under -O)."""
@@ -498,17 +569,24 @@ def card_info(torch):
 
 
 def build():
+    """The CUDA kernel (nvcc) and the native setup library (g++), built
+    from the sources in this checkout."""
+    import os
     from faspsolver_tpu_torch import native
     from faspsolver_tpu_torch.ops import stencil2d
     from faspsolver_tpu_torch.utils.build import BUILD_LOG
-    t0 = time.perf_counter()
     stencil2d.library()
-    t1 = time.perf_counter()
     if not native.available():
         raise RuntimeError(f"native setup library: {native.build_error}")
-    t2 = time.perf_counter()
-    print(f"build: stencil2d (nvcc) {t1 - t0:.2f} s, fasp_native (g++) "
-          f"{t2 - t1:.2f} s")
+    print(f"build: stencil2d (nvcc) {BUILD_LOG['stencil2d'][1]:.2f} s, "
+          f"fasp_native (g++) {BUILD_LOG['fasp_native'][1]:.2f} s")
+    csrc = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(native.__file__))), "csrc")
+    print("fasp_native built from "
+          + ", ".join(os.path.relpath(p) for p in native._SOURCES))
+    check(all(os.path.dirname(os.path.abspath(p)) == csrc
+              for p in native._SOURCES),
+          "the native library is built from faspsolver_tpu_torch/csrc/")
     print_ptxas(BUILD_LOG["stencil2d"][2])
 
 
@@ -1649,6 +1727,327 @@ def surface_path(torch, device, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the benchmark harness, checkpoint and profiling
+# ---------------------------------------------------------------------------
+
+def hold_to_anchor(name, iters, anchors):
+    """A harness row's count against its JAX anchor.  A row whose anchor
+    reference_anomalies() flags is printed as a reference anomaly with
+    both counts and not held to it."""
+    ref = anchors[name][0]
+    why = reference_anomalies(anchors).get(name)
+    if why:
+        print(f"  reference anomaly: {name}: JAX {ref} iterations ({why}), "
+              f"port {iters}; held to convergence and its relres only")
+        return
+    bound = max(2, int(0.05 * ref))
+    check(abs(iters - ref) <= bound,
+          f"{name}: {iters} iterations within {bound} of JAX {ref}")
+
+
+def harness_generated(torch, device, dtype, anchors):
+    """11a / 11b: what ``run_generated("amg")`` does, row by row, with no
+    device argument: lMVU, the solver, ``score_problem`` on each of the
+    six generated rows; the timed call's result is kept and verified on
+    the host in f64."""
+    import numpy as np
+    from faspsolver_tpu_torch.benchmark import harness
+    from faspsolver_tpu_torch.ops import stencil2d
+    dev = device_arg(torch, device)
+    harness._print_platform(dtype, dev)
+    lmvu = harness.compute_lmvu(dtype=dtype, device=dev)
+    print(f"  lMVU = {lmvu:.6e} s/row/iter")
+    solver = harness._solver_factory("amg", dtype, dev)
+    kept = {}
+
+    def keep(A, b):
+        kept["out"] = solver(A, b)
+        return kept["out"]
+
+    rows = harness.generated_problems()
+    check([n for n, _, _ in rows] == list(anchors),
+          f"the generated rows are the anchored ones: {list(anchors)}")
+    counts = {"float32": 0, "float64": 0}
+    readings = {"lmvu": lmvu}
+    for name, A, b in rows:
+        stencil2d.reset_launches()
+        r = harness.score_problem(name, A, b, keep, lmvu)
+        launches = launch_counts()
+        out = kept["out"]
+        if isinstance(out.x, torch.Tensor):
+            check(out.x.device.type == torch.device(device).type,
+                  f"{name}: x lay on {device}")
+            x = out.x.cpu().numpy()
+        else:                  # the refined mode hands x back on the host
+            x = out.x
+        x = np.asarray(x, dtype=np.float64)
+        check(x.shape == (A.nrow,) and bool(np.isfinite(x).all()),
+              f"{name}: finite x of the expected shape")
+        relres = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
+        print(f"  {name:16s} n={r.n:8d} nnz={r.nnz:9d} iterations "
+              f"{r.iters:4d} (JAX {anchors[name][0]}), solve {r.solve_s:.3f} "
+              f"s, score {r.score:.1f}, own relres {float(out.relres):.3e}, "
+              f"verified f64 relres {relres:.3e}, stencil launches "
+              f"{launches}")
+        check(r.converged and float(out.relres) < HARNESS_TOL
+              and relres < TOL,
+              f"{name}: converged, own relres {out.relres} < {HARNESS_TOL}, "
+              f"verified {relres} < {TOL}")
+        hold_to_anchor(name, r.iters, anchors)
+        for k in counts:
+            counts[k] += launches[k]
+        readings[name] = {"n": r.n, "nnz": r.nnz, "iters": r.iters,
+                          "solve_s": r.solve_s, "score": r.score,
+                          "relres": relres, "launches": launches}
+    return counts, readings
+
+
+def harness_corpus(torch, device, rows=None):
+    """11c: the corpus through the harness CLI with no device argument,
+    its first ``rows`` rows (None: all 20); every row asked for must come
+    back converged."""
+    from faspsolver_tpu_torch.benchmark import harness
+    from faspsolver_tpu_torch.benchmark.__main__ import main
+    from faspsolver_tpu_torch.ops import stencil2d
+    asked = list(HARNESS_CORPUS_F64)[:rows]
+    every = harness.corpus_problems
+    harness.corpus_problems = lambda scale=255: every(scale)[:rows]
+    stencil2d.reset_launches()
+    try:
+        with spied_calls({"run_corpus": (harness, "run_corpus")}) as spy:
+            rc = main(["--corpus"], device=device_arg(torch, device))
+    finally:
+        harness.corpus_problems = every
+    launches = launch_counts()
+    results = spy["run_corpus"]["out"] or []
+    check(rc == 0, f"main(['--corpus']) returned {rc}")
+    check([r.name for r in results] == asked,
+          f"every corpus row asked for came back: "
+          f"{[r.name for r in results]}")
+    readings = {}
+    for r in results:
+        print(f"  {r.name:16s} {r.iters:4d} iterations (JAX "
+              f"{HARNESS_CORPUS_F64[r.name][0]}), solve {r.solve_s:.3f} s, "
+              f"score {r.score:.1f}")
+        check(r.converged, f"{r.name} converged")
+        hold_to_anchor(r.name, r.iters, HARNESS_CORPUS_F64)
+        readings[r.name] = {"iters": r.iters, "solve_s": r.solve_s,
+                            "score": r.score}
+    print(f"  corpus stencil launches {launches}")
+    return launches, readings
+
+
+def bit_equal_on(torch, device, orig, back, label):
+    """Every buffer of the loaded module on ``device`` and bit-equal to
+    the original's."""
+    a, b = dict(orig.named_buffers()), dict(back.named_buffers())
+    check(list(a) == list(b) and a, f"{label}: the same buffers")
+    for k, t in b.items():
+        check(t.device.type == torch.device(device).type
+              and t.dtype == a[k].dtype and torch.equal(t, a[k]),
+              f"{label}: {k} on {device} and bit-equal")
+    return len(a)
+
+
+def round_trip(torch, device, label, hier, solve, tmp):
+    """Two solves from ``hier``, save_hierarchy, load_hierarchy with no
+    device argument, a solve from the loaded one: (x1, x2, x3, results)
+    with the file's MB and the save / load seconds printed."""
+    import os
+    from faspsolver_tpu_torch.utils import checkpoint
+    first, second = solve(hier), solve(hier)
+    path = os.path.join(tmp, f"{label}.pt")
+    sync(torch, device)
+    t0 = time.perf_counter()
+    checkpoint.save_hierarchy(path, hier)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = checkpoint.load_hierarchy(path, device=device_arg(torch, device))
+    sync(torch, device)
+    load_s = time.perf_counter() - t0
+    nbuf = bit_equal_on(torch, device, hier, back, label)
+    plans = [m for m in back.modules() if hasattr(m, "_plan")]
+    check(all(m._plan is None for m in plans),
+          f"{label}: no stencil plan came back from the file")
+    third = solve(back)
+    mb = os.path.getsize(path) / 1e6
+    print(f"  {label}: {nbuf} tensors bit-equal on {device}; file "
+          f"{mb:.1f} MB, save {save_s:.3f} s, load {load_s:.3f} s")
+    return first, second, third, {"file_mb": mb, "save_s": save_s,
+                                  "load_s": load_s, "tensors": nbuf}
+
+
+def checkpoint_path(torch, device, tmp):
+    """11d: phase 4's headline hierarchy and phase 8's input.dat RS
+    hierarchy through save_hierarchy / load_hierarchy; 11e's memory
+    report of the headline hierarchy."""
+    import numpy as np
+    from faspsolver_tpu_torch import default_device
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    from faspsolver_tpu_torch.precond.amg import setup_rs, setup_structured
+    from faspsolver_tpu_torch.solvers import itsolver, solve_refined_resident
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    from faspsolver_tpu_torch.utils import profiling
+    from faspsolver_tpu_torch.utils.params import (apply_cli_overrides,
+                                                   param_init)
+    dev = torch.device(device_arg(torch, device) or default_device())
+    A = poisson_2d(NX)
+    b = A.matvec(np.ones(A.nrow))
+    readings = {}
+
+    host = setup_structured(A, headline_param(), dtype=torch.float32,
+                            smooth_p=True, keep_f64_fine=True)
+    sync(torch, dev)
+    before = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    hier = host.to(dev)
+    sync(torch, dev)
+    grown = (torch.cuda.memory_allocated() if dev.type == "cuda" else 0) \
+        - before
+    nbytes = profiling.tree_nbytes(hier)
+    print(f"  {profiling.memory_report(hier, 'headline hierarchy')}; the "
+          f"allocator grew {grown / 1e6:.2f} MB when it moved to {dev} "
+          f"(tree_nbytes / growth {nbytes / max(grown, 1):.4f})")
+    readings["memory"] = {"tree_nbytes": nbytes, "allocated_growth": grown}
+
+    def headline(h):
+        return solve_refined_resident(h, b, **HEADLINE_REFINE)
+
+    r1, r2, r3, readings["headline"] = round_trip(
+        torch, device, "headline", hier, headline, tmp)
+    print(f"  headline: rounds / inner iterations {r1.rounds} / "
+          f"{r1.inner_iters} original, {r3.rounds} / {r3.inner_iters} "
+          f"loaded; two original solves bit-equal: "
+          f"{np.array_equal(r1.x, r2.x)}")
+    check((r3.rounds, r3.inner_iters) == (r1.rounds, r1.inner_iters)
+          and r3.relres < TOL, "the loaded headline hierarchy solves as "
+          "the original does")
+    if np.array_equal(r1.x, r2.x):
+        check(np.array_equal(r3.x, r1.x),
+              "headline x from the loaded hierarchy bit-equal")
+    del hier, host
+
+    its, amg, _, _ = param_init(apply_cli_overrides(["-ini",
+                                                     "ini/input.dat"]))
+    hier = setup_rs(A, amg, dtype=torch.float64).to(dev)
+    kinds = sorted({type(m).__name__ for m in hier.modules()})
+    print(f"  input.dat RS hierarchy: {len(hier.levels)} levels; modules "
+          f"{', '.join(kinds)}")
+    check("ColorBlock" in kinds, "the RS hierarchy holds GS color blocks")
+
+    def rs(h):
+        return itsolver(A, b, M=AMGPrecond(h, amg.maxit), its=its,
+                        dtype=torch.float64, device=device_arg(torch, device))
+
+    s1, s2, s3, readings["input_rs"] = round_trip(
+        torch, device, "input.dat RS", hier, rs, tmp)
+    x1, x2, x3 = (s.x.cpu().numpy() for s in (s1, s2, s3))
+    spread = float(np.abs(x2 - x1).max())
+    err = float(np.abs(x3 - x1).max())
+    print(f"  input.dat RS: iterations {s1.iters} / {s2.iters} original, "
+          f"{s3.iters} loaded; max |x2 - x1| {spread:.3e}, max |x3 - x1| "
+          f"{err:.3e}")
+    check(abs(s3.iters - s1.iters) <= INI_ANCHORS["input"][1]
+          and s3.converged, "the loaded RS hierarchy solves as the "
+          "original does")
+    check(err == 0.0 if spread == 0.0 else err <= 10 * spread,
+          f"RS x from the loaded hierarchy within 10 x the spread of two "
+          f"original solves ({spread}): {err}")
+    readings["input_rs"].update(iters=s3.iters, spread=spread, err=err)
+    return readings
+
+
+def profile_harness_row(torch, device, tmp):
+    """11e: fdm2d-1023x1023's timed f64 call inside profiling.trace, as
+    its two halves: the harness's f64 solver is ``krylov_amg`` with the
+    ``its`` below, that is the driver's AMG setup on the host and the
+    hierarchy's move to the card ("setup"), then the Krylov solve
+    ("solve").  The device busy share is read from the trace file
+    (kernel time over wall time)."""
+    import glob
+    import os
+    from faspsolver_tpu_torch.benchmark import harness
+    from faspsolver_tpu_torch.constants import SolverType
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    from faspsolver_tpu_torch.solvers import drivers
+    from faspsolver_tpu_torch.utils import profiling
+    from faspsolver_tpu_torch.utils.params import AMGParam, ITSParam
+    name, A, b = harness.generated_problems((NX,), ())[0]
+    dev = device_arg(torch, device)
+    its = ITSParam(itsolver_type=int(SolverType.VGMRES), tol=HARNESS_TOL,
+                   maxit=2000, restart=60)
+    logdir = os.path.join(tmp, "trace")
+    with profiling.trace(logdir):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        with profiling.annotate("setup"):
+            hier = drivers._amg_setup_by_type(A, AMGParam(),
+                                              torch.float64).to(
+                drivers._resolve_device(dev))
+        with profiling.annotate("solve"):
+            res = drivers.itsolver(A, b, M=AMGPrecond(hier), its=its,
+                                   dtype=torch.float64, device=dev)
+        harness._sync(res.x)
+        wall = time.perf_counter() - t0
+    hold_to_anchor(name, res.iters, HARNESS_GEN_F64)
+    files = glob.glob(os.path.join(logdir, "*.json"))
+    check(len(files) == 1, f"profiling.trace wrote one trace: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_us = sum(e.get("dur", 0) for e in events
+                    if e.get("cat") == "kernel")
+    labels = {e.get("name") for e in events
+              if e.get("cat") == "user_annotation"}
+    share = kernel_us / 1e6 / wall
+    print(f"  {name} f64 traced: {res.iters} iterations, wall {wall:.3f} s "
+          f"(profiled), device kernel time {kernel_us / 1e3:.1f} ms, device "
+          f"busy share {share:.4f}; trace {os.path.getsize(files[0]) / 1e6:.1f}"
+          f" MB, {len(events)} events, annotations {sorted(labels)}")
+    check({"setup", "solve"} <= labels, "the trace holds both annotations")
+    if torch.device(device).type == "cuda":
+        check(kernel_us > 0, "the trace holds device kernels")
+    return {"wall_s": wall, "kernel_s": kernel_us / 1e6, "busy_share": share,
+            "iters": res.iters}
+
+
+def harness_path(torch, device, corpus_rows=None):
+    """Phase 11, with the first ``corpus_rows`` corpus rows (None: all).
+    Returns the stencil launches of its runs and the readings."""
+    import shutil
+    import tempfile
+    counts = {"float32": 0, "float64": 0}
+
+    def add(c):
+        for k in counts:
+            counts[k] += c[k]
+
+    t0 = time.perf_counter()
+    readings = {}
+    print("  (a) generated rows, f64")
+    c, readings["gen_f64"] = harness_generated(torch, device, torch.float64,
+                                               HARNESS_GEN_F64)
+    add(c)
+    print("  (b) generated rows, the f32 refined mode")
+    c, readings["gen_f32"] = harness_generated(torch, device, torch.float32,
+                                               HARNESS_GEN_F32)
+    add(c)
+    print(f"  (c) main(['--corpus']), {corpus_rows or 'all'} rows")
+    c, readings["corpus"] = harness_corpus(torch, device, corpus_rows)
+    add(c)
+    tmp = tempfile.mkdtemp()
+    try:
+        print("  (d) checkpoint")
+        readings["checkpoint"] = checkpoint_path(torch, device, tmp)
+        print("  (e) profiling")
+        readings["profile"] = profile_harness_row(torch, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    readings["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 11 took {readings['phase_s']:.1f} s; stencil launches "
+          f"of its harness runs {counts}")
+    return counts, readings
+
+
+# ---------------------------------------------------------------------------
 # phase 5: per-apply times
 # ---------------------------------------------------------------------------
 
@@ -1835,6 +2234,12 @@ def main(argv) -> int:
         surface_path(torch, device, smi)
         print("stopped after phase 10 (--surface-only)")
         return 0
+    if "--harness-only" in argv:
+        print("== 11. main path: the benchmark harness, checkpoint and "
+              "profiling")
+        harness_path(torch, device)
+        print("stopped after phase 11 (--harness-only)")
+        return 0
     counts, res = {}, {}
     print("== 4. main path: headline")
     hier, counts["headline"], res["headline"] = main_path(torch, device,
@@ -1875,6 +2280,12 @@ def main(argv) -> int:
     print("== 10. main path: the solver surface")
     counts["solver_surface"], res["solver_surface"] = surface_path(
         torch, device, smi)
+    print("== 11. main path: the benchmark harness, checkpoint and "
+          "profiling")
+    # the whole run keeps to its time budget with ten corpus rows;
+    # --harness-only runs all twenty
+    counts["harness"], res["harness"] = harness_path(torch, device,
+                                                     corpus_rows=10)
 
     # one entry per kernel, stencil2d<T, K> by element type (the band
     # count K is the operator's); its times are those of the main paths'

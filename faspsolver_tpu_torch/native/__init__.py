@@ -1,10 +1,11 @@
 """The port's ctypes loader for the native (C++) setup kernels.
 
-There is one source of truth: the library is compiled from the JAX
-package's ``faspsolver_tpu/native/fasp_native.cpp`` and ``band_ops.cpp``
-(read as sources, never modified or written next to) into the port's
-build directory, with the same g++ flags the JAX loader uses, so both
-packages run the same setup arithmetic.  Bound: the structured-setup
+The library is compiled from the port's own copies of the C++ sources,
+``faspsolver_tpu_torch/csrc/fasp_native.cpp`` and ``band_ops.cpp``, into
+the port's build directory, with the same g++ flags the JAX loader uses.
+The copies are byte-equal to the JAX package's sources, and a test holds
+them so (``tests/test_torch_native.py``): that equality, with the equal
+flags, is why both packages run the same setup arithmetic.  Bound: the structured-setup
 entries (``dia_from_csr``, ``smoothed_rap``) and the classical RS-AMG
 ones (``dia_hist``, ``dia_split``, ``rap``, ``strength_graph``,
 ``agg_strength``, ``rs_cf_split2``, ``rs_ff_pass``, ``interp_std``,
@@ -27,10 +28,10 @@ import numpy as np
 
 from ..utils.build import build_shared
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SOURCES = (os.path.join(_REPO, "faspsolver_tpu", "native", "fasp_native.cpp"),
-            os.path.join(_REPO, "faspsolver_tpu", "native", "band_ops.cpp"))
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+_SOURCES = (os.path.join(_CSRC, "fasp_native.cpp"),
+            os.path.join(_CSRC, "band_ops.cpp"))
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -8,7 +8,10 @@ sgs :808, sor :932, L1DIAG, kaczmarz :1363), ItrSmootherCSRpoly.c
 (polynomial).  Gauss-Seidel runs as multicolor GS, the reference's own
 OpenMP strategy (fasp_smoother_dcsr_gs_multicolor): each color's rows
 are gathered at setup into an ELL block (``ColorBlock``), so a sweep is
-one gather, row sum and scatter per color.  C/F-ordered smoothing colors
+one gather, row sum and scatter per color.  A row of up to 8 stored
+entries sums left to right (``row_sum``), the order of the reference's
+row loop and of the JAX package's sum on the CPU, on every device.
+C/F-ordered smoothing colors
 the C points and the F points apart and visits the C colors first
 (forward) or last (backward).  The Chebyshev recurrence scalars are
 fixed by ``lambda_max`` and the degree, so they are computed once, at
@@ -33,6 +36,29 @@ _GS_KINDS = (SmootherType.GS, SmootherType.SGS, SmootherType.SOR,
              SmootherType.GSF)
 _SYMMETRIC_GS = (int(SmootherType.SGS), int(SmootherType.SSOR),
                  int(SmootherType.SGSOR))
+
+
+# rows up to this many stored entries are summed in a fixed order
+_ORDERED_WIDTH = 8
+
+
+def row_sum(p: torch.Tensor) -> torch.Tensor:
+    """Row sums of a (rows, k) block.  Rows of up to ``_ORDERED_WIDTH``
+    entries (a grid's fine and first coarse levels) add left to right on
+    every device, the order of the reference's row loop and of the JAX
+    package's sum on the CPU.  ``p.sum(dim=1)`` lets the device choose:
+    torch's CUDA reduction adds a 4-entry row as (p0 + p2) + (p1 + p3),
+    and the f32 refined mode on a 1023^2 Poisson grid, whose second round
+    works at its f32 residual floor, stalls there with that rounding
+    (``tools/f32_refine_probe.py``).  Wider rows (coarse levels: up to
+    ~1,650 entries at 101^3) keep the one-launch sum, as a loop costs a
+    launch per column."""
+    if p.shape[1] > _ORDERED_WIDTH:
+        return p.sum(dim=1)
+    s = p[:, 0]
+    for k in range(1, p.shape[1]):
+        s = s + p[:, k]
+    return s
 
 
 def _opt(a) -> Optional[torch.Tensor]:
@@ -75,7 +101,7 @@ class ColorBlock(nn.Module):
     def offdiag(self, x: torch.Tensor) -> torch.Tensor:
         """Row sums of the stored off-diagonal entries times x."""
         g = x.index_select(0, self.cols.reshape(-1)).reshape(self.cols.shape)
-        return (self.vals * g).sum(dim=1)
+        return row_sum(self.vals * g)
 
 
 class SmootherData(nn.Module):
@@ -312,7 +338,7 @@ def kaczmarz_sweep(sm: SmootherData, A, x, b, omega: float = 0.5):
         aii = 1.0 / blk.dinv
         ri = b.index_select(0, blk.rows) - blk.offdiag(x) \
             - aii * x.index_select(0, blk.rows)
-        row_norm2 = (blk.vals * blk.vals).sum(dim=1) + aii * aii
+        row_norm2 = row_sum(blk.vals * blk.vals) + aii * aii
         scale = omega * ri / row_norm2
         x = x.index_add(0, blk.rows, scale * aii)
         x = x.index_add(0, blk.cols.reshape(-1),

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ast
 import fcntl
+import hashlib
 import inspect
 import os
 
@@ -37,12 +38,19 @@ def _jax_gxx_flags():
     raise RuntimeError("no g++ argv found in faspsolver_tpu.native._build")
 
 
+def _sha256(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
 def _check_same_build():
-    """The port compiles the JAX loader's sources with its argv."""
-    srcs = [os.path.realpath(s) for s in native._SOURCES]
-    if srcs != [os.path.realpath(jax_native._SRC),
-                os.path.realpath(jax_native._SRC2)]:
-        raise RuntimeError(f"the port builds other sources: {srcs}")
+    """The port compiles sources byte-equal to the JAX loader's, in the
+    same order, with its argv."""
+    srcs = list(native._SOURCES)
+    jax_srcs = [jax_native._SRC, jax_native._SRC2]
+    if [_sha256(s) for s in srcs] != [_sha256(s) for s in jax_srcs]:
+        raise RuntimeError(f"the port builds other sources: {srcs} "
+                           f"differ from {jax_srcs}")
     port = [w for w in native._gxx(["SRC"] * len(srcs), "OUT")
             if w not in ("SRC", "OUT")]
     if port != _jax_gxx_flags():

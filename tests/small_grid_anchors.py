@@ -13,6 +13,9 @@ anchors the port is held to on the card).
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py surface 1023  # 10d
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py matfree 1e-13
     python tests/small_grid_anchors.py matfree 1e-13 cuda   # on the card
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f64
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f32
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness corpus f64
 
 ``small`` (the default) prints the count of every ``chip_smoke.SMALL_GRID``
 config on poisson_fe_manufactured(64) (3,969 dof), ``leftover`` those of
@@ -30,6 +33,8 @@ operator at nx^2), ``maxeig`` at nx^2 and the C API (``CAPI_GRID``: CSR
 at nx^2, BSR on ``bsr_problem()``).  ``matfree <tol>`` prints
 ``MATFREE_GRID``'s counts at ``tol`` through both packages on the CPU,
 ``matfree <tol> cuda`` the port's on the CUDA device without JAX.
+``harness gen|corpus f64|f32`` runs the JAX package's benchmark harness
+(phase 11's anchors) and imports nothing of the port.
 ``tests/test_torch_drivers.py`` runs the port's side with :func:`run`.
 Not collected by pytest (no ``test_`` prefix).
 """
@@ -337,9 +342,48 @@ def jax_refined(A, b, amg_fields: dict):
                          **chip_smoke.REFINED)
 
 
+def _harness(kind: str, precision: str):
+    """The JAX package's own harness functions on the CPU, one solve per
+    row: ``gen`` over ``generated_problems()``, ``corpus`` over
+    ``corpus_problems(255)``, with ``_solver_factory("amg")`` in f64 (x64
+    on) or its f32 refined mode (x64 off).  Prints each row's iterations
+    and whether the f32 ladder rescued or escalated it, then the table
+    chip_smoke.py holds the port to."""
+    import contextlib
+    import io
+
+    import jax
+    jax.config.update("jax_enable_x64", precision == "f64")
+    from faspsolver_tpu.benchmark.harness import (_solver_factory,
+                                                  corpus_problems,
+                                                  generated_problems)
+    rows = generated_problems() if kind == "gen" else corpus_problems(255)
+    table = {}
+    for name, A, b in rows:
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = _solver_factory("amg")(A, b)     # a new closure per row
+        said = buf.getvalue()
+        flag = ("escalate" if "f64 escalation" in said else
+                "rescue" if "diagscaled-inner" in said else "")
+        x = np.asarray(res.x, dtype=np.float64)
+        relres = np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b)
+        table[name] = (int(res.iters), flag)
+        print(f"{name:16s} n={A.nrow:8d} iters={int(res.iters):5d} "
+              f"converged={bool(res.converged)} relres={relres:.3e} "
+              f"{flag or '-'} ({time.perf_counter() - t0:.1f} s) "
+              f"{said.strip()}", flush=True)
+    print(f"HARNESS_{kind.upper()}_{precision.upper()} = {table!r}")
+    print("reference anomalies:", chip_smoke.reference_anomalies(table))
+
+
 def _main(argv):
     if argv[:1] == ["matfree"] and argv[2:] == ["cuda"]:
         _matfree(float(argv[1]), "cuda")        # the port alone, no JAX
+        return
+    if argv[:1] == ["harness"]:
+        _harness(argv[1], argv[2])              # the JAX package alone
         return
     import jax
     jax.config.update("jax_enable_x64", True)

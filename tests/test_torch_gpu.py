@@ -427,3 +427,109 @@ def test_matfree_eigen_and_capi_on_the_card():
                                      tol=1e-8)
     assert isinstance(x, np.ndarray) and rr < 1e-8
     assert np.linalg.norm(b - A.matvec(x)) < 1e-7 * np.linalg.norm(b)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_and_harness_rows_on_the_card(tmp_path):
+    """A headline hierarchy saved from the card and loaded with no device
+    argument lands on the card bit-equal, carries no stencil plan and
+    solves as the original does, and loaded on the CPU within 3 inner
+    iterations of it; an ILU preconditioner's CUDA graph is dropped and
+    captured again.  Two harness rows (f64, AMG) on the card
+    take the CPU's iterations within 2 and converge."""
+    _need_cuda()
+    import chip_smoke
+    from faspsolver_tpu_torch.benchmark import harness
+    from faspsolver_tpu_torch.ops.operators import StencilNdOperator
+    from faspsolver_tpu_torch.precond import setup_ilu
+    from faspsolver_tpu_torch.solvers import solve_refined_resident
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    from faspsolver_tpu_torch.utils import checkpoint
+    A = poisson_2d(191)
+    b = A.matvec(np.ones(A.nrow))
+    hier = chip_smoke.setup(torch, A, "cuda")
+    r1 = solve_refined_resident(hier, b)
+    r2 = solve_refined_resident(hier, b)
+    p = str(tmp_path / "h.pt")
+    checkpoint.save_hierarchy(p, hier)
+    back = checkpoint.load_hierarchy(p)
+    got, ref = dict(back.named_buffers()), dict(hier.named_buffers())
+    assert list(got) == list(ref)
+    assert all(t.is_cuda and torch.equal(t, ref[k]) for k, t in got.items())
+    stencils = [m for m in back.modules() if isinstance(m, StencilNdOperator)]
+    assert stencils and all(m._plan is None for m in stencils)
+    r3 = solve_refined_resident(back, b)
+    assert (r3.rounds, r3.inner_iters) == (r1.rounds, r1.inner_iters)
+    if np.array_equal(r1.x, r2.x):
+        assert np.array_equal(r3.x, r1.x)
+    assert any(m._plan is not None for m in stencils if m._kernel)
+    host = checkpoint.load_hierarchy(p, device="cpu")
+    assert all(t.device.type == "cpu" for t in host.buffers())
+    r4 = solve_refined_resident(host, b)
+    assert r4.rounds == r1.rounds and abs(r4.inner_iters - r1.inner_iters) <= 3
+    assert np.linalg.norm(b - A.matvec(r4.x)) / np.linalg.norm(b) < 1e-6
+
+    M = setup_ilu(poisson_2d(31), device="cuda")
+    r = torch.ones(31 * 31, dtype=torch.float64, device="cuda")
+    z = M(r)
+    assert M._graph is not None
+    checkpoint.save_pytree(str(tmp_path / "ilu.pt"), M)
+    M2, _ = checkpoint.load_pytree(str(tmp_path / "ilu.pt"))
+    assert M2._graph is None
+    assert torch.equal(M2(r), z) and M2._graph is not None
+
+    lmvu = harness.compute_lmvu(63, 10)
+    for name, A, b in (harness.generated_problems((24,), ())
+                       + harness.corpus_problems(24)[-4:-3]):
+        card = harness.score_problem(name, A, b,
+                                     harness._solver_factory("amg"), lmvu)
+        cpu = harness.score_problem(name, A, b, harness._solver_factory(
+            "amg", device="cpu"), lmvu)
+        assert card.converged and cpu.converged
+        assert abs(card.iters - cpu.iters) <= 2, (name, card, cpu)
+
+
+@pytest.mark.cuda
+def test_gs_sweeps_on_the_card_are_bit_equal_to_the_cpu():
+    """Rows of up to 8 entries sum left to right on every device, so on
+    the f32 RS hierarchy the harness's f32 mode builds, every such color's
+    row sums, and a GS sweep each way on every level whose colors are all
+    that narrow (the fine level's 4 entries among them), are bit-equal on
+    the card and on the CPU; wider colors' row sums differ by no more than
+    the forward-error bound of any summation order."""
+    _need_cuda()
+    from faspsolver_tpu_torch.precond.amg import setup_rs, smoothers
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    from faspsolver_tpu_torch.utils.params import AMGParam
+    hier = setup_rs(poisson_2d(127), AMGParam(), dtype=torch.float32,
+                    device="cpu")
+    card = setup_rs(poisson_2d(127), AMGParam(), dtype=torch.float32,
+                    device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    narrow_levels = 0
+    for lc, ld in zip(hier.levels, card.levels):
+        if lc.smoother is None:
+            continue
+        n = lc.A.shape[0]
+        x, b = torch.randn(n, generator=gen), torch.randn(n, generator=gen)
+        widths = set()
+        for cc, cd in zip(lc.smoother.colors, ld.smoother.colors):
+            k = cc.cols.shape[1]
+            widths.add(k)
+            got, want = cd.offdiag(x.cuda()).cpu(), cc.offdiag(x)
+            if k <= smoothers._ORDERED_WIDTH:
+                assert torch.equal(got, want)
+            else:                      # the forward-error bound k u sum|p|
+                g = x.index_select(0, cc.cols.reshape(-1)).reshape(
+                    cc.cols.shape)
+                bound = k * 2.0 ** -24 * (cc.vals * g).abs().sum(dim=1)
+                assert bool(((got - want).abs() <= bound).all())
+        if max(widths) > smoothers._ORDERED_WIDTH:
+            continue
+        narrow_levels += 1
+        for forward in (True, False):
+            got = smoothers.smooth(ld.smoother, ld.A, x.cuda(), b.cuda(), 1,
+                                   forward)
+            want = smoothers.smooth(lc.smoother, lc.A, x, b, 1, forward)
+            assert torch.equal(got.cpu(), want)
+    assert narrow_levels >= 1

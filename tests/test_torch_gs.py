@@ -4,7 +4,9 @@ Both packages color through the same native ``greedy_color``, so the
 colorings are equal; the color blocks (rows, columns, values, inverse
 diagonals) are equal arrays, and one forward or backward sweep of every
 GS-family kind, plain or C/F ordered, agrees to 1e-13 (normwise
-relative, f64; the row sums of a color run in another order).  Also the
+relative, f64).  A row of up to 8 entries sums left to right, as the
+JAX package's sum does on the CPU, so on such rows the GS sweeps are
+bit-equal to JAX's in f32 and f64.  Also the
 two repairs this family needed: ``CSRMatrix.multicolor`` takes the
 native coloring, and ``setup_rs`` passes the C/F marker when
 ``smooth_order`` is 1, as the JAX package does."""
@@ -145,6 +147,52 @@ def test_gs_sweeps_match_jax(fe_case, kind, cf):
         assert np.linalg.norm(got - want) <= 1e-13 * np.linalg.norm(want)
     # the sweep never writes into the caller's iterate
     np.testing.assert_array_equal(xt.numpy(), x)
+
+
+def _nine_point(m):
+    """The 9-point Laplacian on an m x m grid: rows of up to 8 entries
+    off the diagonal."""
+    t = sp.diags([1.0, 1.0, 1.0], [-1, 0, 1], shape=(m, m))
+    a = -sp.kron(t, t) + 9.0 * sp.identity(m * m)
+    return CSRMatrix.from_scipy(a.tocsr())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gs_row_sums_add_in_the_jax_order(dtype):
+    """Rows of up to 8 entries sum left to right, bit-equal to the JAX
+    package's sum (``torch.sum`` on the CPU adds 5-7 entries in another
+    order); wider rows take ``torch.sum``.  GS and SOR sweeps each way on
+    the 9-point Laplacian are bit-equal to JAX's."""
+    dt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    rng = np.random.default_rng(7)
+    for k in range(1, 9):
+        p = rng.standard_normal((300, k)).astype(dtype)
+        got = smoothers.row_sum(torch.from_numpy(p))
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(jnp.sum(jnp.asarray(p),
+                                                         axis=1)))
+        seq = p[:, 0].copy()
+        for j in range(1, k):
+            seq += p[:, j]
+        np.testing.assert_array_equal(got.numpy(), seq)
+    wide = torch.from_numpy(rng.standard_normal((300, 20)).astype(dtype))
+    assert torch.equal(smoothers.row_sum(wide), wide.sum(dim=1))
+
+    A = _nine_point(24)
+    x, b = rng.standard_normal(A.nrow), rng.standard_normal(A.nrow)
+    xt, bt = torch.from_numpy(x).to(dt), torch.from_numpy(b).to(dt)
+    xj, bj = jnp.asarray(x, jdt), jnp.asarray(b, jdt)
+    for kind in ("GS", "SOR"):
+        k = int(SmootherType[kind])
+        sm = smoothers.build_smoother(A, k, relax=1.1, dtype=dt)
+        ref = jax_sm.build_smoother(_j(A), k, relax=1.1, dtype=jdt)
+        assert {c.cols.shape[1] for c in sm.colors} == {8}
+        op = device_operator(A, dtype=dt)
+        jop = jax_device_operator(_j(A), dtype=jdt)
+        for forward in (True, False):
+            np.testing.assert_array_equal(
+                smoothers.smooth(sm, op, xt, bt, 1, forward).numpy(),
+                np.asarray(jax_sm.smooth(ref, jop, xj, bj, 1, forward)))
 
 
 def test_kaczmarz_sweep_matches_jax(fe_case):

@@ -14,6 +14,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "faspsolver_tpu_torch",
     "faspsolver_tpu_torch.__main__",
+    "faspsolver_tpu_torch.benchmark",
+    "faspsolver_tpu_torch.benchmark.__main__",
+    "faspsolver_tpu_torch.benchmark.harness",
     "faspsolver_tpu_torch.capi",
     "faspsolver_tpu_torch.constants",
     "faspsolver_tpu_torch.convert",
@@ -72,9 +75,11 @@ MODULES = [
     "faspsolver_tpu_torch.testgen.structural",
     "faspsolver_tpu_torch.utils",
     "faspsolver_tpu_torch.utils.build",
+    "faspsolver_tpu_torch.utils.checkpoint",
     "faspsolver_tpu_torch.utils.graphics",
     "faspsolver_tpu_torch.utils.messages",
     "faspsolver_tpu_torch.utils.params",
+    "faspsolver_tpu_torch.utils.profiling",
 ]
 
 
