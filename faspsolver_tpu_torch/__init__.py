@@ -25,6 +25,8 @@ the host and returns the hierarchy there, to be moved in one call with
 """
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
@@ -44,6 +46,14 @@ def default_device() -> torch.device:
     raise RuntimeError(
         "no CUDA device is available; pass device=\"cpu\" (CLI: -device "
         "cpu) to run on the CPU")
+
+
+def is_dtensor(x) -> bool:
+    """Whether x is a ``torch.distributed.tensor.DTensor`` (a vector of
+    the distribution layer, ``faspsolver_tpu_torch.parallel``); false
+    without importing the DTensor module when nothing has loaded it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def torch_dtype(dtype) -> torch.dtype:

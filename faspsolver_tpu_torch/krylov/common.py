@@ -5,6 +5,9 @@ Reference: base/src/KryUtil.inl (ITS_* macros) and the identical
 safeguard blocks replicated in every Kry*.c file.  The residual norm is
 a device tensor; the eager solvers read it to the host, where the
 relative residuals and checks run on NumPy scalars of the working dtype.
+Vectors may be DTensors of the distribution layer (``parallel/``): the
+helpers below keep a dot product's scalar replicated, so the solvers run
+unchanged on sharded vectors.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .. import np_dtype
+from .. import is_dtensor, np_dtype
 from ..constants import StopType
 from .precond import IdentityPrecond
 
@@ -25,11 +28,47 @@ def resolve_precond(M) -> Callable:
     return IdentityPrecond() if M is None else M
 
 
+def replicated(s):
+    """A reduction's result as every rank's whole value: a DTensor dot of
+    two sharded vectors is a pending sum (``Partial``), which the next
+    product with a sharded vector would meet by gathering that vector;
+    summed once here (one all-reduce), it stays a scalar.  A plain tensor
+    passes through."""
+    if is_dtensor(s) and any(p.is_partial() for p in s.placements):
+        from torch.distributed.tensor import Replicate
+        return s.redistribute(s.device_mesh,
+                              [Replicate()] * s.device_mesh.ndim)
+    return s
+
+
+def dot(x, y) -> torch.Tensor:
+    """<x, y> as a 0-d tensor (replicated for DTensors)."""
+    return replicated(torch.dot(x, y))
+
+
+def zeros_rows(m: int, b) -> torch.Tensor:
+    """(m, len(b)) zeros laid out like b: a basis of m vectors, split by
+    column where b is a sharded DTensor."""
+    if is_dtensor(b):
+        return torch.stack([torch.zeros_like(b)] * m)
+    return torch.zeros((m, b.shape[0]), dtype=b.dtype, device=b.device)
+
+
+def like(v: torch.Tensor, b) -> torch.Tensor:
+    """A small host-computed tensor v on b's device, replicated over b's
+    mesh when b is a DTensor."""
+    if is_dtensor(b):
+        from torch.distributed.tensor import DTensor, Replicate
+        return DTensor.from_local(v.to(b.to_local().device), b.device_mesh,
+                                  [Replicate()], run_check=False)
+    return v.to(b.device)
+
+
 def abs_residual(stop_type: int, r, z) -> torch.Tensor:
     """Device 0-d tensor: sqrt|z.r| (REL_PRECRES) or ||r||_2."""
     if stop_type == StopType.REL_PRECRES:
-        return torch.sqrt(torch.abs(torch.dot(z, r)))
-    return torch.sqrt(torch.dot(r, r))
+        return torch.sqrt(torch.abs(dot(z, r)))
+    return torch.sqrt(dot(r, r))
 
 
 def residual_norms(stop_type: int, absres, normr0, normu):
@@ -68,4 +107,6 @@ class HostReads:
     def vec(self, v: torch.Tensor):
         """A 1-d tensor -> list of host scalars."""
         self.count += 1
+        if is_dtensor(v):
+            v = v.full_tensor()
         return [self.t(a) for a in v.tolist()]

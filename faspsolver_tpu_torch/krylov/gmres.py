@@ -17,8 +17,9 @@ import numpy as np
 import torch
 
 from ..constants import StopType
-from .common import (SMALLREAL, HostReads, abs_residual, initial_norms,
-                     residual_norms, resolve_precond)
+from .common import (SMALLREAL, HostReads, abs_residual, dot, initial_norms,
+                     like, replicated, residual_norms, resolve_precond,
+                     zeros_rows)
 from .result import SolveResult
 
 _CR_MAX = 0.99    # cos(8 deg)  (reference: KryPvgmres.c:79)
@@ -73,19 +74,17 @@ def _gmres(A, b, x0, M, tol, abstol, maxit, restart, stop_type,
     precres = stop_type == StopType.REL_PRECRES
     R = int(min(restart, maxit))
     if x0 is None:
-        x0 = torch.zeros(A.shape[0], dtype=b.dtype, device=b.device)
-    n = b.shape[0]
+        x0 = torch.zeros_like(b)
 
     x = x0
     r = b - A(x0)
     absres0, xx, r_norm = host(abs_residual(stop_type, r, M(r)),
-                               torch.dot(x0, x0), torch.sqrt(torch.dot(r, r)))
+                               dot(x0, x0), torch.sqrt(dot(r, r)))
     absres0, normr0, _, relres = initial_norms(stop_type, absres0, xx)
     done = bool(relres < tol) or bool(absres0 < abstol)
 
-    V = torch.zeros((R + 1, n), dtype=b.dtype, device=b.device)
-    Z = torch.zeros((R, n), dtype=b.dtype, device=b.device) \
-        if flexible else None
+    V = zeros_rows(R + 1, b)
+    Z = zeros_rows(R, b) if flexible else None
     it, cycles, cur, status = 0, 0, R, 0
     stag, stag_best = 0, relres
     best_x, best_relres = x0, relres
@@ -105,11 +104,11 @@ def _gmres(A, b, x0, M, tol, abstol, maxit, restart, stop_type,
             if flexible:
                 Z[j] = z
             Vj = V[:j + 1]
-            h1 = Vj @ w
+            h1 = replicated(Vj @ w)
             w = w - h1 @ Vj
-            h2 = Vj @ w
+            h2 = replicated(Vj @ w)
             w = w - h2 @ Vj
-            hn_t = torch.sqrt(torch.dot(w, w))
+            hn_t = torch.sqrt(dot(w, w))
             *h, hn = host.vec(torch.cat([h1 + h2, hn_t.reshape(1)]))
             happy = hn <= happy_tol
             V[j + 1] = w * (t(0.0) if happy else t(1.0) / hn)
@@ -137,10 +136,10 @@ def _gmres(A, b, x0, M, tol, abstol, maxit, restart, stop_type,
 
         # least squares: the j x j upper-triangular system
         if j:
-            y = torch.linalg.solve_triangular(
+            y = like(torch.linalg.solve_triangular(
                 torch.from_numpy(H[:j, :j].copy()),
                 torch.from_numpy(g[:j].copy())[:, None],
-                upper=True)[:, 0].to(b.device)
+                upper=True)[:, 0], b)
             x = x + (y @ Z[:j] if flexible else M(y @ V[:j]))
         it += j
 
@@ -148,9 +147,9 @@ def _gmres(A, b, x0, M, tol, abstol, maxit, restart, stop_type,
         r = b - A(x)
         z = M(r) if precres else r
         r_norm_old = r_norm
-        r_norm, absres, xx = host(torch.sqrt(torch.dot(r, r)),
+        r_norm, absres, xx = host(torch.sqrt(dot(r, r)),
                                   abs_residual(stop_type, r, z),
-                                  torch.dot(x, x))
+                                  dot(x, x))
         normu_new = max(small, np.sqrt(xx))
         absres, relres = residual_norms(stop_type, absres, normr0, normu_new)
         if adaptive:

@@ -27,7 +27,7 @@ import torch
 from ..constants import (ERROR_SOLVER_MISC, ERROR_SOLVER_SOLSTAG,
                          ERROR_SOLVER_STAG, ERROR_SOLVER_TOLSMALL, MAX_RESTART,
                          MAX_STAG, STAG_RATIO, StopType)
-from .common import (SMALLREAL, SMALLREAL2, HostReads, abs_residual,
+from .common import (SMALLREAL, SMALLREAL2, HostReads, abs_residual, dot,
                      initial_norms, residual_norms, resolve_precond)
 from .result import SolveResult
 
@@ -51,23 +51,23 @@ def pcg(A, b, x0=None, M=None, *, tol: float = 1e-6, abstol: float = 1e-18,
     small, small2, slow = t(SMALLREAL), t(SMALLREAL2), t(0.9)
     precres = stop_type == StopType.REL_PRECRES
     if x0 is None:
-        x0 = torch.zeros(A.shape[0], dtype=b.dtype, device=b.device)
+        x0 = torch.zeros_like(b)
 
     x = x0
     r = b - A(x0)
     z = M(r)
     absres0, normr0, normu, relres = initial_norms(
-        stop_type, *host(abs_residual(stop_type, r, z), torch.dot(x, x)))
+        stop_type, *host(abs_residual(stop_type, r, z), dot(x, x)))
     done = bool(relres < tol) or bool(absres0 < abstol)
     p = z
-    temp1 = torch.dot(z, r)
+    temp1 = dot(z, r)
     it, stag, more, status = 0, 1, 1, 0
     best_x, best_absres = x0, absres0
 
     while not done and it < maxit:
         it += 1
         tp = A(p)
-        temp2 = torch.dot(tp, p)
+        temp2 = dot(tp, p)
         bd = temp2.abs() <= SMALLREAL2
         # on breakdown leave the iterate untouched (reference breaks first)
         alpha = torch.where(bd, torch.zeros_like(temp2),
@@ -79,7 +79,7 @@ def pcg(A, b, x0=None, M=None, *, tol: float = 1e-6, abstol: float = 1e-18,
             z = M(r)
         (temp2_h, alpha_h, absres, normuinf, xx, pp) = host(
             temp2, alpha, abs_residual(stop_type, r, z),
-            torch.max(torch.abs(x)), torch.dot(x, x), torch.dot(p, p))
+            torch.max(torch.abs(x)), dot(x, x), dot(p, p))
         absres, relres = residual_norms(stop_type, absres, normr0, normu)
         breakdown = abs(temp2_h) <= small2
         factor = absres / absres0
@@ -114,7 +114,7 @@ def pcg(A, b, x0=None, M=None, *, tol: float = 1e-6, abstol: float = 1e-18,
         # ---- prepare next direction ----
         if not precres:
             z = M(r)
-        temp2n = torch.dot(z, r)
+        temp2n = dot(z, r)
         p = z + (temp2n / temp1) * p
         temp1 = temp2n
 

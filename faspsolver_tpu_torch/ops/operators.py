@@ -9,7 +9,10 @@ BsrEllOperator, and MatFreeOperator over any callable.  Arrays are registered
 buffers, so ``.to(device)`` on any enclosing module moves them.  Every
 2-D stencil apply with offsets in {-1, 0, 1}^2 goes through
 ``ops/stencil2d.py``: the CUDA kernel for CUDA tensors, its plain PyTorch
-version for CPU tensors.  The other operators are plain PyTorch.
+version for CPU tensors.  The other operators are plain PyTorch.  The
+DIA, stencil, ELL and block-ELL operators also take a row-split DTensor
+vector of the distribution layer and apply as ``parallel/`` sets out
+(halo exchange for the banded ones, a gathered x for ELL and BSR).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import as_tensor, np_dtype, torch_dtype
+from .. import as_tensor, is_dtensor, np_dtype, torch_dtype
 from ..formats import BSRMatrix, CSRMatrix
 from .stencil2d import (ROW_BROADCAST, ROW_INDEXED, Band2d, StencilPlan,
                         full_band, kernel_covers)
@@ -59,6 +62,13 @@ class DiaOperator(nn.Module):
         return self.bands.dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(x):
+            # row-split: the halo from the neighbouring ranks
+            from ..parallel.comm import local_rows
+            from ..parallel.halo import halo_dia_apply
+            mesh = x.device_mesh
+            return halo_dia_apply(local_rows(self.bands, mesh, 1),
+                                  self.offsets, x, mesh, self.n)
         n = self.n
         pad = max(max(abs(o) for o in self.offsets), 1)
         xp = F.pad(x, (pad, pad))
@@ -298,6 +308,10 @@ class StencilNdOperator(nn.Module):
         return self._plan
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(x):
+            # row-split: the kernel on the local rows and their halo
+            from ..parallel.dist_dia import stencil_apply
+            return stencil_apply(self, x)
         if self._kernel:
             return self.plan()(x)
         # Stencils the 2-D kernel does not cover — 3-D grids, offsets
@@ -447,6 +461,9 @@ class EllOperator(nn.Module):
         return self.vals.dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(x):
+            from ..parallel.pcsr import ell_apply
+            return ell_apply(self, x)
         g = x.index_select(0, self.cols.reshape(-1)).reshape(self.cols.shape)
         return (self.vals * g).sum(dim=1)[:self.n]
 
@@ -534,6 +551,9 @@ class BsrEllOperator(nn.Module):
         return self.blocks.dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(x):
+            from ..parallel.pcsr import bsr_apply
+            return bsr_apply(self, x)
         return block_ell_apply(self.blocks, self.cols,
                                x.reshape(self.nbcol, self.nb)).reshape(-1)
 

@@ -64,8 +64,9 @@ def _cycle(hier: AMGHierarchy, l: int, b, x):
     r = b - lvl.A(x)
     rc = lvl.R(r)
 
-    ec = torch.zeros(levels[l + 1].A.shape[0], dtype=b.dtype,
-                     device=b.device)
+    # laid out like the restricted residual (sharded or whole, when the
+    # hierarchy is distributed: parallel.shard_hierarchy)
+    ec = torch.zeros_like(rc)
     for _ in range(_visits(hier.cycle_type, l)):
         ec = _cycle(hier, l + 1, rc, ec)
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import is_dtensor
 from .amg.cycles import cycle_fn, fmg_cycle, mgcycle
 from .amg.hierarchy import AMGHierarchy
 
@@ -23,11 +24,27 @@ class AMGPrecond(nn.Module):
         self.maxit = int(maxit)
 
     def forward(self, r: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(r) and not sharded_fine(self.hier):
+            # a sharded vector meets a replicated hierarchy (every rank
+            # holds all of it: parallel.replicate): gather r, cycle on the
+            # whole vector on every rank, keep this rank's part
+            from ..parallel.pcsr import on_whole
+            return on_whole(self._cycles, r)
+        return self._cycles(r)
+
+    def _cycles(self, r: torch.Tensor) -> torch.Tensor:
         cycle = cycle_fn(self.hier.cycle_type)
         z = None
         for _ in range(self.maxit):
             z = cycle(self.hier, r, z)
         return z
+
+
+def sharded_fine(hier) -> bool:
+    """Whether a hierarchy's finest level takes sharded vectors
+    (``parallel.shard_hierarchy`` records each level's layout)."""
+    placed = getattr(hier, "sharded_levels", ())
+    return bool(placed and placed[0])
 
 
 class AMGNKPrecond(nn.Module):

@@ -16,6 +16,12 @@ anchors the port is held to on the card).
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f64
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f32
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness corpus f64
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py regression core
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py regression mm
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py regression bsr
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py regression matfree
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py parallel 1023
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py gcg-floor
 
 ``small`` (the default) prints the count of every ``chip_smoke.SMALL_GRID``
 config on poisson_fe_manufactured(64) (3,969 dof), ``leftover`` those of
@@ -35,6 +41,13 @@ at nx^2, BSR on ``bsr_problem()``).  ``matfree <tol>`` prints
 ``matfree <tol> cuda`` the port's on the CUDA device without JAX.
 ``harness gen|corpus f64|f32`` runs the JAX package's benchmark harness
 (phase 11's anchors) and imports nothing of the port.
+``regression core|mm|bsr|matfree`` runs the JAX package's regression
+runner (``run_matrix``) over ``chip_smoke.regression_problems`` and
+prints every row as phase 12's ``REGRESSION_ANCHORS`` holds it;
+``parallel <nx>`` prints the JAX package's one-device counts of phase
+13's solves (``chip_smoke.PARALLEL_RUNS``) at nx^2 (and 64^3 blocks);
+``gcg-floor`` the MatrixMarket grid's GCG rows jitted and as an eager
+JAX loop (``chip_smoke.REGRESSION_FLOOR``).
 ``tests/test_torch_drivers.py`` runs the port's side with :func:`run`.
 Not collected by pytest (no ``test_`` prefix).
 """
@@ -378,6 +391,125 @@ def _harness(kind: str, precision: str):
     print("reference anomalies:", chip_smoke.reference_anomalies(table))
 
 
+def jax_regression_problems(keys):
+    """chip_smoke.regression_problems with the JAX package's containers."""
+    return [(name, _to_jax(A), b, sol)
+            for name, A, b, sol in chip_smoke.regression_problems(keys)]
+
+
+def _regression(kind: str):
+    from faspsolver_tpu.regression import runner
+    cfg_fn, keys = chip_smoke.REGRESSION_SETS[kind]
+    t0 = time.perf_counter()
+    res = runner.run_matrix(getattr(runner, cfg_fn)(),
+                            jax_regression_problems(keys))
+    for r in res:
+        print(f"    ({r.problem!r}, {r.name!r}): ({r.iters}, {r.ok}, "
+              f"{r.extra!r}),", flush=True)
+    print(f"# {len(res)} rows, {time.perf_counter() - t0:.1f} s")
+
+
+def _jax_param(port_param):
+    from faspsolver_tpu.utils.params import AMGParam
+    return AMGParam(**vars(port_param))
+
+
+def _parallel(nx: int):
+    """The JAX package's one-device counts of phase 13's solves."""
+    import jax.numpy as jnp
+    from faspsolver_tpu.constants import AMGType, SmootherType
+    from faspsolver_tpu.krylov import JacobiPrecond, pcg, vfgmres
+    from faspsolver_tpu.ops import device_operator
+    from faspsolver_tpu.precond import AMGPrecond
+    from faspsolver_tpu.precond.amg import setup_rs, setup_structured
+    from faspsolver_tpu.precond.amg.setup_bsr import setup_ua_bsr
+    from faspsolver_tpu.utils.params import AMGParam
+    from faspsolver_tpu_torch.testgen import block_poisson_3d, poisson_2d
+    runs = chip_smoke.PARALLEL_RUNS
+    A = poisson_2d(nx)
+    Aj = _to_jax(A)
+    b = jnp.asarray(A.matvec(np.ones(A.nrow)))
+
+    def show(key, res, t0):
+        print(f"    {key!r}: {int(res.iters)},  # converged "
+              f"{bool(res.converged)}, relres {float(res.relres):.3e}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    show("a", pcg(device_operator(Aj, prefer="ell"), b, M=JacobiPrecond(
+        jnp.asarray(1.0 / A.diagonal())), **runs["a"]), t0)
+    t0 = time.perf_counter()
+    h = setup_structured(Aj, _jax_param(chip_smoke.headline_param()),
+                         smooth_p=True)
+    show("b", pcg(device_operator(Aj, prefer="dia"), b, M=AMGPrecond(h),
+                  **runs["b"]), t0)
+    t0 = time.perf_counter()
+    hr = setup_rs(Aj, AMGParam(smoother=int(SmootherType.CHEBYSHEV),
+                               polynomial_degree=2, coarse_dof=60))
+    show("d", pcg(hr.levels[0].A, b, M=AMGPrecond(hr), **runs["d"]), t0)
+    t0 = time.perf_counter()
+    Ab = block_poisson_3d(chip_smoke.PAR_BSR_NX, nb=3)
+    Abj = _to_jax(Ab)
+    hb = setup_ua_bsr(Abj, AMGParam(AMG_type=int(AMGType.UA),
+                                    coarse_dof=30))
+    show("e", vfgmres(device_operator(Abj), jnp.asarray(
+        Ab.matvec(np.ones(Ab.nrow))), M=AMGPrecond(hb), **runs["e"]), t0)
+
+
+def _gcg_floor():
+    """The mm set's GCG rows through the JAX package twice: its jitted
+    gcg, and the same arithmetic as an eager JAX loop (op by op, no
+    fusion).  Where the two counts part by more than the row's allowance
+    the JAX package disagrees with itself: the count at tol 1e-15 is set
+    by rounding (chip_smoke.REGRESSION_FLOOR)."""
+    import jax.numpy as jnp
+    from faspsolver_tpu.krylov import JacobiPrecond, gcg
+    from faspsolver_tpu.ops import device_operator
+    from faspsolver_tpu.precond import AMGPrecond, setup_ilu
+    from faspsolver_tpu.precond.amg import setup_rs
+    from faspsolver_tpu.utils.params import AMGParam, ILUParam
+    # mm_configs' preconditioner families (runner.py:331-342)
+    fams = {"": lambda A: None, " + diag": JacobiPrecond.from_csr,
+            " + ILUk": lambda A: setup_ilu(A, ILUParam(ILU_type=1,
+                                                       ILU_lfil=2)),
+            " + ILUt": lambda A: setup_ilu(A, ILUParam(ILU_type=2,
+                                                       ILU_droptol=1e-3)),
+            " + ILUtp": lambda A: setup_ilu(A, ILUParam(
+                ILU_type=3, ILU_droptol=1e-3, ILU_permtol=0.01)),
+            " + AMG": lambda A: AMGPrecond(setup_rs(A, AMGParam()))}
+
+    def eager(op, b, M, tol=1e-15, maxit=100):
+        n = b.shape[0]
+        x = jnp.zeros_like(b)
+        r = b - op(x)
+        normr0 = jnp.sqrt(r @ r)
+        P, Q = jnp.zeros((maxit, n)), jnp.zeros((maxit, n))
+        for j in range(maxit):
+            p = M(r) if M is not None else r
+            q = op(p)
+            mask = (jnp.arange(maxit) < j).astype(b.dtype)
+            for _ in range(2):
+                h = (Q @ q) * mask
+                p, q = p - h @ P, q - h @ Q
+            qn = jnp.sqrt(q @ q)
+            p, q = p / qn, q / qn
+            a = q @ r
+            x, r = x + a * p, r - a * q
+            P, Q = P.at[j].set(p), Q.at[j].set(q)
+            if float(jnp.sqrt(r @ r) / normr0) < tol:
+                return j + 1
+        return maxit
+
+    for name, A, b, _ in jax_regression_problems(("plate", "shell")):
+        op = device_operator(A, prefer="ell")
+        for fam, build in fams.items():
+            M = build(A)
+            jit = int(gcg(op, jnp.asarray(b), M=M, tol=1e-15,
+                          maxit=100).iters)
+            print(f"    ({name!r}, {'GCG' + fam!r}): ({jit}, "
+                  f"{eager(op, jnp.asarray(b), M)}),", flush=True)
+
+
 def _main(argv):
     if argv[:1] == ["matfree"] and argv[2:] == ["cuda"]:
         _matfree(float(argv[1]), "cuda")        # the port alone, no JAX
@@ -391,6 +523,15 @@ def _main(argv):
     from native_parity import ensure_native
     ensure_native()
     mode = argv[0] if argv else "small"
+    if mode == "regression":
+        _regression(argv[1])
+        return
+    if mode == "gcg-floor":
+        _gcg_floor()
+        return
+    if mode == "parallel":
+        _parallel(int(argv[1]))
+        return
     if mode == "cli":
         from faspsolver_tpu.__main__ import main
         ini = chip_smoke.ini_with("ini/input.dat", dict(

@@ -43,6 +43,12 @@ MODULES = [
     "faspsolver_tpu_torch.ops.operators",
     "faspsolver_tpu_torch.ops.stencil2d",
     "faspsolver_tpu_torch.ops.str_ops",
+    "faspsolver_tpu_torch.parallel",
+    "faspsolver_tpu_torch.parallel.comm",
+    "faspsolver_tpu_torch.parallel.dist_dia",
+    "faspsolver_tpu_torch.parallel.dryrun",
+    "faspsolver_tpu_torch.parallel.halo",
+    "faspsolver_tpu_torch.parallel.pcsr",
     "faspsolver_tpu_torch.precond",
     "faspsolver_tpu_torch.precond.amg",
     "faspsolver_tpu_torch.precond.amg.aggregation",
@@ -66,6 +72,9 @@ MODULES = [
     "faspsolver_tpu_torch.precond.preconditioners",
     "faspsolver_tpu_torch.precond.schwarz",
     "faspsolver_tpu_torch.precond.str_precond",
+    "faspsolver_tpu_torch.regression",
+    "faspsolver_tpu_torch.regression.__main__",
+    "faspsolver_tpu_torch.regression.runner",
     "faspsolver_tpu_torch.solvers",
     "faspsolver_tpu_torch.solvers.drivers",
     "faspsolver_tpu_torch.solvers.refine",
@@ -97,6 +106,19 @@ def test_port_imports_without_jax():
     loaded along the way."""
     _run("import importlib, sys\n"
          f"for m in {MODULES!r}: importlib.import_module(m)\n"
+         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+         " or m == 'faspsolver_tpu' or m.startswith('faspsolver_tpu.')]\n"
+         "assert not bad, bad\n")
+
+
+def test_spawned_test_ranks_import_no_jax():
+    """The module whose functions tests/test_torch_parallel.py spawns as
+    ranks (a spawned rank re-imports it) loads neither jax nor the JAX
+    package, nor does the rank body's import of the port."""
+    _run("import sys\n"
+         "sys.path.insert(0, 'tests')\n"
+         "import torch_dist_worker\n"
+         "import faspsolver_tpu_torch.parallel.dryrun\n"
          "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
          " or m == 'faspsolver_tpu' or m.startswith('faspsolver_tpu.')]\n"
          "assert not bad, bad\n")

@@ -177,7 +177,8 @@ def _public(pkg) -> set:
 
 # the port's own device and dtype helpers (the JAX package follows
 # jax_enable_x64 and its ambient device instead)
-PORT_HELPERS = {"default_device", "torch_dtype", "np_dtype", "as_tensor"}
+PORT_HELPERS = {"default_device", "torch_dtype", "np_dtype", "as_tensor",
+                "is_dtensor"}
 
 
 def test_top_level_names_equal_jax():
