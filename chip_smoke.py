@@ -113,9 +113,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    world size 1 (NCCL takes one rank per card); the multi-rank exchange
    is held on four gloo CPU ranks by tests/test_torch_parallel.py.
 
-Phases 4, 6 and 7 run each solve once to warm up, then time it with the
-kernel launch counts set to 0 just before it and read just after; both
-dtypes must have launched.  Phase 8 counts the launches of each CLI run
+On the card the PCG iterations, the AMG cycles and the refinement
+rounds' f64 stages replay from CUDA graphs captured at the first solve
+(``faspsolver_tpu_torch/utils/graphs.py``).  Phases 4, 6 and 7 run each
+solve twice: cold (the capture included) and warm, the timed one, each
+with the kernel launch counts and the graph counters set to 0 just
+before it and read just after: its seconds, graph replays and nodes,
+captures, capture seconds and graph MB, the memory reserved before and
+after, host syncs and launches; both dtypes must have launched, and
+every solve must have replayed graphs.  Phase 4 runs the headline once
+more as the eager loop (``graphs.eager()``) and holds its x bit-equal
+to the graphed solve's, with equal counts, syncs and launches; phase 8
+times each ini file's Krylov solve cold and warm the same way.  Phase 8 counts the launches of each CLI run
 (setup and solve) and of each timed solve; input.dat's must include the
 f64 kernel; phases 9 and 10 count the launches of each solve, and the
 ILU and Schwarz solves of phase 9 and the MatFree solve of phase 10 must
@@ -1176,42 +1185,105 @@ def print_hierarchy(hier):
           f"{describe(hier.fine64)}")
 
 
-def drive(torch, device, A, b, hier, refine, anchor, profile=False):
-    """Warm-up solve, then the timed solve with the launch counts set to 0
-    just before it and read just after; verified on the host in f64."""
-    import numpy as np
+def graph_stats():
+    """The graph layer's counters (utils/graphs.py), graph MB rounded."""
+    from faspsolver_tpu_torch.utils import graphs
+    st = dict(graphs.stats)
+    st["graph_mb"] = round(st.pop("graph_bytes") / 2**20, 1)
+    st["capture_s"] = round(st["capture_s"], 4)
+    return st
+
+
+def timed_solve(torch, device, fn):
+    """``fn()`` -> (result, x on the host) timed from the call to x on the
+    host, with the kernel launch counts and the graph counters set to 0
+    just before it and read just after, and the memory the allocator
+    reserved before and after."""
     from faspsolver_tpu_torch.ops import stencil2d
-
-    # first solve: loads the kernel library, creates the cuBLAS handle of
-    # the coarse matmul — untimed warm-up
-    solve(torch, hier, torch.as_tensor(b, device=device), refine)
+    from faspsolver_tpu_torch.utils import graphs
     sync(torch, device)
-
+    cuda = torch.device(device).type == "cuda"
+    mem0 = torch.cuda.memory_reserved(device) if cuda else 0
     stencil2d.reset_launches()
+    graphs.reset_stats()
     t0 = time.perf_counter()
-    b64 = torch.as_tensor(b, device=device)
-    out = solve(torch, hier, b64, refine)
-    x = out.x.cpu().numpy()
-    solve_s = time.perf_counter() - t0
-    counts = launch_counts()
+    out = fn()
+    x = out.x.cpu().numpy() if hasattr(out.x, "cpu") else out.x
+    s = time.perf_counter() - t0
+    mem1 = torch.cuda.memory_reserved(device) if cuda else 0
+    return out, x, {"s": s, "launches": launch_counts(), **graph_stats(),
+                    "reserved_mb": [round(mem0 / 2**20, 1),
+                                    round(mem1 / 2**20, 1)]}
+
+
+def graph_line(tag, r):
+    return (f"  {tag} solve {r['s']:.4f} s: graph replays {r['replays']} "
+            f"({r['nodes_replayed']} nodes), captures {r['captures']} "
+            f"({r['nodes_captured']} nodes, {r['capture_s']:.3f} s, "
+            f"{r['graph_mb']} MB), reserved {r['reserved_mb'][0]} -> "
+            f"{r['reserved_mb'][1]} MB, stencil launches {r['launches']}")
+
+
+def check_graphed(torch, device, what, *runs):
+    """On the card every PCG + AMG solve replays graphs."""
+    if torch.device(device).type == "cuda":
+        for r in runs:
+            check(r["replays"] > 0, f"{what} replayed CUDA graphs: {r}")
+
+
+def drive(torch, device, A, b, hier, refine, anchor, profile=False,
+          eager_check=False):
+    """The cold solve (CUDA-graph capture included), then the timed warm
+    solve, verified on the host in f64; with ``eager_check`` the same
+    solve once more as the eager loop, held bit-equal to the graphed."""
+    import numpy as np
+    from faspsolver_tpu_torch.utils import graphs
+
+    def run():
+        return solve(torch, hier, torch.as_tensor(b, device=device), refine)
+
+    out, x_cold, cold = timed_solve(torch, device, run)
+    print(graph_line("cold", cold) + f"; rounds {out.rounds}, inner "
+          f"iterations {out.iters}, host syncs {out.syncs}")
+    out, x, warm = timed_solve(torch, device, run)
+    counts = warm["launches"]
+    solve_s = warm["s"]
 
     check(x.shape == (A.nrow,) and bool(np.isfinite(x).all()),
           "finite x of the expected shape")
     relres = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
-    print(f"  solve (b in, x on host) {solve_s:.3f} s; rounds {out.rounds} "
-          f"(JAX anchor {anchor.get('rounds', '-')}), inner iterations "
-          f"{out.iters} (anchor {anchor['inner_iters']}), verified f64 "
-          f"relres {relres:.3e} (anchor {anchor['relres']:.2e}), device "
-          f"relres {out.relres:.3e}, host syncs {out.syncs}")
-    print(f"  stencil-kernel launches during the solve: {counts}")
+    print(graph_line("warm", warm))
+    print(f"  warm solve (b in, x on host) {solve_s:.4f} s; rounds "
+          f"{out.rounds} (JAX anchor {anchor.get('rounds', '-')}), inner "
+          f"iterations {out.iters} (anchor {anchor['inner_iters']}), "
+          f"verified f64 relres {relres:.3e} (anchor "
+          f"{anchor['relres']:.2e}), device relres {out.relres:.3e}, host "
+          f"syncs {out.syncs}")
     if torch.device(device).type == "cuda":
         check(counts["float32"] > 0 and counts["float64"] > 0,
               f"the solve launched the kernel in f32 and f64: {counts}")
+    check_graphed(torch, device, "the solve", cold, warm)
     check(relres < TOL, f"verified relres {relres} < {TOL}")
+    res = {"solve_s": solve_s, "cold_solve_s": cold["s"],
+           "rounds": out.rounds, "inner_iters": out.iters, "relres": relres,
+           "syncs": out.syncs, "cold": cold, "warm": warm}
+    if eager_check:
+        with graphs.eager():
+            e_out, x_e, eager = timed_solve(torch, device, run)
+        same = x_e.tobytes() == x.tobytes()
+        print(f"  eager loop solve {eager['s']:.4f} s, rounds "
+              f"{e_out.rounds}, inner iterations {e_out.iters}, host syncs "
+              f"{e_out.syncs}, stencil launches {eager['launches']}; x "
+              f"bit-equal to the graphed solve's: {same}")
+        check(same and (e_out.rounds, e_out.iters, e_out.syncs)
+              == (out.rounds, out.iters, out.syncs)
+              and eager["launches"] == counts and eager["replays"] == 0,
+              "graphed and eager solves: bit-equal x, equal counts and "
+              "launches")
+        res["eager_solve_s"] = eager["s"]
     if profile:
-        profile_solve(torch, hier, b64, refine)
-    return counts, {"solve_s": solve_s, "rounds": out.rounds,
-                    "inner_iters": out.iters, "relres": relres}
+        profile_solve(torch, hier, torch.as_tensor(b, device=device), refine)
+    return counts, res
 
 
 def main_path(torch, device, profile=False, nx=NX):
@@ -1232,7 +1304,7 @@ def main_path(torch, device, profile=False, nx=NX):
     print(f"  poisson_2d({nx}) generated in {gen_s:.2f} s; setup (host + "
           f".to(cuda)) {setup_s:.3f} s")
     counts, res = drive(torch, device, A, A.matvec(np.ones(A.nrow)), hier,
-                        HEADLINE_REFINE, ANCHOR, profile)
+                        HEADLINE_REFINE, ANCHOR, profile, eager_check=True)
     return hier, counts, {"setup_s": setup_s, **res}
 
 
@@ -1379,14 +1451,16 @@ def setup_spies():
 
 
 def ini_setup_and_solve(torch, device, ini, A, b):
-    """The CLI's krylov_amg in its two steps, each timed: the AMG setup
+    """The CLI's krylov_amg in its steps, each timed: the AMG setup
     (host, then .to(device)), with the seconds it spent coloring (the
-    Gauss-Seidel blocks) and aggregating, and the preconditioned Krylov
-    solve (b in, x on the host), with its kernel launches."""
+    Gauss-Seidel blocks) and aggregating, the device operator's build,
+    and the preconditioned Krylov solve (b in, x on the host) twice over
+    the same operator and hierarchy: cold (CUDA-graph capture included)
+    and warm, each with its kernel launches and graph counters."""
     import numpy as np
     from faspsolver_tpu_torch.formats import CSRMatrix
     from faspsolver_tpu_torch.constants import AMGType
-    from faspsolver_tpu_torch.ops import stencil2d
+    from faspsolver_tpu_torch.ops import device_operator
     from faspsolver_tpu_torch.precond import AMGPrecond
     from faspsolver_tpu_torch.precond.amg import setup_rs, setup_sa, setup_ua
     from faspsolver_tpu_torch.solvers import itsolver
@@ -1405,21 +1479,29 @@ def ini_setup_and_solve(torch, device, ini, A, b):
         hier = setup(A, amg, dtype=torch.float64, device=device)
         sync(torch, device)
         setup_s = time.perf_counter() - t0
-    stencil2d.reset_launches()
     t0 = time.perf_counter()
-    res = itsolver(A, b, M=AMGPrecond(hier, amg.maxit), its=its,
-                   dtype=torch.float64, device=device)
-    x = res.x.cpu().numpy()
-    solve_s = time.perf_counter() - t0
-    counts = launch_counts()
+    op = device_operator(A, dtype=torch.float64).to(device)
+    sync(torch, device)
+    op_s = time.perf_counter() - t0
+
+    def run():
+        # a new preconditioner wrapper per solve, as the CLI makes one
+        return itsolver(op, b, M=AMGPrecond(hier, amg.maxit), its=its,
+                        dtype=torch.float64, device=device)
+
+    res, x, cold = timed_solve(torch, device, run)
+    cold.update(iters=res.iters, syncs=res.syncs)
+    res, x, warm = timed_solve(torch, device, run)
     relres = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
     levels = ", ".join(f"{type(l.A).__name__}({l.A.shape[0]})"
                        for l in hier.levels)
     return {"setup_s": setup_s, "color_s": spent["color_s"]["s"],
             "aggregate_s": (spent["aggregate_sa_s"]["s"]
                             + spent["aggregate_ua_s"]["s"]),
-            "solve_s": solve_s, "iters": res.iters, "relres": relres,
-            "syncs": res.syncs, "launches": counts, "levels": levels}
+            "operator_s": op_s, "solve_s": warm["s"],
+            "cold_solve_s": cold["s"], "iters": res.iters, "relres": relres,
+            "syncs": res.syncs, "launches": warm["launches"],
+            "levels": levels, "cold": cold, "warm": warm}
 
 
 def drivers_path(torch, device):
@@ -1456,10 +1538,13 @@ def drivers_path(torch, device):
                   f"{wall:.3f} s setup + solve, stencil launches "
                   f"{cli_counts}; timed again: setup {r['setup_s']:.3f} s "
                   f"(coloring {r['color_s']:.3f} s, aggregation "
-                  f"{r['aggregate_s']:.3f} s), solve {r['solve_s']:.3f} s, "
-                  f"{r['iters']} iterations, "
-                  f"relres {r['relres']:.3e}, host syncs {r['syncs']}, "
-                  f"launches {r['launches']}; levels {r['levels']}")
+                  f"{r['aggregate_s']:.3f} s), operator {r['operator_s']:.3f}"
+                  f" s, {r['iters']} iterations, relres {r['relres']:.3e}, "
+                  f"host syncs {r['syncs']}; levels {r['levels']}")
+            print(graph_line("  cold", r["cold"]) + f", {r['cold']['iters']}"
+                  f" iterations, host syncs {r['cold']['syncs']}")
+            print(graph_line("  warm", r["warm"]))
+            check_graphed(torch, device, ini, r["cold"], r["warm"])
             for it, rel in ((iters, relres), (r["iters"], r["relres"])):
                 check(rc == 0 and rel < TOL and abs(it - anchor) <= bound,
                       f"{ini}: converged within {bound} of {anchor}: "

@@ -90,11 +90,24 @@ def initial_norms(stop_type: int, absres0, xx0):
             residual_norms(stop_type, absres0, normr0, normu)[1])
 
 
+_pinned = {}
+
+
+def _pinned_like(v: torch.Tensor) -> torch.Tensor:
+    """A reused page-locked host buffer for v's values (grown on need)."""
+    buf = _pinned.get(v.dtype)
+    if buf is None or buf.numel() < v.numel():
+        buf = torch.empty(max(v.numel(), 64), dtype=v.dtype, pin_memory=True)
+        _pinned[v.dtype] = buf
+    return buf[:v.numel()]
+
+
 class HostReads:
     """Device-to-host reads of an eager solver loop, counted: each call
     reads several values in ONE transfer and returns them as NumPy
     scalars of the working dtype (the roundings of the JAX package's
-    traced scalar arithmetic)."""
+    traced scalar arithmetic).  From a CUDA device the transfer lands in
+    a reused page-locked buffer."""
 
     def __init__(self, dtype):
         self.t = np_dtype(dtype).type
@@ -109,4 +122,9 @@ class HostReads:
         self.count += 1
         if is_dtensor(v):
             v = v.full_tensor()
+        if v.device.type == "cuda":
+            host = _pinned_like(v)
+            host.copy_(v, non_blocking=True)
+            torch.cuda.current_stream(v.device).synchronize()
+            v = host
         return [self.t(a) for a in v.tolist()]

@@ -18,6 +18,11 @@ from ..ops.operators import block_diag_apply
 class IdentityPrecond(nn.Module):
     """No preconditioning (reference: precond_type NONE)."""
 
+    capturable = True
+
+    def graph_identity(self):
+        return None, ("IdentityPrecond",)     # holds nothing: one graph
+
     def forward(self, r: torch.Tensor) -> torch.Tensor:
         return r
 
@@ -25,6 +30,8 @@ class IdentityPrecond(nn.Module):
 class JacobiPrecond(nn.Module):
     """Diagonal (Jacobi) preconditioner (reference: fasp_precond_diag,
     PreCSR.c:172)."""
+
+    capturable = True       # no host read in the apply (utils/graphs.py)
 
     def __init__(self, dinv):
         super().__init__()

@@ -25,6 +25,7 @@ from torch import nn
 
 from .. import as_tensor, is_dtensor, np_dtype, torch_dtype
 from ..formats import BSRMatrix, CSRMatrix
+from ..utils.graphs import capturable
 from .stencil2d import (ROW_BROADCAST, ROW_INDEXED, Band2d, StencilPlan,
                         full_band, kernel_covers)
 
@@ -46,6 +47,8 @@ def full_precision_matmul() -> None:
 class DiaOperator(nn.Module):
     """Flat banded operator: ``bands[k, i] = A[i, i + offsets[k]]``; the
     apply is a sum of shifted multiplies over the zero-padded vector."""
+
+    capturable = True       # no host read in the apply (utils/graphs.py)
 
     def __init__(self, bands, offsets, n: int):
         super().__init__()
@@ -100,6 +103,8 @@ class DiaNdOperator(nn.Module):
     """Grid-aware banded operator with full (k, *dims) bands: shifts per
     axis, ``coords[k]`` the per-axis offset of band k (the value at grid
     point p multiplies x[p + coord]).  x stays flat outside."""
+
+    capturable = True       # no host read in the apply (utils/graphs.py)
 
     def __init__(self, bands, coords, dims):
         super().__init__()
@@ -246,6 +251,8 @@ class StencilNdOperator(nn.Module):
     through :class:`~.stencil2d.StencilPlan` (CUDA kernel on the card,
     plain version on the CPU)."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, bands, coords, dims):
         super().__init__()
         self.coords = tuple(tuple(int(v) for v in c) for c in coords)
@@ -355,6 +362,8 @@ class DenseOperator(nn.Module):
     """Dense operator for the coarsest AMG level: one matmul in full
     precision."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, mat, n: int):
         super().__init__()
         self.register_buffer("mat", _buf(mat))
@@ -444,6 +453,8 @@ class EllOperator(nn.Module):
     """Padded-ELL operator: rows padded to ``k`` slots (empty slots point
     at column 0 with value 0), ``n_pad >= n`` rows; the apply is one
     gather, a multiply and a row sum."""
+
+    capturable = True       # no host read in the apply (utils/graphs.py)
 
     def __init__(self, cols, vals, n: int, ncol: int):
         super().__init__()
@@ -581,6 +592,8 @@ class CooOperator(nn.Module):
     at row ``n``, which the apply drops.  On CUDA ``index_add_`` adds
     atomically, so float sums there are not deterministic."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, rows, cols, vals, n: int, ncol: int):
         super().__init__()
         self.register_buffer("rows", _buf(rows))
@@ -627,6 +640,8 @@ class ConstDiaOperator(nn.Module):
     Reference analog: the dSTRmat constant-stencil storage
     (fasp.h:316-348), without grid detection."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, consts, masks, offsets, n: int):
         super().__init__()
         self.register_buffer("consts", _buf(consts))      # (k,)
@@ -663,6 +678,10 @@ class ConstDiaOperator(nn.Module):
 class SumOperator(nn.Module):
     """Sum of operator parts of one shape (ConstDia + Dia pieces of one
     matrix), applied in order."""
+
+    @property
+    def capturable(self) -> bool:
+        return all(capturable(p) for p in self.parts)
 
     def __init__(self, parts):
         super().__init__()
@@ -721,6 +740,10 @@ class HybridDiaOperator(nn.Module):
     """Banded part + COO remainder: the mostly-banded matrices of
     classical-AMG coarse levels on grid problems (a few dominant
     diagonals and a thin irregular tail)."""
+
+    @property
+    def capturable(self) -> bool:
+        return capturable(self.dia) and capturable(self.rem)
 
     def __init__(self, dia, rem: CooOperator):
         super().__init__()

@@ -18,6 +18,7 @@ from torch import nn
 
 from ... import as_tensor, np_dtype
 from ...ops.operators import _buf, full_precision_matmul
+from ...utils.graphs import capturable
 
 
 class NearKernel(nn.Module):
@@ -27,6 +28,8 @@ class NearKernel(nn.Module):
     the level, (n, m), and ``Ainv`` = (B^T A B)^-1, (m, m), formed dense
     on the host.  The cycle applies x += B Ainv B^T (b - A x) after
     post-smoothing (PreMGCycle.c:369-391): two skinny dense products."""
+
+    capturable = True       # no host read in the apply (utils/graphs.py)
 
     def __init__(self, B, Ainv):
         super().__init__()
@@ -64,6 +67,8 @@ class CoarseSolver(nn.Module):
     ``Precision.HIGHEST`` (a ~3-digit coarse solve costs V-cycle
     iterations)."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, inv):
         super().__init__()
         self.register_buffer("inv", _buf(inv))
@@ -77,6 +82,10 @@ class IterativeCoarseSolver(nn.Module):
     """Jacobi-preconditioned CG, a fixed ``iters`` steps, for coarse
     levels too large to factor densely (reference: fasp_coarse_itsolver,
     PreMGUtil.inl:25).  Guards stay on the device (no host sync)."""
+
+    @property
+    def capturable(self) -> bool:
+        return capturable(self.A)
 
     def __init__(self, A, dinv, iters: int = 60):
         super().__init__()
@@ -162,3 +171,15 @@ class AMGHierarchy(nn.Module):
     @property
     def num_levels(self) -> int:
         return len(self.levels)
+
+    @property
+    def capturable(self) -> bool:
+        """Whether its cycles may be captured in a CUDA graph: no level
+        placed on a mesh (``parallel``), and every operator, transfer,
+        smoother and the coarse solver declaring it."""
+        if getattr(self, "sharded_levels", None):
+            return False
+        parts = [self.coarse]
+        for lvl in self.levels:
+            parts += [lvl.A, lvl.P, lvl.R, lvl.smoother, lvl.Asm, lvl.nk]
+        return all(p is None or capturable(p) for p in parts)

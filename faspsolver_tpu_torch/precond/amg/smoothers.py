@@ -30,6 +30,7 @@ from ... import as_tensor, np_dtype
 from ...constants import SmootherType
 from ...formats import CSRMatrix
 from ...utils import messages
+from ...utils.graphs import capturable
 
 _GS_KINDS = (SmootherType.GS, SmootherType.SGS, SmootherType.SOR,
              SmootherType.SSOR, SmootherType.GSOR, SmootherType.SGSOR,
@@ -107,6 +108,8 @@ class ColorBlock(nn.Module):
 class SmootherData(nn.Module):
     """What one level's sweeps need.  ``kind`` selects the sweep."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, kind: int, relax: float, nsweep_scale: int,
                  dinv=None, l1inv=None, lambda_max=None,
                  rb_masks: Sequence = (), colors: Sequence = ()):
@@ -139,6 +142,10 @@ class PrecondSmoother(nn.Module):
     smoothers on the finest AMG levels (ILU_levels / SWZ_levels,
     PreAMGSetupRS.c:131-155; cycle priority ILU > Schwarz > standard,
     PreMGCycle.c:100-133)."""
+
+    @property
+    def capturable(self) -> bool:
+        return capturable(self.M)
 
     def __init__(self, M):
         super().__init__()

@@ -28,6 +28,7 @@ from ... import as_tensor, default_dtype, np_dtype, torch_dtype
 from ...constants import SmootherType
 from ...formats import CSRMatrix
 from ...ops.operators import (DiaOperator, DenseOperator, dia_bands_from_csr)
+from ...utils.graphs import capturable
 from ...utils.params import AMGParam
 from .cycles import amli_fields
 from .hierarchy import (AMGHierarchy, AMGLevel, CoarseSolver,
@@ -167,6 +168,8 @@ def _prolong_once(xc, dims: Tuple[int, ...], ax: int, s: int):
 
 
 class _PairSteps(nn.Module):
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, steps, n_fine: int, n_coarse: int):
         super().__init__()
         self.steps = tuple((tuple(int(v) for v in dims), int(ax), int(s))
@@ -202,6 +205,10 @@ class PairProlong(_PairSteps):
 
 
 class _SmoothedTransfer(nn.Module):
+    @property
+    def capturable(self) -> bool:
+        return capturable(self.A) and capturable(self.base)
+
     def __init__(self, A, dinv, base, omega: float = 0.67):
         super().__init__()
         self.A = A                                  # the level's, shared

@@ -38,6 +38,8 @@ _MAX_BYTES_RATIO = 3.0    # bands cost at most this multiple of COO bytes
 class _AggTransfer(nn.Module):
     """A boolean transfer: ``agg[i]`` is fine dof i's aggregate."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, agg, n_fine: int, n_coarse: int):
         super().__init__()
         self.register_buffer("agg", _buf(agg))       # int32
@@ -112,6 +114,8 @@ class BlockAggRestrict(_BlockAggTransfer):
 class _CooTransfer(nn.Module):
     """P in COO form; pads point at row n_fine / column n_coarse."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, rows, cols, vals, n_fine: int, n_coarse: int):
         super().__init__()
         self.register_buffer("rows", _buf(rows))     # fine ids, int32
@@ -156,6 +160,8 @@ class _BandedTransfer(nn.Module):
     ``fpos[j] - i``; the kept shifts are bands ``w`` (or, in const mode,
     scalars ``wc`` times packed row masks ``wm``) and the rest a COO
     remainder."""
+
+    capturable = True       # no host read in the apply (utils/graphs.py)
 
     def __init__(self, fpos, w, rem_rows, rem_cols, rem_vals, shifts,
                  n_fine: int, n_coarse: int, has_rem: bool, wc=None,

@@ -19,9 +19,10 @@ The loop launches half a dozen small kernels per level, and a factor of a
 2-D grid has thousands of levels, so on a CUDA device the apply is bound
 by the rate at which the host can launch them.  There each
 preconditioner captures one apply (every level, static index tensors, no
-host read) in a CUDA graph at its first call and replays it afterwards:
-the results are those of the eager loop (``eager``), which CPU tensors
-always take.  A capture that fails raises.
+host read) in a CUDA graph at its first call and replays it afterwards
+(``utils.graphs.GraphedModule``): the results are those of the eager
+loop (``eager``), which CPU tensors always take.  A capture that fails
+raises.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from ..formats import CSRMatrix
 from ..ops.operators import (_buf, block_diag_apply, block_ell_apply,
                              block_ell_layout)
 from ..utils.errors import FaspError
+from ..utils.graphs import GraphedModule
 from ..utils.params import ILUParam
 
 
@@ -275,52 +277,7 @@ class TriangularSolver(_LevelBuffers):
                    zip(m_l, k_l), n)
 
 
-class _GraphedPrecond(nn.Module):
-    """A preconditioner whose apply is a long run of small launches with
-    static shapes and no host read: ``eager(r)`` is that run; on a CUDA
-    tensor ``forward`` replays it from a CUDA graph captured at the first
-    call for r's dtype and length (again after the module moved)."""
-
-    def __init__(self):
-        super().__init__()
-        self._graph = None
-
-    def _apply(self, fn, *args, **kwargs):
-        self._graph = None
-        return super()._apply(fn, *args, **kwargs)
-
-    def __getstate__(self):
-        # a copy captures its own graph: a CUDA graph cannot be copied
-        return dict(self.__dict__, _graph=None)
-
-    def eager(self, r: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError
-
-    def forward(self, r: torch.Tensor) -> torch.Tensor:
-        if r.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
-            return self.eager(r)
-        key = (r.dtype, r.shape, r.device)
-        if self._graph is None or self._graph[0] != key:
-            self._graph = (key, *self._capture(r))
-        _, graph, r_in, z_out = self._graph
-        r_in.copy_(r)
-        graph.replay()
-        return z_out.clone()
-
-    def _capture(self, r: torch.Tensor):
-        r_in = r.clone()
-        side = torch.cuda.Stream(device=r.device)
-        side.wait_stream(torch.cuda.current_stream(r.device))
-        with torch.cuda.stream(side):
-            self.eager(r_in)           # builds the level views, warms up
-        torch.cuda.current_stream(r.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            z_out = self.eager(r_in)
-        return graph, r_in, z_out
-
-
-class ILUPrecond(_GraphedPrecond):
+class ILUPrecond(GraphedModule):
     """z = U^-1 L^-1 r by level-scheduled solves (reference:
     fasp_precond_ilu, PreCSR.c:198).
 
@@ -410,7 +367,7 @@ class BlockTriangularSolver(_LevelBuffers):
         return x[:self.n]
 
 
-class BSRILUPrecond(_GraphedPrecond):
+class BSRILUPrecond(GraphedModule):
     """z = U^-1 L^-1 r with true nb x nb block ILU(0) factors, no CSR
     expansion (reference: fasp_ilu_dbsr_setup + fasp_precond_dbsr_ilu,
     BlaILUSetupBSR.c, PreBSR.c:347)."""

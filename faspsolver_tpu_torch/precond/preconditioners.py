@@ -3,6 +3,14 @@ layer (port of ``faspsolver_tpu/precond/preconditioners.py``).
 
 Reference: base/src/PreCSR.c (fasp_precond_amg :416 runs ``maxit``
 mgcycles; _amli :482; _namli :515; _famg :449; fasp_precond_amg_nk).
+
+On a CUDA vector the AMG and FMG preconditioners replay their cycles
+from a CUDA graph (``utils.graphs.GraphedModule``), kept by the
+hierarchy: every cycle type reads nothing back to the host.  They run
+eagerly where ``capturable`` is False — a hierarchy placed on a mesh, or
+one with a part that does not declare itself capturable (the BSR levels
+and block smoothers, MatFree operators, Schwarz smoothers) — and on
+DTensor vectors.
 """
 from __future__ import annotations
 
@@ -10,18 +18,31 @@ import torch
 from torch import nn
 
 from .. import is_dtensor
+from ..utils.graphs import GraphedModule
 from .amg.cycles import cycle_fn, fmg_cycle, mgcycle
 from .amg.hierarchy import AMGHierarchy
 
 
-class AMGPrecond(nn.Module):
-    """z = (approx A^{-1}) r via ``maxit`` multigrid cycles of the
-    hierarchy's cycle type (reference: fasp_precond_amg, PreCSR.c:416)."""
+class _CyclePrecond(GraphedModule):
+    """Cycles over a hierarchy; the graphs are the hierarchy's, so a new
+    wrapper of it replays them."""
 
     def __init__(self, hier: AMGHierarchy, maxit: int = 1):
         super().__init__()
         self.hier = hier
         self.maxit = int(maxit)
+
+    @property
+    def capturable(self) -> bool:
+        return self.hier.capturable
+
+    def graph_identity(self):
+        return self.hier, (type(self).__name__, self.maxit)
+
+
+class AMGPrecond(_CyclePrecond):
+    """z = (approx A^{-1}) r via ``maxit`` multigrid cycles of the
+    hierarchy's cycle type (reference: fasp_precond_amg, PreCSR.c:416)."""
 
     def forward(self, r: torch.Tensor) -> torch.Tensor:
         if is_dtensor(r) and not sharded_fine(self.hier):
@@ -29,10 +50,10 @@ class AMGPrecond(nn.Module):
             # holds all of it: parallel.replicate): gather r, cycle on the
             # whole vector on every rank, keep this rank's part
             from ..parallel.pcsr import on_whole
-            return on_whole(self._cycles, r)
-        return self._cycles(r)
+            return on_whole(self.eager, r)
+        return super().forward(r)
 
-    def _cycles(self, r: torch.Tensor) -> torch.Tensor:
+    def eager(self, r: torch.Tensor) -> torch.Tensor:
         cycle = cycle_fn(self.hier.cycle_type)
         z = None
         for _ in range(self.maxit):
@@ -67,16 +88,11 @@ class AMGNKPrecond(nn.Module):
         return z + self.nk @ coeffs
 
 
-class FMGPrecond(nn.Module):
+class FMGPrecond(_CyclePrecond):
     """Full-multigrid preconditioner: one FMG cycle, then ``maxit - 1``
     V-cycles (reference: fasp_precond_famg, PreCSR.c:449)."""
 
-    def __init__(self, hier: AMGHierarchy, maxit: int = 1):
-        super().__init__()
-        self.hier = hier
-        self.maxit = int(maxit)
-
-    def forward(self, r: torch.Tensor) -> torch.Tensor:
+    def eager(self, r: torch.Tensor) -> torch.Tensor:
         z = fmg_cycle(self.hier, r)
         for _ in range(self.maxit - 1):
             z = mgcycle(self.hier, r, z)

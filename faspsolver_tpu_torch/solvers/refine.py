@@ -9,9 +9,14 @@ behind an f64 operator.  In the resident form the outer loop computes
 f64 true residuals with the hierarchy's exact f64 fine operator and
 accumulates the f64 solution on the device; the inner solve is an f32
 AMG-PCG.  Each round multiplies the achieved
-accuracy, so 2-3 rounds of an inner 1e-5 solve reach 1e-10.  The loop is
-eager Python: one host read of the f64 relative residual per round (the
-inner PCG reads once per iteration), counted in ``syncs``.
+accuracy, so 2-3 rounds of an inner 1e-5 solve reach 1e-10.  The rounds
+are a Python loop: one host read of the f64 relative residual per round
+(the inner PCG reads once per iteration), counted in ``syncs``.  A
+round's f64 stages — the scale and the f32 residual before the inner
+solve, the update, the true residual and its norm after it — update
+static tensors in place; on a CUDA device, when the f64 operator
+declares itself capturable (``utils.graphs``), they replay from two CUDA
+graphs kept with that operator, as the inner PCG replays its own.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import torch
 
 from .. import default_device
 from ..formats import BSRMatrix, CSRMatrix
+from ..krylov.common import HostReads
+from ..utils import graphs
 
 
 @dataclass
@@ -159,32 +166,77 @@ def make_resident_refiner(op64, op32, M, *, tol: float = 1e-6,
     return run
 
 
+class _Rounds:
+    """The tensors a resident refinement updates in place, and, when
+    graphed, its two stage programs (kept with the f64 operator)."""
+
+    def __init__(self, b64: torch.Tensor, dtype):
+        self.b, self.x, self.r = (torch.zeros_like(b64) for _ in range(3))
+        self.bnorm, self.scale = (b64.new_zeros(()) for _ in range(2))
+        self.r32 = torch.zeros_like(b64, dtype=dtype)
+        self.d = torch.zeros_like(self.r32)
+        self.pre = self.post = None         # graphs.Program, when graphed
+
+
+def _pre(st: _Rounds) -> None:
+    """The round's scale and its f32 right-hand side r / scale."""
+    st.scale.copy_(torch.clamp_min(torch.max(torch.abs(st.r)), 1e-300))
+    st.r32.copy_((st.r / st.scale).to(st.r32.dtype))
+
+
+def _post(st: _Rounds, op64) -> torch.Tensor:
+    """x += scale d; r = b - A x; the f64 relative residual."""
+    torch.add(st.x, st.scale * st.d.to(st.x.dtype), out=st.x)
+    torch.sub(st.b, op64(st.x), out=st.r)
+    return (torch.sqrt(torch.dot(st.r, st.r)) / st.bnorm).reshape(1)
+
+
+def _rounds(op64, b64, dtype):
+    """(rounds state, graphed)."""
+    if not (graphs.active(b64) and graphs.capturable(op64)):
+        return _Rounds(b64, dtype), False
+    home, static = graphs.identity(op64)
+    key = (b64.shape[0], b64.device, static, graphs.fingerprint(home))
+    return graphs.cached((home,), ("refine", dtype), key,
+                         lambda: _Rounds(b64, dtype)), True
+
+
 def _refine_body(op64, op32, M, b64, tol_, inner_tol, inner_floor,
                  max_rounds, maxit_inner) -> RefineOutcome:
     from ..krylov import pcg
 
-    bnorm = torch.clamp_min(torch.sqrt(torch.dot(b64, b64)), 1e-300)
-    x = torch.zeros_like(b64)
-    r = b64
+    st, graphed = _rounds(op64, b64, op32.dtype)
+    if graphed and st.pre is None:
+        st.pre = graphs.Program(lambda: _pre(st), b64.device,
+                                [st.scale, st.r32])
+        st.post = graphs.Program(lambda: _post(st, op64), b64.device,
+                                 [st.x, st.r], pool=st.pre.pool)
+    st.b.copy_(b64)
+    st.bnorm.copy_(torch.clamp_min(torch.sqrt(torch.dot(b64, b64)), 1e-300))
+    st.x.zero_()
+    st.r.copy_(b64)
+    host = HostReads(b64.dtype)
     relres, rnd, iters, syncs = 1.0, 0, 0, 0
     while relres >= tol_ and rnd < max_rounds:
-        scale = torch.clamp_min(torch.max(torch.abs(r)), 1e-300)
+        if graphed:
+            st.pre.replay()
+        else:
+            _pre(st)
         need = min(max(0.3 * tol_ / max(relres, 1e-300), inner_floor),
                    inner_tol)
-        r32 = (r / scale).to(op32.dtype)
         # tight safeguard budgets: when the inner f32 solve hits its
         # residual floor, Check II/III restarts would burn ~20 dead
         # iterations per round — the outer f64 loop is the recovery
-        res = pcg(op32, r32, M=M, tol=need, maxit=maxit_inner, max_stag=2,
-                  max_restart=2)
-        x = x + scale * res.x.to(b64.dtype)
-        rn = b64 - op64(x)
-        relres = float(torch.sqrt(torch.dot(rn, rn)) / bnorm)
-        r = rn
+        res = pcg(op32, st.r32, M=M, tol=need, maxit=maxit_inner,
+                  max_stag=2, max_restart=2)
+        st.d.copy_(res.x)
+        relres = float(host.vec(st.post.replay() if graphed
+                                else _post(st, op64))[0])
         rnd += 1
         iters += res.iters
         syncs += res.syncs + 1
-    return RefineOutcome(x, relres, rnd, iters, syncs)
+    return RefineOutcome(st.x.clone() if graphed else st.x, relres, rnd,
+                         iters, syncs)
 
 
 def solve_refined_resident(hier, b, M=None, *, tol: float = 1e-6,

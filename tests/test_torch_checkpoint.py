@@ -25,7 +25,7 @@ from faspsolver_tpu_torch.ops import device_operator
 from faspsolver_tpu_torch.ops.operators import StencilNdOperator
 from faspsolver_tpu_torch.precond import AMGPrecond, setup_ilu
 from faspsolver_tpu_torch.precond.amg import setup_rs, setup_structured
-from faspsolver_tpu_torch.precond.ilu import _GraphedPrecond
+from faspsolver_tpu_torch.utils.graphs import GraphedModule
 from faspsolver_tpu_torch.testgen import poisson_2d, poisson_2d_manufactured
 from faspsolver_tpu_torch.utils import checkpoint
 from faspsolver_tpu_torch.utils.params import AMGParam
@@ -148,7 +148,7 @@ def test_no_stencil_plan_or_cuda_graph_inside_a_checkpoint(tmp_path):
     y = op(x)
     assert op._plan is not None
     M = setup_ilu(poisson_2d(12), dtype=torch.float64)
-    assert isinstance(M, _GraphedPrecond)
+    assert isinstance(M, GraphedModule)
     M._graph = threading.Lock()
     p = str(tmp_path / "mods.pt")
     checkpoint.save_pytree(p, {"op": op, "M": M})

@@ -5,6 +5,8 @@ conftest:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
 Elsewhere each skips with its reason."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -533,3 +535,94 @@ def test_gs_sweeps_on_the_card_are_bit_equal_to_the_cpu():
             want = smoothers.smooth(lc.smoother, lc.A, x, b, 1, forward)
             assert torch.equal(got.cpu(), want)
     assert narrow_levels >= 1
+
+
+def _graphed_and_eager(solve):
+    """``solve()`` graphed (cold, then warm) and under graphs.eager():
+    the results and the stencil launches and graph replays of each."""
+    from faspsolver_tpu_torch.utils import graphs
+    runs = []
+    for eager in (False, False, True):
+        stencil2d.reset_launches()
+        graphs.reset_stats()
+        with graphs.eager() if eager else contextlib.nullcontext():
+            out = solve()
+        torch.cuda.synchronize()
+        runs.append((out, dict(stencil2d.launches), graphs.stats["replays"]))
+    return runs
+
+
+@pytest.mark.cuda
+def test_graphed_pcg_amg_is_bit_equal_to_the_eager_loop():
+    """PCG + structured AMG on poisson_2d(255) and the refined solve
+    around it: replayed from CUDA graphs, cold and warm, x is bit-equal
+    to the eager loop's, with equal iterations and syncs, and the warm
+    solve's stencil launches equal the eager loop's."""
+    _need_cuda()
+    import chip_smoke
+    from faspsolver_tpu_torch.krylov import pcg
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    A = poisson_2d(255)
+    hier = chip_smoke.setup(torch, A, "cuda")
+    b = torch.as_tensor(A.matvec(np.ones(A.nrow)), device="cuda")
+    b32 = b.float()
+    for solve in (lambda: pcg(hier.levels[0].A, b32, M=AMGPrecond(hier),
+                              tol=1e-6, maxit=60),
+                  lambda: chip_smoke.solve(torch, hier, b)):
+        (cold, n_cold, r_cold), (warm, n_warm, r_warm), (eager, n_e, r_e) = \
+            _graphed_and_eager(solve)
+        assert r_cold > 0 and r_warm > 0 and r_e == 0
+        for got in (cold, warm):
+            assert torch.equal(got.x, eager.x)
+            assert (got.iters, got.syncs) == (eager.iters, eager.syncs)
+        # a replay counts what its capture recorded; the cold solve also
+        # ran each program once for real before capturing it
+        assert n_warm == n_e and n_e[torch.float32] > 0
+        assert all(n_cold[k] >= n_e[k] for k in n_e)
+
+
+@pytest.mark.cuda
+def test_graphs_capture_again_after_a_move():
+    """After ``.to(torch.float64)`` the solve captures new graphs (the
+    old ones read the f32 buffers) and matches the eager f64 loop."""
+    _need_cuda()
+    import chip_smoke
+    from faspsolver_tpu_torch.krylov import pcg
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    from faspsolver_tpu_torch.utils import graphs
+    A = poisson_2d(127)
+    hier = chip_smoke.setup(torch, A, "cuda")
+    b = torch.as_tensor(A.matvec(np.ones(A.nrow)), device="cuda")
+    M = AMGPrecond(hier)
+    pcg(hier.levels[0].A, b.float(), M=M, tol=1e-6)
+    M.to(torch.float64)
+    graphs.reset_stats()
+    got = pcg(hier.levels[0].A, b, M=M, tol=1e-6)
+    assert graphs.stats["captures"] > 0 and graphs.stats["replays"] > 0
+    with graphs.eager():
+        want = pcg(hier.levels[0].A, b, M=M, tol=1e-6)
+    assert torch.equal(got.x, want.x) and got.iters == want.iters
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_captures_again(tmp_path):
+    """A hierarchy loaded from a checkpoint is new modules: its solve
+    captures its own graphs and equals the original's."""
+    _need_cuda()
+    import chip_smoke
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    from faspsolver_tpu_torch.utils import checkpoint, graphs
+    A = poisson_2d(127)
+    hier = chip_smoke.setup(torch, A, "cuda")
+    b = torch.as_tensor(A.matvec(np.ones(A.nrow)), device="cuda")
+    first = chip_smoke.solve(torch, hier, b)
+    p = str(tmp_path / "h.pt")
+    checkpoint.save_hierarchy(p, hier)
+    back = checkpoint.load_hierarchy(p, device="cuda")
+    graphs.reset_stats()
+    again = chip_smoke.solve(torch, back, b)
+    assert graphs.stats["captures"] > 0 and graphs.stats["replays"] > 0
+    assert torch.equal(again.x, first.x)
+    assert (again.rounds, again.iters) == (first.rounds, first.iters)

@@ -86,6 +86,7 @@ MODULES = [
     "faspsolver_tpu_torch.utils.build",
     "faspsolver_tpu_torch.utils.checkpoint",
     "faspsolver_tpu_torch.utils.graphics",
+    "faspsolver_tpu_torch.utils.graphs",
     "faspsolver_tpu_torch.utils.messages",
     "faspsolver_tpu_torch.utils.params",
     "faspsolver_tpu_torch.utils.profiling",
