@@ -9,6 +9,7 @@
     python3 chip_smoke.py --harness-only # phases 1-3 and 11, then stop
     python3 chip_smoke.py --regression-only  # phases 1-3 and 12, then stop
     python3 chip_smoke.py --parallel-only    # phases 1-3 and 13, then stop
+    python3 chip_smoke.py --tutorials-only   # phases 1-3 and 14, then stop
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -112,6 +113,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    more under the profiler for the device's busy share.  One card means
    world size 1 (NCCL takes one rank per card); the multi-rank exchange
    is held on four gloo CPU ranks by tests/test_torch_parallel.py.
+14. the tutorials (``tutorials_torch/``, the port of ``tutorials/``),
+   each script's ``main`` with no device argument: the P1-FE matrix of
+   phase 6 and its right-hand side written as csrmat_FE.dat / rhs_FE.dat
+   and block_poisson_3d(64, nb=3) (786,432 dof) as bsrmat_SPE01.dat /
+   rhs_SPE01.dat by the port's writers into a temporary directory, then
+   poisson_pcg (RS-AMG + CG), poisson_amg (AMG alone), poisson_its (CG,
+   CG + diag, CG + ILU, CG + AMG, GMRES + AMG), poisson_gmg, spe01_its
+   (vFGMRES + UA-BSR AMG) on those files and fast_path at 1023^2 (the
+   headline setup and the refined solve, cold and warm); every printed
+   row held to the JAX script's CPU row on the same files, with each
+   row's setup and solve seconds and its stencil launches.
 
 On the card the PCG iterations, the AMG cycles and the refinement
 rounds' f64 stages replay from CUDA graphs captured at the first solve
@@ -130,8 +142,9 @@ f64 kernel; phases 9 and 10 count the launches of each solve, and the
 ILU and Schwarz solves of phase 9 and the MatFree solve of phase 10 must
 have launched the f64 kernel; phase 11 counts those of each harness row
 and of the corpus run; phases 12 and 13 those of each config set and
-each solve.  It prints a JSON line
-of the kernels, the nvidia-smi line,
+each solve, phase 14 those of each tutorial and each of its driver calls;
+fast_path must have launched the f32 kernel, CG + ILU the f64 one.  It
+prints a JSON line of the kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It needs nothing but this
 checkout and exits non-zero when no CUDA device is available.
 """
@@ -139,6 +152,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -729,6 +743,42 @@ REGRESSION_FLOOR = {
 }
 PARALLEL_ANCHORS = {"a": (1507, 75), "b": (13, 1), "d": (7, 1), "e": (24, 2)}
 
+# phase 14, the tutorials (tutorials_torch/, the port of tutorials/): each
+# script's main, with no device argument, on the files
+# write_tutorial_data writes (the FE pair: fe_problem(), 1,046,529 dof;
+# the SPE01 pair: bsr_problem(), 786,432 dof in 3 x 3 blocks) and
+# fast_path at NX.  TUTORIALS: (port module, JAX script); TUTORIAL_ROWS:
+# each printed row's (tol, maxit) as its script passes them.  Each row is
+# held to the JAX script's CPU row on the same files, printed by
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py tutorials <dir>
+# (poisson_its 164 s on the CPU, the other five 112 s together), with
+# its count within max(2, 5%) (RS and UA setups sum with index_add_,
+# atomic on the card; the long CG runs and GMRES restarts reorder f64
+# sums; fast_path's inner solve is f32), its relres under its tol, or,
+# for a row that stops at its maxit, within TUTORIAL_MAXIT_RELRES times
+# the anchor's either way; GMG's error against the exact solution within
+# 1e-3 of the anchor's, relative.
+TUTORIALS = (("poisson_pcg", "poisson_pcg"), ("poisson_amg", "poisson_amg"),
+             ("poisson_its", "poisson_its"), ("poisson_gmg", "poisson_gmg"),
+             ("spe01_its", "spe01_its"), ("fast_path", "tpu_fast_path"))
+TUTORIAL_ROWS = {
+    "AMG-PCG": (1e-10, 200), "AMG": (1e-9, 100), "CG": (1e-8, 2000),
+    "CG+diag": (1e-8, 2000), "CG+ILU": (1e-8, 500), "CG+AMG": (1e-8, 100),
+    "GMRES+AMG": (1e-8, 100), "GMG": (1e-9, 50),
+    "SPE01 vFGMRES+AMG": (1e-9, 500), "refined solve": (1e-8, None)}
+TUTORIAL_MAXIT_RELRES = 2.0
+TUTORIAL_ANCHORS = {
+    "AMG-PCG": {"iters": 10, "relres": 3.484e-11},
+    "AMG": {"iters": 13, "relres": 4.405e-10},
+    "CG": {"iters": 1874, "relres": 7.887e-09},
+    "CG+diag": {"iters": 1874, "relres": 7.887e-09},
+    "CG+ILU": {"iters": 500, "relres": 1.678e-05},
+    "CG+AMG": {"iters": 8, "relres": 5.82e-09},
+    "GMRES+AMG": {"iters": 8, "relres": 2.53e-09},
+    "GMG": {"iters": 8, "relres": 1.049e-10, "err": 5.02e-05},
+    "SPE01 vFGMRES+AMG": {"iters": 23, "relres": 5.193e-10},
+    "refined solve": {"iters": 19, "relres": 2.941e-11, "rounds": 2}}
+
 
 def regression_misses(results, configs, problems, hold_extra=True):
     """The rows of a run_matrix result that leave their JAX anchor (a
@@ -886,6 +936,79 @@ def gmg_problem(n, dim):
     grids = np.meshgrid(*([xs] * dim), indexing="ij")
     u = np.prod([np.sin(np.pi * g) for g in grids], axis=0)
     return dim * np.pi ** 2 * u, u
+
+
+def write_tutorial_data(dirname, small=False):
+    """The tutorials' input files in ``dirname``, written by the port's
+    writers: csrmat_FE.dat / rhs_FE.dat (fe_problem(); small:
+    poisson_fe_manufactured(64), 3,969 dof, the size of the reference's
+    FE pair) and bsrmat_SPE01.dat / rhs_SPE01.dat (bsr_problem(); small:
+    bsr_problem(8)).  Returns the seconds the writing took."""
+    import os
+    from faspsolver_tpu_torch.io import write_bsr, write_csr, write_vec
+    from faspsolver_tpu_torch.testgen import poisson_fe_manufactured
+    A, b = (poisson_fe_manufactured(64)[:2] if small else fe_problem())
+    B, bb = bsr_problem(8 if small else None)
+    t0 = time.perf_counter()
+    write_csr(os.path.join(dirname, "csrmat_FE.dat"), A)
+    write_vec(os.path.join(dirname, "rhs_FE.dat"), b)
+    write_bsr(os.path.join(dirname, "bsrmat_SPE01.dat"), B)
+    write_vec(os.path.join(dirname, "rhs_SPE01.dat"), bb)
+    return time.perf_counter() - t0
+
+
+def tutorial_lines(text):
+    """{label: {"iters", "relres"[, "rounds"][, "err"]}} of the result
+    lines a tutorial printed (the JAX scripts' format, which the port's
+    keep); fast_path's inner iterations are its "iters"."""
+    import re
+    line = re.compile(
+        r"^(?P<label>[^:]+?)\s*: (?:iters=\s*(?P<iters>\d+) "
+        r"|(?P<n>\d+) (?:iterations|cycles), "
+        r"|rounds=(?P<rounds>\d+) inner=(?P<inner>\d+) )"
+        r"relres[= ](?P<relres>[-+.e0-9]+)"
+        r"(?:, max err vs exact (?P<err>[-+.e0-9]+))?$")
+    out = {}
+    for ln in text.splitlines():
+        m = line.match(ln.strip())
+        if not m:
+            continue
+        row = {"iters": int(m["iters"] or m["n"] or m["inner"]),
+               "relres": float(m["relres"])}
+        if m["rounds"]:
+            row["rounds"] = int(m["rounds"])
+        if m["err"]:
+            row["err"] = float(m["err"])
+        out[m["label"]] = row
+    return out
+
+
+def tutorial_misses(got, anchors):
+    """The printed rows that leave their JAX anchor (phase 14's rule,
+    above TUTORIALS), and the anchored rows that were not printed."""
+    bad = [f"{label}: not printed" for label in anchors if label not in got]
+    for label, row in got.items():
+        ref = anchors.get(label)
+        if ref is None:
+            bad.append(f"{label}: no anchor")
+            continue
+        tol, maxit = TUTORIAL_ROWS[label]
+        allow = max(2, round(0.05 * ref["iters"]))
+        ok = abs(row["iters"] - ref["iters"]) <= allow
+        if maxit is not None and ref["iters"] >= maxit:
+            ok &= (row["relres"] < tol or abs(math.log(
+                row["relres"] / ref["relres"]))
+                <= math.log(TUTORIAL_MAXIT_RELRES))
+        else:
+            ok &= row["relres"] < tol
+        if "rounds" in ref:
+            ok &= abs(row["rounds"] - ref["rounds"]) <= 1
+        if "err" in ref:
+            ok &= abs(row["err"] - ref["err"]) <= 1e-3 * ref["err"]
+        if not ok:
+            bad.append(f"{label}: {row} (JAX {ref}, {allow} iterations "
+                       f"allowed)")
+    return bad
 
 
 def ini_with(ini, overrides, tmpdir=None):
@@ -2743,6 +2866,135 @@ def parallel_path(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the tutorials
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def call_records(targets):
+    """While the block runs, every call of a ``name: (owner, attribute)``
+    callable is recorded in order: its name, seconds, the seconds the
+    drivers' setups took inside it (:func:`setup_spies`) and the stencil
+    launches it made."""
+    calls = []
+    with spied_calls(setup_spies()) as setups:
+        saved = {n: getattr(owner, attr)
+                 for n, (owner, attr) in targets.items()}
+
+        def wrap(name, fn):
+            def call(*args, **kw):
+                s0 = sum(r["s"] for r in setups.values())
+                l0 = launch_counts()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                calls.append({
+                    "call": name, "s": time.perf_counter() - t0,
+                    "setup_s": sum(r["s"] for r in setups.values()) - s0,
+                    "launches": {k: v - l0[k]
+                                 for k, v in launch_counts().items()}})
+                return out
+            return call
+
+        for name, (owner, attr) in targets.items():
+            setattr(owner, attr, wrap(name, saved[name]))
+        try:
+            yield calls
+        finally:
+            for name, (owner, attr) in targets.items():
+                setattr(owner, attr, saved[name])
+
+
+def run_tutorial(torch, device, mod, arg):
+    """One tutorial's ``main([arg])`` with no device argument: what it
+    printed, what it returned, its seconds and launches, and each driver
+    call's record (:func:`call_records`)."""
+    import importlib
+    import io
+    from faspsolver_tpu_torch import solvers
+    from faspsolver_tpu_torch.ops import stencil2d
+    m = importlib.import_module(f"tutorials_torch.{mod}")
+    if mod == "poisson_its":
+        targets = {n: (solvers, n) for n in ("krylov", "krylov_diag",
+                                             "krylov_ilu", "krylov_amg")}
+    else:
+        targets = {n: (m, n) for n in ("krylov_amg", "solve_amg",
+                                       "poisson_gmg_2d") if hasattr(m, n)}
+    buf = io.StringIO()
+    stencil2d.reset_launches()
+    t0 = time.perf_counter()
+    with call_records(targets) as calls, contextlib.redirect_stdout(buf):
+        out = m.main([arg])
+    sync(torch, device)
+    secs = time.perf_counter() - t0
+    return buf.getvalue(), out, secs, launch_counts(), calls
+
+
+def tutorials_path(torch, device):
+    """Phase 14: the six tutorials of tutorials_torch/ at full width, each
+    through its ``main`` with no device argument (the card): the FE and
+    SPE01 files written by :func:`write_tutorial_data` into a temporary
+    directory, fast_path at NX.  Every printed row is held to its JAX
+    CPU anchor (TUTORIAL_ANCHORS); each row's setup and solve seconds and
+    launches are printed.  Returns the launches and the readings."""
+    import re
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    counts = {"float32": 0, "float64": 0}
+    readings, got = {}, {}
+    try:
+        readings["write_s"] = write_tutorial_data(tmp)
+        print(f"  FE and SPE01 files written in {readings['write_s']:.1f} s")
+        for mod, _ in TUTORIALS:
+            text, out, secs, launches, calls = run_tutorial(
+                torch, device, mod, str(NX) if mod == "fast_path" else tmp)
+            for ln in text.splitlines():
+                print(f"  | {ln}")
+            rows = tutorial_lines(text)
+            check(len(rows) == max(1, len(calls)),
+                  f"{mod}: one result line per driver call: {rows}")
+            results = (list(out.values()) if isinstance(out, dict)
+                       else [out])
+            if mod != "fast_path":
+                check(all(r.x.device.type == torch.device(device).type
+                          for r in results),
+                      f"{mod}: the solves ran on {device}")
+            for label, call in zip(rows, calls):
+                rows[label].update(
+                    setup_s=call["setup_s"], solve_s=call["s"]
+                    - call["setup_s"], launches=call["launches"])
+                print(f"  {label}: host setup {call['setup_s']:.3f} s, "
+                      f"solve (device setup included) "
+                      f"{call['s'] - call['setup_s']:.3f} s, stencil "
+                      f"launches {call['launches']}")
+            if mod == "fast_path":
+                setup_s, cold, warm = map(float, re.search(
+                    r"setup ([.0-9]+)s.*cold ([.0-9]+), warm ([.0-9]+)",
+                    text, re.S).groups())
+                rows["refined solve"].update(setup_s=setup_s,
+                                             cold_solve_s=cold, solve_s=warm)
+            for k in counts:
+                counts[k] += launches[k]
+            print(f"  {mod}: {secs:.1f} s (the files read included), "
+                  f"stencil launches {launches}")
+            readings[mod] = {"s": secs, "launches": launches, "rows": rows}
+            got.update(rows)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if torch.device(device).type == "cuda":
+        check(readings["fast_path"]["launches"]["float32"] > 0,
+              "fast_path launched the f32 kernel")
+        check(readings["poisson_its"]["rows"]["CG+ILU"]["launches"][
+            "float64"] > 0, "CG+ILU launched the f64 kernel")
+    misses = tutorial_misses(got, TUTORIAL_ANCHORS)
+    check(not misses, f"every tutorial row at its JAX anchor: {misses}")
+    readings["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 14 took {readings['phase_s']:.1f} s; stencil launches "
+          f"{counts}")
+    return counts, readings
+
+
+# ---------------------------------------------------------------------------
 # phase 5: per-apply times
 # ---------------------------------------------------------------------------
 
@@ -2945,6 +3197,11 @@ def main(argv) -> int:
         parallel_path(torch, device)
         print("stopped after phase 13 (--parallel-only)")
         return 0
+    if "--tutorials-only" in argv:
+        print("== 14. main path: the tutorials")
+        tutorials_path(torch, device)
+        print("stopped after phase 14 (--tutorials-only)")
+        return 0
     counts, res = {}, {}
     print("== 4. main path: headline")
     hier, counts["headline"], res["headline"] = main_path(torch, device,
@@ -2996,6 +3253,8 @@ def main(argv) -> int:
     print("== 13. main path: the distribution layer")
     counts["distribution"], res["distribution"] = parallel_path(torch,
                                                                 device)
+    print("== 14. main path: the tutorials")
+    counts["tutorials"], res["tutorials"] = tutorials_path(torch, device)
 
     # one entry per kernel, stencil2d<T, K> by element type (the band
     # count K is the operator's); its times are those of the main paths'

@@ -22,6 +22,7 @@ anchors the port is held to on the card).
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py regression matfree
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py parallel 1023
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py gcg-floor
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py tutorials <dir>
 
 ``small`` (the default) prints the count of every ``chip_smoke.SMALL_GRID``
 config on poisson_fe_manufactured(64) (3,969 dof), ``leftover`` those of
@@ -48,6 +49,11 @@ prints every row as phase 12's ``REGRESSION_ANCHORS`` holds it;
 13's solves (``chip_smoke.PARALLEL_RUNS``) at nx^2 (and 64^3 blocks);
 ``gcg-floor`` the MatrixMarket grid's GCG rows jitted and as an eager
 JAX loop (``chip_smoke.REGRESSION_FLOOR``).
+``tutorials <dir> [name ...]`` runs the JAX tutorials (``tutorials/``,
+all of ``chip_smoke.TUTORIALS`` or the named ones) on the files
+``chip_smoke.write_tutorial_data`` writes into ``<dir>`` (written there
+unless ``csrmat_FE.dat`` is), tpu_fast_path at ``chip_smoke.NX``, and
+prints phase 14's ``TUTORIAL_ANCHORS``.
 ``tests/test_torch_drivers.py`` runs the port's side with :func:`run`.
 Not collected by pytest (no ``test_`` prefix).
 """
@@ -510,6 +516,33 @@ def _gcg_floor():
                   f"{eager(op, jnp.asarray(b), M)}),", flush=True)
 
 
+def _tutorials(datadir: str, names):
+    """The JAX tutorials run in this process, each as a script; prints
+    each one's output and the rows it printed as phase 14 reads them."""
+    import contextlib
+    import io
+    import runpy
+    if not os.path.exists(os.path.join(datadir, "csrmat_FE.dat")):
+        os.makedirs(datadir, exist_ok=True)
+        print(f"wrote the files in "
+              f"{chip_smoke.write_tutorial_data(datadir):.1f} s", flush=True)
+    table = {}
+    for mod, script in chip_smoke.TUTORIALS:
+        if names and mod not in names:
+            continue
+        sys.argv = [script, str(chip_smoke.NX) if mod == "fast_path"
+                    else datadir]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(os.path.join(ROOT, "tutorials", f"{script}.py"),
+                           run_name="__main__")
+        print(f"{buf.getvalue()}({script}: "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        table.update(chip_smoke.tutorial_lines(buf.getvalue()))
+    print(f"TUTORIAL_ANCHORS = {table!r}")
+
+
 def _main(argv):
     if argv[:1] == ["matfree"] and argv[2:] == ["cuda"]:
         _matfree(float(argv[1]), "cuda")        # the port alone, no JAX
@@ -525,6 +558,9 @@ def _main(argv):
     mode = argv[0] if argv else "small"
     if mode == "regression":
         _regression(argv[1])
+        return
+    if mode == "tutorials":
+        _tutorials(argv[1], argv[2:])
         return
     if mode == "gcg-floor":
         _gcg_floor()

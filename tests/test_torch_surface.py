@@ -203,10 +203,22 @@ def test_top_level_names_equal_jax():
 NOT_YET = {"make_resident_refiner_packed"}
 
 
-@pytest.mark.parametrize("sub", ["ops", "precond", "solvers", "utils"])
+# every JAX sub-package that defines __all__
+SUBPACKAGES = ["ops", "precond", "solvers", "utils", "benchmark", "formats",
+               "io", "krylov", "parallel", "precond.amg", "regression",
+               "testgen"]
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_sub_package_names_cover_jax(sub):
+    """Each JAX sub-package's ``__all__`` is in the port's, and each of
+    those names is the port's own class or function."""
     import importlib
     ref = set(importlib.import_module(f"faspsolver_tpu.{sub}").__all__)
     port = importlib.import_module(f"faspsolver_tpu_torch.{sub}")
     assert ref - set(port.__all__) == ref & NOT_YET
     assert all(hasattr(port, n) for n in port.__all__)
+    for n in ref - NOT_YET:
+        got = getattr(port, n)
+        if inspect.isclass(got) or inspect.isfunction(got):
+            assert got.__module__.startswith("faspsolver_tpu_torch"), n
