@@ -10,6 +10,7 @@
     python3 chip_smoke.py --regression-only  # phases 1-3 and 12, then stop
     python3 chip_smoke.py --parallel-only    # phases 1-3 and 13, then stop
     python3 chip_smoke.py --tutorials-only   # phases 1-3 and 14, then stop
+    python3 chip_smoke.py --bench-only       # phases 1-3 and 15, then stop
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -123,7 +124,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (vFGMRES + UA-BSR AMG) on those files and fast_path at 1023^2 (the
    headline setup and the refined solve, cold and warm); every printed
    row held to the JAX script's CPU row on the same files, with each
-   row's setup and solve seconds and its stencil launches.
+   row's setup and solve seconds and its stencil launches;
+15. the headline benchmark: ``python bench_torch.py`` (the port of
+   bench.py) as a subprocess on the card, at full width (the 1023^2
+   headline, the 1,046,529-dof P1-FE matrix through the general and
+   fe_auto stanzas, the probes at 1023^2 and 8192^2), its SPE01 stanza
+   on phase 14's block_poisson_3d(64, nb=3) pair through FASP_REFDATA
+   (written here when phase 14 did not run); the subprocess's readings
+   and every key of its JSON line printed, each held to
+   :func:`bench_misses` (no ``*_error`` key, every stanza converged,
+   the counts at their anchors, graphs replayed and none captured in a
+   timed region, both kernel dtypes launched by the headline, k stencil
+   launches per rep in every marginal-time chain).
 
 On the card the PCG iterations, the AMG cycles and the refinement
 rounds' f64 stages replay from CUDA graphs captured at the first solve
@@ -143,8 +155,9 @@ ILU and Schwarz solves of phase 9 and the MatFree solve of phase 10 must
 have launched the f64 kernel; phase 11 counts those of each harness row
 and of the corpus run; phases 12 and 13 those of each config set and
 each solve, phase 14 those of each tutorial and each of its driver calls;
-fast_path must have launched the f32 kernel, CG + ILU the f64 one.  It
-prints a JSON line of the kernels, the nvidia-smi line,
+fast_path must have launched the f32 kernel, CG + ILU the f64 one; phase
+15 reads the launches of bench_torch.py's three timed solves from its
+JSON line.  It prints a JSON line of the kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It needs nothing but this
 checkout and exits non-zero when no CUDA device is available.
 """
@@ -153,9 +166,15 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+
+# the main paths' settings: bench_torch.py's (the port of bench.py)
+from bench_torch import (GENERAL_REFINE, HEADLINE_REFINE, general_param,
+                         headline_param)
 
 NX = 1023                 # the headline problem: 1023^2 = 1,046,529 dof
 TOL = 1e-6
@@ -165,9 +184,11 @@ SEED = 20261016
 ANCHOR = {"rounds": 2, "inner_iters": 20, "relres": 1.36e-11}
 GENERAL_ANCHOR = {"rounds": 2, "inner_iters": 17, "relres": 7.10e-7}
 FE_AUTO_ANCHOR = {"inner_iters": 28, "relres": 4.16e-8}
-HEADLINE_REFINE = dict(tol=TOL, max_rounds=4, maxit_inner=40)
-GENERAL_REFINE = dict(tol=TOL, inner_tol=1e-4, inner_floor=1e-4,
-                      max_rounds=6, maxit_inner=40)
+# phase 15: bench_torch.py's SPE01 stanza on bsr_problem() written by the
+# port's writers, JAX CPU (f32 inner solves):
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py bench-spe01 64
+BENCH_SPE01_ANCHOR = 112
+BENCH_TIMEOUT = 900
 REPLACES = {"k1": "faspsolver_tpu/ops/pallas_kernels.py:149",
             "k2": "faspsolver_tpu/ops/pallas_kernels.py:36"}
 
@@ -945,13 +966,25 @@ def write_tutorial_data(dirname, small=False):
     FE pair) and bsrmat_SPE01.dat / rhs_SPE01.dat (bsr_problem(); small:
     bsr_problem(8)).  Returns the seconds the writing took."""
     import os
-    from faspsolver_tpu_torch.io import write_bsr, write_csr, write_vec
+    from faspsolver_tpu_torch.io import write_csr, write_vec
     from faspsolver_tpu_torch.testgen import poisson_fe_manufactured
     A, b = (poisson_fe_manufactured(64)[:2] if small else fe_problem())
-    B, bb = bsr_problem(8 if small else None)
     t0 = time.perf_counter()
     write_csr(os.path.join(dirname, "csrmat_FE.dat"), A)
     write_vec(os.path.join(dirname, "rhs_FE.dat"), b)
+    return time.perf_counter() - t0 + write_spe01_data(
+        dirname, 8 if small else None)
+
+
+def write_spe01_data(dirname, nx=None):
+    """bsr_problem(nx) as bsrmat_SPE01.dat / rhs_SPE01.dat in ``dirname``,
+    by the port's writers: the stand-in for the reference's SPE01 pair,
+    which is not in the repository.  Returns the seconds the writing
+    took."""
+    import os
+    from faspsolver_tpu_torch.io import write_bsr, write_vec
+    B, bb = bsr_problem(nx)
+    t0 = time.perf_counter()
     write_bsr(os.path.join(dirname, "bsrmat_SPE01.dat"), B)
     write_vec(os.path.join(dirname, "rhs_SPE01.dat"), bb)
     return time.perf_counter() - t0
@@ -1223,24 +1256,6 @@ def kernel_vs_plain(torch, op, gen, label):
 # ---------------------------------------------------------------------------
 # phases 4, 6, 7: the main paths
 # ---------------------------------------------------------------------------
-
-def headline_param():
-    from faspsolver_tpu_torch.constants import SmootherType
-    from faspsolver_tpu_torch.utils.params import AMGParam
-    return AMGParam(smoother=int(SmootherType.CHEBYSHEV),
-                    polynomial_degree=2, coarse_dof=800,
-                    tentative_smooth=0.67)
-
-
-def general_param():
-    """bench.py's general stanza: aggressive (path-1) first-level
-    coarsening with standard interpolation, Chebyshev(3), 2+2 sweeps."""
-    from faspsolver_tpu_torch.constants import SmootherType
-    from faspsolver_tpu_torch.utils.params import AMGParam
-    return AMGParam(smoother=int(SmootherType.CHEBYSHEV),
-                    polynomial_degree=3, presmooth_iter=2,
-                    postsmooth_iter=2, coarse_dof=800, aggressive_level=1)
-
 
 def setup(torch, A, device):
     from faspsolver_tpu_torch.precond.amg import setup_structured
@@ -2928,59 +2943,54 @@ def run_tutorial(torch, device, mod, arg):
     return buf.getvalue(), out, secs, launch_counts(), calls
 
 
-def tutorials_path(torch, device):
+def tutorials_path(torch, device, tmp):
     """Phase 14: the six tutorials of tutorials_torch/ at full width, each
     through its ``main`` with no device argument (the card): the FE and
-    SPE01 files written by :func:`write_tutorial_data` into a temporary
-    directory, fast_path at NX.  Every printed row is held to its JAX
-    CPU anchor (TUTORIAL_ANCHORS); each row's setup and solve seconds and
-    launches are printed.  Returns the launches and the readings."""
+    SPE01 files written by :func:`write_tutorial_data` into the directory
+    ``tmp`` (phase 15 reads the SPE01 pair there), fast_path at NX.
+    Every printed row is held to its JAX CPU anchor (TUTORIAL_ANCHORS);
+    each row's setup and solve seconds and launches are printed.
+    Returns the launches and the readings."""
     import re
-    import shutil
-    import tempfile
     t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp()
     counts = {"float32": 0, "float64": 0}
     readings, got = {}, {}
-    try:
-        readings["write_s"] = write_tutorial_data(tmp)
-        print(f"  FE and SPE01 files written in {readings['write_s']:.1f} s")
-        for mod, _ in TUTORIALS:
-            text, out, secs, launches, calls = run_tutorial(
-                torch, device, mod, str(NX) if mod == "fast_path" else tmp)
-            for ln in text.splitlines():
-                print(f"  | {ln}")
-            rows = tutorial_lines(text)
-            check(len(rows) == max(1, len(calls)),
-                  f"{mod}: one result line per driver call: {rows}")
-            results = (list(out.values()) if isinstance(out, dict)
-                       else [out])
-            if mod != "fast_path":
-                check(all(r.x.device.type == torch.device(device).type
-                          for r in results),
-                      f"{mod}: the solves ran on {device}")
-            for label, call in zip(rows, calls):
-                rows[label].update(
-                    setup_s=call["setup_s"], solve_s=call["s"]
-                    - call["setup_s"], launches=call["launches"])
-                print(f"  {label}: host setup {call['setup_s']:.3f} s, "
-                      f"solve (device setup included) "
-                      f"{call['s'] - call['setup_s']:.3f} s, stencil "
-                      f"launches {call['launches']}")
-            if mod == "fast_path":
-                setup_s, cold, warm = map(float, re.search(
-                    r"setup ([.0-9]+)s.*cold ([.0-9]+), warm ([.0-9]+)",
-                    text, re.S).groups())
-                rows["refined solve"].update(setup_s=setup_s,
-                                             cold_solve_s=cold, solve_s=warm)
-            for k in counts:
-                counts[k] += launches[k]
-            print(f"  {mod}: {secs:.1f} s (the files read included), "
-                  f"stencil launches {launches}")
-            readings[mod] = {"s": secs, "launches": launches, "rows": rows}
-            got.update(rows)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    readings["write_s"] = write_tutorial_data(tmp)
+    print(f"  FE and SPE01 files written in {readings['write_s']:.1f} s")
+    for mod, _ in TUTORIALS:
+        text, out, secs, launches, calls = run_tutorial(
+            torch, device, mod, str(NX) if mod == "fast_path" else tmp)
+        for ln in text.splitlines():
+            print(f"  | {ln}")
+        rows = tutorial_lines(text)
+        check(len(rows) == max(1, len(calls)),
+              f"{mod}: one result line per driver call: {rows}")
+        results = (list(out.values()) if isinstance(out, dict)
+                   else [out])
+        if mod != "fast_path":
+            check(all(r.x.device.type == torch.device(device).type
+                      for r in results),
+                  f"{mod}: the solves ran on {device}")
+        for label, call in zip(rows, calls):
+            rows[label].update(
+                setup_s=call["setup_s"], solve_s=call["s"]
+                - call["setup_s"], launches=call["launches"])
+            print(f"  {label}: host setup {call['setup_s']:.3f} s, "
+                  f"solve (device setup included) "
+                  f"{call['s'] - call['setup_s']:.3f} s, stencil "
+                  f"launches {call['launches']}")
+        if mod == "fast_path":
+            setup_s, cold, warm = map(float, re.search(
+                r"setup ([.0-9]+)s.*cold ([.0-9]+), warm ([.0-9]+)",
+                text, re.S).groups())
+            rows["refined solve"].update(setup_s=setup_s,
+                                         cold_solve_s=cold, solve_s=warm)
+        for k in counts:
+            counts[k] += launches[k]
+        print(f"  {mod}: {secs:.1f} s (the files read included), "
+              f"stencil launches {launches}")
+        readings[mod] = {"s": secs, "launches": launches, "rows": rows}
+        got.update(rows)
     if torch.device(device).type == "cuda":
         check(readings["fast_path"]["launches"]["float32"] > 0,
               "fast_path launched the f32 kernel")
@@ -2992,6 +3002,104 @@ def tutorials_path(torch, device):
     print(f"  phase 14 took {readings['phase_s']:.1f} s; stencil launches "
           f"{counts}")
     return counts, readings
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the headline benchmark (bench_torch.py)
+# ---------------------------------------------------------------------------
+
+BENCH_STANZAS = ("", "general_", "fe_auto_")     # the graphed timed solves
+BENCH_CHAINS = ("spmv", "stream", "stream_hbm", "spmv_hbm")
+
+
+def bench_misses(d, spe01_anchor=None):
+    """What phase 15 refuses in bench_torch.py's ``detail`` on the card
+    (empty: nothing): an ``*_error`` key, a stanza not converged, a count
+    away from its anchor (headline ANCHOR's rounds and within 3 of its
+    inner iterations; general <= 3 rounds and within 3 of
+    GENERAL_ANCHOR; fe_auto within 3 of FE_AUTO_ANCHOR; SPE01 within
+    max(2, 5%) of ``spe01_anchor``, default BENCH_SPE01_ANCHOR), a timed
+    solve that replayed no graph or captured one, a headline without
+    both kernel dtypes, a marginal-time chain of k applies without k
+    stencil launches per rep."""
+    anchor = BENCH_SPE01_ANCHOR if spe01_anchor is None else spe01_anchor
+    bad = [f"{k}: {v}" for k, v in d.items() if k.endswith("_error")]
+    bad += [f"{k}: {d.get(k)}" for k in ("converged", "general_converged",
+                                          "fe_auto_converged",
+                                          "spe01_converged")
+            if d.get(k) is not True]
+
+    def near(key, want, allow):
+        got = d.get(key)
+        if not isinstance(got, int) or abs(got - want) > allow:
+            bad.append(f"{key} {got}, not within {allow} of {want}")
+
+    if d.get("refine_rounds") != ANCHOR["rounds"]:
+        bad.append(f"refine_rounds {d.get('refine_rounds')}, not "
+                   f"{ANCHOR['rounds']}")
+    near("inner_iters", ANCHOR["inner_iters"], 3)
+    if not isinstance(d.get("general_rounds"), int) \
+            or d["general_rounds"] > 3:
+        bad.append(f"general_rounds {d.get('general_rounds')} > 3")
+    near("general_inner_iters", GENERAL_ANCHOR["inner_iters"], 3)
+    near("fe_auto_inner_iters", FE_AUTO_ANCHOR["inner_iters"], 3)
+    near("spe01_inner_iters", anchor, max(2, round(0.05 * anchor)))
+    for p in BENCH_STANZAS:
+        if not d.get(f"{p}graph_replays"):
+            bad.append(f"{p}graph_replays {d.get(f'{p}graph_replays')}")
+        if d.get(f"{p}graph_captures") != 0:
+            bad.append(f"{p}graph_captures {d.get(f'{p}graph_captures')} "
+                       f"in a timed solve")
+    launches = d.get("stencil_launches") or {}
+    if not (launches.get("float32") and launches.get("float64")):
+        bad.append(f"headline stencil_launches {launches}")
+    chains = d.get("chain_launches_per_rep") or {}
+    for label in BENCH_CHAINS:
+        per = chains.get(label, {})
+        if per != {"1": 1, "8": 8}:
+            bad.append(f"chain {label}: stencil launches per rep {per}")
+    return bad
+
+
+def bench_path(torch, device, tmp):
+    """Phase 15: ``python bench_torch.py`` as a subprocess on the card,
+    its SPE01 stanza on the pair in ``tmp`` (FASP_REFDATA; written by
+    :func:`write_spe01_data` when phase 14 has not).  Prints the
+    subprocess's readings and every key of its JSON line, holds them to
+    :func:`bench_misses`; returns the launches of its three timed solves
+    and the readings."""
+    import gc
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    if not os.path.exists(os.path.join(tmp, "bsrmat_SPE01.dat")):
+        print(f"  SPE01 pair written in {write_spe01_data(tmp):.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "bench_torch.py")], cwd=root,
+        env=dict(os.environ, FASP_REFDATA=tmp), capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT)
+    lines = proc.stdout.splitlines()
+    for ln in lines[:-1]:
+        print(f"  | {ln}")
+    check(proc.returncode == 0 and lines,
+          f"bench_torch.py exited {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(lines[-1])
+    d = line["detail"]
+    print(f"  {line['metric']} = {line['value']} {line['unit']}, "
+          f"vs_baseline {line['vs_baseline']}")
+    for k, v in d.items():
+        print(f"  {k}: {v}")
+    misses = bench_misses(d)
+    check(not misses, f"bench_torch.py's readings: {misses}")
+    counts = {dt: sum(d[f"{p}stencil_launches"][dt] for p in BENCH_STANZAS)
+              for dt in ("float32", "float64")}
+    phase_s = time.perf_counter() - t0
+    print(f"  phase 15 took {phase_s:.1f} s; stencil launches of the timed "
+          f"solves {counts}")
+    return counts, {"value": line["value"],
+                    "vs_baseline": line["vs_baseline"], "detail": d,
+                    "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------
@@ -3199,8 +3307,15 @@ def main(argv) -> int:
         return 0
     if "--tutorials-only" in argv:
         print("== 14. main path: the tutorials")
-        tutorials_path(torch, device)
+        with tempfile.TemporaryDirectory() as tmp:
+            tutorials_path(torch, device, tmp)
         print("stopped after phase 14 (--tutorials-only)")
+        return 0
+    if "--bench-only" in argv:
+        print("== 15. main path: the headline benchmark (bench_torch.py)")
+        with tempfile.TemporaryDirectory() as tmp:
+            bench_path(torch, device, tmp)
+        print("stopped after phase 15 (--bench-only)")
         return 0
     counts, res = {}, {}
     print("== 4. main path: headline")
@@ -3253,8 +3368,12 @@ def main(argv) -> int:
     print("== 13. main path: the distribution layer")
     counts["distribution"], res["distribution"] = parallel_path(torch,
                                                                 device)
-    print("== 14. main path: the tutorials")
-    counts["tutorials"], res["tutorials"] = tutorials_path(torch, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        print("== 14. main path: the tutorials")
+        counts["tutorials"], res["tutorials"] = tutorials_path(torch, device,
+                                                               tmp)
+        print("== 15. main path: the headline benchmark (bench_torch.py)")
+        counts["bench"], res["bench"] = bench_path(torch, device, tmp)
 
     # one entry per kernel, stencil2d<T, K> by element type (the band
     # count K is the operator's); its times are those of the main paths'

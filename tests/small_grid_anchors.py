@@ -23,6 +23,7 @@ anchors the port is held to on the card).
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py parallel 1023
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py gcg-floor
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py tutorials <dir>
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py bench-spe01 64
 
 ``small`` (the default) prints the count of every ``chip_smoke.SMALL_GRID``
 config on poisson_fe_manufactured(64) (3,969 dof), ``leftover`` those of
@@ -54,6 +55,11 @@ all of ``chip_smoke.TUTORIALS`` or the named ones) on the files
 ``chip_smoke.write_tutorial_data`` writes into ``<dir>`` (written there
 unless ``csrmat_FE.dat`` is), tpu_fast_path at ``chip_smoke.NX``, and
 prints phase 14's ``TUTORIAL_ANCHORS``.
+``bench-spe01 <nx>`` writes ``bsr_problem(nx)`` as the SPE01 pair by the
+port's writers (``chip_smoke.write_spe01_data``, as phase 15 hands it to
+``bench_torch.py``), reads it back by the JAX package's readers and runs
+bench.py's SPE01 stanza through the JAX package: phase 15's
+``BENCH_SPE01_ANCHOR``.
 ``tests/test_torch_drivers.py`` runs the port's side with :func:`run`.
 Not collected by pytest (no ``test_`` prefix).
 """
@@ -543,6 +549,26 @@ def _tutorials(datadir: str, names):
     print(f"TUTORIAL_ANCHORS = {table!r}")
 
 
+def _bench_spe01(nx: int):
+    """bench.py's SPE01 stanza through the JAX package on the pair that
+    phase 15 writes for ``bench_torch.py``."""
+    import tempfile
+    from faspsolver_tpu.io import read_bsr, read_vec
+    d = tempfile.mkdtemp()
+    print(f"wrote the pair in {chip_smoke.write_spe01_data(d, nx):.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    A = read_bsr(os.path.join(d, "bsrmat_SPE01.dat"))
+    b = read_vec(os.path.join(d, "rhs_SPE01.dat"))
+    print(f"read it in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    res = jax_refined(A, b, chip_smoke._STANZA)
+    print(f"nx={nx} bench.py SPE01 stanza: {res.inner_iters} inner "
+          f"iterations, {res.rounds} rounds, relres {res.relres:.3e}, "
+          f"converged {bool(res.converged)}  "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 def _main(argv):
     if argv[:1] == ["matfree"] and argv[2:] == ["cuda"]:
         _matfree(float(argv[1]), "cuda")        # the port alone, no JAX
@@ -558,6 +584,9 @@ def _main(argv):
     mode = argv[0] if argv else "small"
     if mode == "regression":
         _regression(argv[1])
+        return
+    if mode == "bench-spe01":
+        _bench_spe01(int(argv[1]))
         return
     if mode == "tutorials":
         _tutorials(argv[1], argv[2:])
