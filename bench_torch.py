@@ -43,10 +43,13 @@ Prints lines of readings (each chain's raw best and spread), then ONE
 JSON line, last: ``metric``, ``value`` (setup_s + solve_s), ``unit``,
 ``vs_baseline`` and ``detail``, with bench.py's keys (``general_packed_mb``
 is ``general_device_mb`` here, and bench.py's ``fe_auto_warn`` pin is
-not ported) plus the port's counters: ``cold_solve_s``, ``host_syncs``,
-``graph_captures``, ``graph_replays``, ``graph_nodes_replayed``,
-``stencil_launches`` (per dtype) for the headline and, prefixed, for the
-general and fe_auto solves; ``chain_launches_per_rep``;
+not ported) plus the port's counters: ``cold_solve_s``, ``host_syncs``
+(1 for a resident solve: the one read at its end), ``graph_captures``,
+``graph_replays`` (program launches: 1 for a resident solve),
+``graph_nodes_replayed``, ``stencil_launches`` (per dtype) and
+``loop_control_launches`` (the loop-control kernel's, counted on the
+device) for the headline and, prefixed, for the general and fe_auto
+solves; ``chain_launches_per_rep``;
 ``device_name``, ``power_limit_w``.
 """
 from __future__ import annotations
@@ -202,9 +205,10 @@ def timed_solve(device, run, b) -> tuple:
     counters set to 0 just before it and read just after:
     (outcome, x, seconds, counters)."""
     from faspsolver_tpu_torch.ops import stencil2d
-    from faspsolver_tpu_torch.utils import graphs
+    from faspsolver_tpu_torch.utils import graphs, loops
     _sync(device)
     stencil2d.reset_launches()
+    loops.reset_launches()
     graphs.reset_stats()
     t0 = time.perf_counter()
     out = run(torch.as_tensor(b, dtype=torch.float64, device=device))
@@ -215,7 +219,8 @@ def timed_solve(device, run, b) -> tuple:
         "graph_replays": graphs.stats["replays"],
         "graph_nodes_replayed": graphs.stats["nodes_replayed"],
         "stencil_launches": {str(k).replace("torch.", ""): v
-                             for k, v in stencil2d.launches.items()}}
+                             for k, v in stencil2d.launches.items()},
+        "loop_control_launches": sum(loops.launches.values())}
     return out, x, s, counters
 
 

@@ -15,13 +15,18 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. the card: nvidia-smi name and power limit, torch / CUDA / nvcc versions;
-2. build the CUDA stencil kernel (nvcc, sm_90a) and the native setup
-   library (g++, from faspsolver_tpu_torch/csrc/, whose paths it prints)
-   from the sources in this checkout;
-3. the kernel against its plain PyTorch version on the card, for every
-   coefficient form (scalar, factored, full) in f32 and f64, at the main
-   paths' shapes (1023^2 5-point, 341^2 9-point, 1023^2 7-point P1-FE) and
-   a ragged 17x33 grid;
+2. build the CUDA stencil kernel and the loop-control kernel (nvcc,
+   sm_90a) and the native setup library (g++, from
+   faspsolver_tpu_torch/csrc/, whose paths it prints) from the sources in
+   this checkout, the three compilers started together;
+3. the stencil kernel against its plain PyTorch version on the card, for
+   every coefficient form (scalar, factored, full) in f32 and f64, at the
+   main paths' shapes (1023^2 5-point, 341^2 9-point, 1023^2 7-point
+   P1-FE) and a ragged 17x33 grid; then every entry point of the
+   loop-control kernel (PCG, BiCGstab, MINRES, refinement) over the
+   edge-case table LOOP_CASES in f32 and f64, its state block after each
+   step bit-equal to its plain twin's, and its launch time beside an
+   empty one-thread kernel's;
 4. the headline at full size: poisson_2d(1023) (1,046,529 dof), the
    structured SA-AMG setup in f32 with the f64 fine operator, moved to the
    card, then f64 refinement around f32 AMG-PCG (tol 1e-6, 4 rounds, 40
@@ -137,18 +142,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    timed region, both kernel dtypes launched by the headline, k stencil
    launches per rep in every marginal-time chain).
 
-On the card the PCG iterations, the AMG cycles and the refinement
-rounds' f64 stages replay from CUDA graphs captured at the first solve
-(``faspsolver_tpu_torch/utils/graphs.py``).  Phases 4, 6 and 7 run each
-solve twice: cold (the capture included) and warm, the timed one, each
-with the kernel launch counts and the graph counters set to 0 just
-before it and read just after: its seconds, graph replays and nodes,
-captures, capture seconds and graph MB, the memory reserved before and
-after, host syncs and launches; both dtypes must have launched, and
-every solve must have replayed graphs.  Phase 4 runs the headline once
-more as the eager loop (``graphs.eager()``) and holds its x bit-equal
-to the graphed solve's, with equal counts, syncs and launches; phase 8
-times each ini file's Krylov solve cold and warm the same way.  Phase 8 counts the launches of each CLI run
+On the card the refinement, its inner PCG, and the PCG, BiCGstab and
+MINRES solves over capturable operators are resident: the whole loop is
+one CUDA graph captured at the first solve, with conditional WHILE and
+IF nodes set by the loop-control kernel
+(``faspsolver_tpu_torch/utils/graphs.py``), launched once per solve and
+read once at its end.  Phases 4, 6 and 7 run each solve twice: cold (the
+capture included) and warm, the timed one, each with the kernel launch
+counts and the graph counters set to 0 just before it and read just
+after: its seconds, program launches and nodes, captures, capture
+seconds and graph MB, the memory reserved before and after, host syncs
+and launches; both dtypes and the loop-control kernel must have
+launched, and every solve must be one program launch and one host read.
+Phase 4 runs the headline once more as the eager loop
+(``graphs.eager()``) and holds its x bit-equal to the resident solve's,
+with equal counts and launches, and the eager loop's reads (one per
+round, inner start, inner iteration and recompute) against the resident
+solve's one; phase 8 times each ini file's Krylov solve cold and warm
+the same way (input.dat's CG + AMG: one launch and one read each) and
+holds the small grid's BiCGstab and MINRES solves to one read and
+bit-equal to their own eager loops.  Phase 8 counts the launches of each CLI run
 (setup and solve) and of each timed solve; input.dat's must include the
 f64 kernel; phases 9 and 10 count the launches of each solve, and the
 ILU and Schwarz solves of phase 9 and the MatFree solve of phase 10 must
@@ -190,7 +203,9 @@ FE_AUTO_ANCHOR = {"inner_iters": 28, "relres": 4.16e-8}
 BENCH_SPE01_ANCHOR = 112
 BENCH_TIMEOUT = 900
 REPLACES = {"k1": "faspsolver_tpu/ops/pallas_kernels.py:149",
-            "k2": "faspsolver_tpu/ops/pallas_kernels.py:36"}
+            "k2": "faspsolver_tpu/ops/pallas_kernels.py:36",
+            # no Pallas kernel: XLA's while / cond around the loop bodies
+            "loop": "faspsolver_tpu/krylov/pcg.py:173"}
 
 # phase 8, the user entry point: the JAX CLI's iteration counts on the
 # same runs (python -m faspsolver_tpu -ini ini/<f>.dat -problem poisson2d
@@ -220,6 +235,9 @@ _KRYLOV = (("BiCGstab", _BICG, 69, 5), ("MinRes", _MINRES, 99, 8),
            ("vFGMRES", _VFGMRES, 132, 8), ("GCR", _GCR, 132, 8),
            ("GCG", _GCG, 99, 8))
 _GMRES_FAMILY = (_GMRES, _VGMRES, _VFGMRES)
+# the small-grid solves whose loop is resident on the card
+RESIDENT_SMALL_GRID = ("BiCGstab + diag", "MinRes + diag",
+                       "BiCGstab + AMG", "MinRes + AMG")
 SMALL_GRID = [
     *[(f"{name} + diag", "krylov_diag", dict(itsolver_type=t, **_DIAG_ITS),
        None, n_diag, 3 if t == _BICG else 2 if t in _GMRES_FAMILY else 1)
@@ -1074,10 +1092,21 @@ def sync(torch, device):
 
 def launch_counts():
     """The stencil wrapper's launch counts since they were last set to 0,
-    by element type."""
+    by element type, and the loop-control kernel's (all entry points)."""
     from faspsolver_tpu_torch.ops import stencil2d
-    return {str(k).replace("torch.", ""): v
-            for k, v in stencil2d.launches.items()}
+    from faspsolver_tpu_torch.utils import loops
+    out = {str(k).replace("torch.", ""): v
+           for k, v in stencil2d.launches.items()}
+    out["loop_control"] = sum(loops.launches.values())
+    return out
+
+
+def reset_counts():
+    """Both kernels' launch counts set to 0."""
+    from faspsolver_tpu_torch.ops import stencil2d
+    from faspsolver_tpu_torch.utils import loops
+    stencil2d.reset_launches()
+    loops.reset_launches()
 
 
 def sh(cmd):
@@ -1097,17 +1126,26 @@ def card_info(torch):
 
 
 def build():
-    """The CUDA kernel (nvcc) and the native setup library (g++), built
-    from the sources in this checkout."""
+    """The two CUDA kernels (nvcc) and the native setup library (g++),
+    built from the sources in this checkout, the three compilers started
+    together."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
     from faspsolver_tpu_torch import native
     from faspsolver_tpu_torch.ops import stencil2d
+    from faspsolver_tpu_torch.utils import loops
     from faspsolver_tpu_torch.utils.build import BUILD_LOG
-    stencil2d.library()
-    if not native.available():
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(f) for f in (stencil2d.library, loops.library,
+                                         native.available)]
+        stencil_lib, loop_lib, native_ok = (j.result() for j in jobs)
+    if not native_ok:
         raise RuntimeError(f"native setup library: {native.build_error}")
     print(f"build: stencil2d (nvcc) {BUILD_LOG['stencil2d'][1]:.2f} s, "
-          f"fasp_native (g++) {BUILD_LOG['fasp_native'][1]:.2f} s")
+          f"loop_control (nvcc) {BUILD_LOG['loop_control'][1]:.2f} s, "
+          f"fasp_native (g++) {BUILD_LOG['fasp_native'][1]:.2f} s, "
+          f"{time.perf_counter() - t0:.2f} s in all")
     csrc = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(native.__file__))), "csrc")
     print("fasp_native built from "
@@ -1253,6 +1291,190 @@ def kernel_vs_plain(torch, op, gen, label):
     return err
 
 
+# phase 3, second part: the loop-control kernel (csrc/loop_control.cu)
+# against its plain twin, bit for bit.  A case is (entry point, region
+# parameters, steps), a step (phase, inputs): PCG's check takes p.Ap,
+# alpha, |r|, max|x|, x.x, p.p; BiCGstab's rstar.v, t.t, |r|, x.x,
+# step.step; MINRES's eta and the next Lanczos norm; every decide the
+# true residual's norm (MINRES: and x.x); the refinement's round its
+# f64 relres.  Krylov parameters default to LOOP_KRYLOV.  Together the
+# cases take every branch: convergence, a false claim restarted and one
+# out of budget, breakdowns, the zero solution, stagnation restarts and
+# their budget, MOD_REL_RES and REL_PRECRES, the safe iterate, maxit, an
+# entry test that is already done, and the inner tolerance's clamps.
+LOOP_KRYLOV = dict(tol=1e-6, abstol=1e-18, maxit=50, stop_type=1,
+                   safe=False, max_stag=20, max_restart=20)
+LOOP_REFINE = dict(tol=1e-6, inner_tol=1e-5, inner_floor=5e-6,
+                   max_rounds=4)
+_PCG_SLOW = [1.5, 0.4, 5e-7, 0.2, 0.05, 0.2]
+LOOP_CASES = {
+    "pcg converges": ("pcg", {}, [
+        (0, [1.0, 0.0]), (1, [2.0, 0.5, 0.3, 0.1, 0.04, 1.0]), (2, [0.0]),
+        (1, _PCG_SLOW), (2, [5e-7])]),
+    "pcg false claim restarts": ("pcg", {}, [
+        (0, [1.0, 0.0]), (1, _PCG_SLOW), (2, [2e-6]),
+        (1, [1.5, 0.4, 6e-7, 0.2, 0.05, 0.2]), (2, [3e-7])]),
+    "pcg false claim out of budget": ("pcg", {"max_restart": 1}, [
+        (0, [1.0, 0.0]), (1, _PCG_SLOW), (2, [2e-6])]),
+    "pcg breakdown": ("pcg", {}, [
+        (0, [1.0, 0.0]), (1, [1e-41, 0.0, 0.99, 0.0, 0.0, 1.0]),
+        (2, [0.0])]),
+    "pcg zero solution": ("pcg", {}, [
+        (0, [1.0, 0.0]), (1, [2.0, 0.5, 0.95, 1e-21, 1e-42, 1.0]),
+        (2, [0.0])]),
+    "pcg stagnation restart, then its budget": ("pcg", {"max_stag": 2}, [
+        (0, [1.0, 4e14]), (1, [2.0, 1e-9, 0.95, 2e7, 4e14, 1.0]),
+        (2, [0.95]), (1, [2.0, 1e-9, 0.94, 2e7, 4e14, 1.0]), (2, [0.94])]),
+    "pcg MOD_REL_RES": ("pcg", {"stop_type": 3}, [
+        (0, [1.0, 4.0]), (1, [2.0, 0.5, 0.3, 0.1, 9.0, 1.0]), (2, [0.0]),
+        (1, [1.5, 0.4, 2e-6, 0.2, 16.0, 0.2]), (2, [1.5e-6])]),
+    "pcg REL_PRECRES": ("pcg", {"stop_type": 2}, [
+        (0, [2.0, 1.0]), (1, [2.0, 0.5, 0.6, 0.1, 0.04, 1.0]), (2, [0.0]),
+        (1, _PCG_SLOW), (2, [1e-6])]),
+    "pcg safe iterate": ("pcg", {"safe": True}, [
+        (0, [1.0, 0.0]), (1, [2.0, 0.5, 0.5, 0.1, 0.04, 1.0]), (2, [0.0]),
+        (1, [2.0, 0.5, 0.45, 0.1, 0.04, 1.0]), (2, [0.0]),
+        (1, [2.0, 0.5, 0.8, 0.1, 0.04, 1.0]), (2, [0.0])]),
+    "pcg maxit": ("pcg", {"maxit": 1}, [
+        (0, [1.0, 0.0]), (1, [2.0, 0.5, 0.3, 0.1, 0.04, 1.0]), (2, [0.0])]),
+    "pcg done at entry": ("pcg", {}, [(0, [1e-19, 1.0])]),
+    "bicgstab converges": ("bicgstab", {}, [
+        (0, [1.0, 0.0]), (1, [1.0, 2.0, 0.3, 0.04, 0.01]), (2, [0.0]),
+        (1, [1.0, 2.0, 5e-7, 0.05, 0.01]), (2, [5e-7])]),
+    "bicgstab breakdown of t.t": ("bicgstab", {}, [
+        (0, [1.0, 0.0]), (1, [1.0, 1e-41, 0.99, 0.04, 0.01]), (2, [0.0])]),
+    "bicgstab breakdown of rstar.v": ("bicgstab", {}, [
+        (0, [1.0, 0.0]), (1, [-1e-41, 2.0, 0.99, 0.04, 0.01]),
+        (2, [0.0])]),
+    "bicgstab stagnation restart": ("bicgstab", {}, [
+        (0, [1.0, 4e14]), (1, [1.0, 2.0, 0.95, 4e14, 1e-18]), (2, [0.95]),
+        (1, [1.0, 2.0, 0.5, 4e14, 1.0]), (2, [0.0])]),
+    "bicgstab false claim out of budget": ("bicgstab", {"max_restart": 1}, [
+        (0, [1.0, 0.0]), (1, [1.0, 2.0, 5e-7, 0.05, 0.01]), (2, [2e-6])]),
+    "bicgstab MOD_REL_RES, safe": ("bicgstab", {"stop_type": 3,
+                                                "safe": True}, [
+        (0, [1.0, 4.0]), (1, [1.0, 2.0, 0.3, 9.0, 0.01]), (2, [0.0]),
+        (1, [1.0, 2.0, 0.6, 9.0, 0.01]), (2, [0.0]),
+        (1, [1.0, 2.0, 2e-6, 16.0, 0.01]), (2, [1.5e-6])]),
+    "minres converges": ("minres", {}, [
+        (0, [1.0, 0.0, 1.0]), (1, [0.3, 0.5]), (2, [0.0, 0.0]),
+        (1, [5e-7, 0.5]), (2, [6e-7, 1.0])]),
+    "minres false claim continues": ("minres", {}, [
+        (0, [1.0, 0.0, 1.0]), (1, [5e-7, 0.5]), (2, [2e-6, 1.0]),
+        (1, [4e-7, 0.5]), (2, [5e-7, 1.0])]),
+    "minres Lanczos breakdown": ("minres", {}, [
+        (0, [1.0, 0.0, 1.0]), (1, [0.3, 1e-21]), (2, [0.0, 0.0])]),
+    "minres done at entry": ("minres", {}, [(0, [1.0, 0.0, 1e-21])]),
+    "minres MOD_REL_RES, safe": ("minres", {"stop_type": 3, "safe": True}, [
+        (0, [1.0, 4.0, 1.0]), (1, [0.3, 0.5]), (2, [0.0, 0.0]),
+        (1, [0.4, 0.5]), (2, [0.0, 0.0]), (1, [5e-7, 0.5]),
+        (2, [2e-6, 9.0])]),
+    "refine two rounds": ("refine", {}, [(0, [0.0]), (1, [1e-3]),
+                                         (1, [2e-7])]),
+    "refine inner tolerance clamps": ("refine", {}, [
+        (0, [0.0]), (1, [0.1]), (1, [3e-2]), (1, [7e-4])]),
+    "refine max rounds": ("refine", {"max_rounds": 2}, [
+        (0, [0.0]), (1, [0.5]), (1, [0.4])]),
+    "refine relres floor": ("refine", {"tol": 1e-310, "inner_floor": 1e-20}, [
+        (0, [0.0]), (1, [1e-301]), (1, [3e-300])]),
+    "refine no round": ("refine", {"max_rounds": 0}, [(0, [0.0])]),
+}
+
+
+def loop_case_blocks(torch, name, dtype, device, plain):
+    """Case ``name`` of LOOP_CASES in ``dtype`` on ``device``, through
+    the twin (``plain``) or the wrapper (the kernel on the card): the
+    state block's bytes after every step."""
+    from faspsolver_tpu_torch.utils import loops
+    kind, params, steps = LOOP_CASES[name]
+    F, I = loops.F, loops.I
+    if kind == "refine":
+        p = {**LOOP_REFINE, **params}
+        blk = loops.Block(device, [("refine", torch.float64),
+                                   ("inner", dtype)])
+        blk.upload({"refine": {("f", F.TOL): p["tol"],
+                               ("f", F.INNER_TOL): p["inner_tol"],
+                               ("f", F.INNER_FLOOR): p["inner_floor"],
+                               ("i", I.MAXIT): p["max_rounds"]}})
+        call = loops.refine_plain if plain else loops.refine
+        args = (blk["refine"], blk["inner"])
+        in_dtype = torch.float64
+    else:
+        blk = loops.Block(device, [(kind, dtype)])
+        blk.upload({kind: loops.krylov_values(**{**LOOP_KRYLOV, **params})})
+        call = (loops.PLAIN[kind] if plain
+                else lambda ph, x, reg: loops.control(kind, ph, x, reg))
+        args = (blk[kind],)
+        in_dtype = dtype
+    out = []
+    for phase, vals in steps:
+        call(phase, torch.tensor(vals, dtype=in_dtype, device=device), *args)
+        out.append(blk.bytes.cpu().clone())
+    return out
+
+
+def check_loop_control(torch, device, smi):
+    """Every case in f32 and f64: the kernel's block after each step
+    bit-equal to the twin's on the CPU (and to the twin's run on the
+    card); then the times of one control launch (PCG's check): replayed
+    from a CUDA graph of 200 launches (device time, how the resident loop
+    runs it) and eagerly, an empty one-thread kernel the same ways (the
+    launch floor), and the twin on the card.  Returns the kernel's JSON
+    row (launches filled in by the caller)."""
+    from faspsolver_tpu_torch.ops.stencil2d import HBM_BYTES_PER_S
+    from faspsolver_tpu_torch.utils import loops
+    from faspsolver_tpu_torch.utils.build import BUILD_LOG
+    print_ptxas(BUILD_LOG["loop_control"][2])
+    steps = 0
+    for name in LOOP_CASES:
+        for dt in (torch.float32, torch.float64):
+            got = loop_case_blocks(torch, name, dt, device, plain=False)
+            want = loop_case_blocks(torch, name, dt, "cpu", plain=True)
+            on_card = loop_case_blocks(torch, name, dt, device, plain=True)
+            same = all(torch.equal(g, w) and torch.equal(c, w)
+                       for g, w, c in zip(got, want, on_card))
+            steps += len(got)
+            if not same:
+                bad = next(k for k, (g, w) in enumerate(zip(got, want))
+                           if not torch.equal(g, w))
+                print(f"  loop_control {name} {dt}: step {bad} differs: "
+                      f"kernel {got[bad].tolist()} twin {want[bad].tolist()}")
+            check(same, f"loop_control {name} {dt}: kernel bit-equal to "
+                        f"its plain twin")
+    print(f"  loop_control: {len(LOOP_CASES)} cases x f32/f64, {steps} "
+          f"steps, every block bit-equal to the twin's (CPU and card)")
+    blk = loops.Block(device, [("pcg", torch.float32)])
+    blk.upload({"pcg": loops.krylov_values(**{**LOOP_KRYLOV,
+                                              "maxit": 10 ** 9})})
+    reg = blk["pcg"]
+    inp = torch.tensor([2.0, 0.5, 0.3, 0.1, 0.04, 1.0], device=device)
+    saved = dict(loops.launches)
+    ctl = lambda x: loops.control("pcg", loops.CHECK, x, reg)  # noqa: E731
+    ms = time_ms(torch, ctl, inp, graph=True)
+    eager_ms = time_ms(torch, ctl, inp)
+    empty = lambda x: loops.launch_empty(device)  # noqa: E731
+    floor_ms = time_ms(torch, empty, inp, graph=True)
+    floor_eager_ms = time_ms(torch, empty, inp)
+    plain = lambda x: loops.pcg_plain(loops.CHECK, x, reg)  # noqa: E731
+    plain_ms = time_ms(torch, plain, inp, reps=20, tries=3)
+    loops.launches.update(saved)        # the timing's launches: not a path's
+    # the least work of a check: its 6 inputs and the region read and
+    # written once; some 30 scalar operations
+    nbytes = inp.numel() * 4 + 2 * (loops.F.COUNT * 4 + loops.I.COUNT * 4)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, 30 / 67e12) * 1e3
+    print(f"  loop_control pcg check: {ms * 1e3:.3f} us per launch in a "
+          f"graph ({eager_ms * 1e3:.3f} us eager), empty one-thread kernel "
+          f"{floor_ms * 1e3:.3f} us ({floor_eager_ms * 1e3:.3f} us eager), "
+          f"plain twin on the card {plain_ms * 1e3:.1f} us; roofline bound "
+          f"{bound_ms * 1e3:.6f} us ({nbytes} bytes); {smi}")
+    return {"name": "loop_control", "route": "cuda",
+            "source": "faspsolver_tpu_torch/csrc/loop_control.cu",
+            "replaces": REPLACES["loop"], "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "launch_floor_ms": floor_ms,
+            "eager_ms": eager_ms, "cases": len(LOOP_CASES), "steps": steps}
+
+
 # ---------------------------------------------------------------------------
 # phases 4, 6, 7: the main paths
 # ---------------------------------------------------------------------------
@@ -1342,7 +1564,7 @@ def timed_solve(torch, device, fn):
     sync(torch, device)
     cuda = torch.device(device).type == "cuda"
     mem0 = torch.cuda.memory_reserved(device) if cuda else 0
-    stencil2d.reset_launches()
+    reset_counts()
     graphs.reset_stats()
     t0 = time.perf_counter()
     out = fn()
@@ -1367,6 +1589,15 @@ def check_graphed(torch, device, what, *runs):
     if torch.device(device).type == "cuda":
         for r in runs:
             check(r["replays"] > 0, f"{what} replayed CUDA graphs: {r}")
+
+
+def check_resident(torch, device, what, out, *runs):
+    """On the card a resident solve is one program launch (cold: its
+    capture, then the launch) and one host read."""
+    if torch.device(device).type == "cuda":
+        for r in runs:
+            check(r["replays"] == 1, f"{what}: one program launch: {r}")
+        check(out.syncs == 1, f"{what}: one host read, not {out.syncs}")
 
 
 def drive(torch, device, A, b, hier, refine, anchor, profile=False,
@@ -1400,7 +1631,9 @@ def drive(torch, device, A, b, hier, refine, anchor, profile=False,
     if torch.device(device).type == "cuda":
         check(counts["float32"] > 0 and counts["float64"] > 0,
               f"the solve launched the kernel in f32 and f64: {counts}")
-    check_graphed(torch, device, "the solve", cold, warm)
+        check(counts["loop_control"] > 0,
+              f"the solve launched the loop-control kernel: {counts}")
+    check_resident(torch, device, "the solve", out, cold, warm)
     check(relres < TOL, f"verified relres {relres} < {TOL}")
     res = {"solve_s": solve_s, "cold_solve_s": cold["s"],
            "rounds": out.rounds, "inner_iters": out.iters, "relres": relres,
@@ -1409,15 +1642,21 @@ def drive(torch, device, A, b, hier, refine, anchor, profile=False,
         with graphs.eager():
             e_out, x_e, eager = timed_solve(torch, device, run)
         same = x_e.tobytes() == x.tobytes()
+        # the eager loop reads once per round, per inner solve's start,
+        # per inner iteration and per recompute, as it did before the
+        # loops became resident
+        reads = 2 * e_out.rounds + e_out.iters + e_out.recomputes
         print(f"  eager loop solve {eager['s']:.4f} s, rounds "
-              f"{e_out.rounds}, inner iterations {e_out.iters}, host syncs "
-              f"{e_out.syncs}, stencil launches {eager['launches']}; x "
-              f"bit-equal to the graphed solve's: {same}")
-        check(same and (e_out.rounds, e_out.iters, e_out.syncs)
-              == (out.rounds, out.iters, out.syncs)
+              f"{e_out.rounds}, inner iterations {e_out.iters}, recomputes "
+              f"{e_out.recomputes}, host syncs {e_out.syncs} (want "
+              f"{reads}), launches {eager['launches']}; x bit-equal to the "
+              f"resident solve's: {same}")
+        check(same and (e_out.rounds, e_out.iters, e_out.recomputes)
+              == (out.rounds, out.iters, out.recomputes)
+              and e_out.syncs == reads and out.syncs == 1
               and eager["launches"] == counts and eager["replays"] == 0,
-              "graphed and eager solves: bit-equal x, equal counts and "
-              "launches")
+              "resident and eager solves: bit-equal x, equal counts and "
+              "launches; the eager loop's reads, the resident one read")
         res["eager_solve_s"] = eager["s"]
     if profile:
         profile_solve(torch, hier, torch.as_tensor(b, device=device), refine)
@@ -1511,24 +1750,53 @@ def small_reference_check(torch, device, setup_fn=None, refine=HEADLINE_REFINE,
 
 def profile_solve(torch, hier, b64, refine=HEADLINE_REFINE):
     """Device busy share of one solve: kernel time (device rows only, so
-    no CPU-op row counts its kernels twice) over the wall time."""
+    no CPU-op row counts its kernels twice) over the wall time, for the
+    resident solve and for the eager loop.  CUPTI does not record every
+    kernel a conditional node's body runs, so the profile also counts the
+    stencil kernels it recorded against the wrapper's count: where they
+    differ, the resident solve's kernel time is the eager loop's (the
+    same kernels) over the resident wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solve(torch, hier, b64, refine)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = prof.key_averages()
-    dev = sum(r.self_device_time_total for r in rows
-              if getattr(r, "device_type", None) == DeviceType.CUDA)
-    print(f"  profile: wall {wall * 1e3:.1f} ms (profiled), device kernel "
-          f"time {dev / 1e3:.1f} ms, device busy share "
-          f"{(dev / 1e6) / wall:.3f}" if dev else
-          "  profile: no device time recorded (not measured)")
-    print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=15))
+    from faspsolver_tpu_torch.utils import graphs
+    out = {}
+    for label in ("resident", "eager"):
+        with contextlib.ExitStack() as stack:
+            if label == "eager":
+                stack.enter_context(graphs.eager())
+            reset_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                solve(torch, hier, b64, refine)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        counted = sum(v for k, v in launch_counts().items()
+                      if k != "loop_control")
+        rows = prof.key_averages()
+        dev = sum(r.self_device_time_total for r in rows
+                  if getattr(r, "device_type", None) == DeviceType.CUDA)
+        seen = sum(r.count for r in rows
+                   if getattr(r, "device_type", None) == DeviceType.CUDA
+                   and "stencil2d" in r.key)
+        out[label] = {"wall_s": wall, "kernel_s": dev / 1e6,
+                      "stencil_seen": seen, "stencil_counted": counted}
+        print(f"  profile ({label}): wall {wall * 1e3:.1f} ms (profiled), "
+              f"device kernel time {dev / 1e3:.1f} ms, busy share "
+              f"{(dev / 1e6) / wall:.3f}; stencil kernels recorded {seen} "
+              f"of {counted} launched" if dev else
+              f"  profile ({label}): no device time recorded (not "
+              f"measured)")
+        print(prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=12))
+    r, e = out["resident"], out["eager"]
+    if r["stencil_seen"] < r["stencil_counted"]:
+        print(f"  resident solve's busy share from the eager loop's kernel "
+              f"time: {e['kernel_s'] * 1e3:.1f} ms / {r['wall_s'] * 1e3:.1f}"
+              f" ms = {e['kernel_s'] / r['wall_s']:.3f} (CUPTI recorded "
+              f"{r['stencil_seen']} of its {r['stencil_counted']} stencil "
+              f"kernels)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1652,24 +1920,24 @@ def drivers_path(torch, device):
     from faspsolver_tpu_torch.ops import stencil2d
     from faspsolver_tpu_torch.testgen import (poisson_2d_manufactured,
                                               poisson_fe_manufactured)
-    from faspsolver_tpu_torch.utils import messages
+    from faspsolver_tpu_torch.utils import graphs, messages
     from faspsolver_tpu_torch.utils.params import AMGParam, ITSParam
 
     warned = []
     warn = messages.warn
     messages.warn = lambda m: (warned.append(m), warn(m))
-    counts = {"float32": 0, "float64": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0}
     readings = {}
     try:
         A, b, _ = poisson_2d_manufactured(NX)
         for name, (anchor, bound) in INI_ANCHORS.items():
             ini = f"ini/{name}.dat"
-            stencil2d.reset_launches()
+            reset_counts()
             rc, iters, relres, wall = cli(torch, device, [
                 "-ini", ini, "-problem", "poisson2d", "-size", str(NX)])
             cli_counts = launch_counts()
             for k in counts:
-                counts[k] += cli_counts[k]
+                counts[k] += cli_counts.get(k, 0)
             r = ini_setup_and_solve(torch, device, ini, A, b)
             print(f"  {ini}: CLI rc {rc}, {iters} iterations (JAX anchor "
                   f"{anchor} +- {bound}), verified relres {relres:.6e}, "
@@ -1682,6 +1950,12 @@ def drivers_path(torch, device):
             print(graph_line("  cold", r["cold"]) + f", {r['cold']['iters']}"
                   f" iterations, host syncs {r['cold']['syncs']}")
             print(graph_line("  warm", r["warm"]))
+            if name == "input" and torch.device(device).type == "cuda":
+                # CG + RS-AMG: the resident PCG, one launch and one read
+                check(r["cold"]["replays"] == 1 and r["warm"]["replays"] == 1
+                      and r["syncs"] == 1 and r["cold"]["syncs"] == 1,
+                      f"{ini}: one program launch and one host read per "
+                      f"solve: {r['cold']}, {r['warm']}")
             check_graphed(torch, device, ini, r["cold"], r["warm"])
             for it, rel in ((iters, relres), (r["iters"], r["relres"])):
                 check(rc == 0 and rel < TOL and abs(it - anchor) <= bound,
@@ -1696,14 +1970,14 @@ def drivers_path(torch, device):
 
         # the CLI as a user types it, with no device argument: it must
         # run on the card (only a CUDA launch raises the counts)
-        stencil2d.reset_launches()
+        reset_counts()
         rc, iters, relres, wall = cli(torch, None, [
             "-ini", "ini/input.dat", "-problem", "poisson2d", "-size",
             str(NX)])
         default_counts = launch_counts()
         n64 = default_counts["float64"]
         for k in counts:
-            counts[k] += default_counts[k]
+            counts[k] += default_counts.get(k, 0)
         print(f"  ini/input.dat, no device argument: CLI rc {rc}, {iters} "
               f"iterations, verified relres {relres:.6e}, {wall:.3f} s, "
               f"f64 stencil launches {n64}")
@@ -1741,6 +2015,30 @@ def drivers_path(torch, device):
                   f"{relres}")
             grid[name] = {"iters": res.iters, "relres": relres,
                           "syncs": res.syncs, "s": wall}
+            if name in RESIDENT_SMALL_GRID and \
+                    torch.device(device).type == "cuda":
+                # resident: one read, and its own eager loop's result: bit
+                # for bit over the diagonal preconditioner; over RS-AMG,
+                # whose transfers add with atomics (index_add_), to 1e-6
+                # (each x is within cond(A) 1e-10 of the solution, and
+                # cond(A) < 1e4 here) with the row's count allowance
+                with graphs.eager():
+                    e = getattr(solvers, driver)(A, b, dtype=torch.float64,
+                                                 device=device, **kw)
+                e = e[0] if isinstance(e, tuple) else e
+                diff = float((res.x - e.x).norm() / e.x.norm())
+                exact = name.endswith("diag")
+                print(f"  {'':24s} eager loop: {e.iters} iterations, host "
+                      f"syncs {e.syncs}; x bit-equal: "
+                      f"{torch.equal(res.x, e.x)}, relative difference "
+                      f"{diff:.2e}")
+                check(res.syncs == 1 and e.syncs > e.iters
+                      and (torch.equal(res.x, e.x) and res.iters == e.iters
+                           if exact else diff <= 1e-6
+                           and abs(res.iters - e.iters) <= bound),
+                      f"small grid {name}: resident (1 read, not "
+                      f"{res.syncs}) and its eager loop's result")
+                grid[name]["eager_syncs"] = e.syncs
         readings["small_grid"] = grid
     finally:
         messages.warn = warn
@@ -1784,7 +2082,7 @@ def drive_driver(torch, device, driver, fields, A, b, split=None):
     if fields.get("nk"):
         args.append(component_basis(A.nrow, A.nb))
     sync(torch, device)
-    stencil2d.reset_launches()
+    reset_counts()
     with spied_calls(setup_spies()) as spy, \
             spied_calls(split or {}) as parts:
         t0 = time.perf_counter()
@@ -1822,7 +2120,7 @@ def drive_refined(torch, device, A, b, amg_fields):
     param = AMGParam(**amg_fields)
     setup = setup_sa_bsr if int(param.AMG_type) == 2 else setup_ua_bsr
     sync(torch, device)
-    stencil2d.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     if device_arg(torch, device) is None:
         device = default_device()
@@ -1916,7 +2214,7 @@ def cli_run(torch, device, argv, overrides):
     with ``overrides``; the setup's preconditioner is kept."""
     from faspsolver_tpu_torch.ops import stencil2d
     ini = ini_with("ini/input.dat", overrides)
-    stencil2d.reset_launches()
+    reset_counts()
     with spied_calls(setup_spies()) as spy:
         rc, iters, relres, wall = cli(torch, device_arg(torch, device),
                                       ["-ini", ini, *argv])
@@ -1936,14 +2234,14 @@ def block_path(torch, device, smi):
     from faspsolver_tpu_torch.precond.amg import smooth
     from faspsolver_tpu_torch.testgen import poisson_fe_manufactured
     from faspsolver_tpu_torch.utils import params
-    counts = {"float32": 0, "float64": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0}
     readings = {}
     gen = torch.Generator(device=device).manual_seed(SEED)
     on_card = torch.device(device).type == "cuda"
 
     def add(r):
         for k in counts:
-            counts[k] += r["launches"][k]
+            counts[k] += r["launches"].get(k, 0)
 
     print(f"  9a. block_poisson_3d({BSR_NX}, nb=3)")
     t0 = time.perf_counter()
@@ -2211,7 +2509,7 @@ def surface_leftovers(torch, add):
     op = best_operator(P, dtype=torch.float64).to(place)
     mf = MatFreeOperator(op, P.nrow, torch.float64)
     M = JacobiPrecond.from_csr(P).to(place)
-    stencil2d.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     res = itsolver(mf, bp, M=M, its=ITSParam(**MATFREE_STENCIL))
     x = res.x.cpu().numpy()
@@ -2270,7 +2568,7 @@ def surface_leftovers(torch, add):
 
     Ab, bb = bsr_problem()
     for fn, kw, anchor, bound in CAPI_GRID:
-        stencil2d.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         if fn == "dbsr_krylov_amg":
             xc, it, rr = capi.dbsr_krylov_amg(
@@ -2295,11 +2593,11 @@ def surface_leftovers(torch, add):
 def surface_path(torch, device, smi):
     """Phase 10.  Returns the stencil launches of its solves and the
     readings."""
-    counts = {"float32": 0, "float64": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0}
 
     def add(r):
         for k in counts:
-            counts[k] += r["launches"][k]
+            counts[k] += r["launches"].get(k, 0)
 
     t0 = time.perf_counter()
     readings = {"str": surface_str(torch, device, smi, add),
@@ -2353,10 +2651,10 @@ def harness_generated(torch, device, dtype, anchors):
     rows = harness.generated_problems()
     check([n for n, _, _ in rows] == list(anchors),
           f"the generated rows are the anchored ones: {list(anchors)}")
-    counts = {"float32": 0, "float64": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0}
     readings = {"lmvu": lmvu}
     for name, A, b in rows:
-        stencil2d.reset_launches()
+        reset_counts()
         r = harness.score_problem(name, A, b, keep, lmvu)
         launches = launch_counts()
         out = kept["out"]
@@ -2381,7 +2679,7 @@ def harness_generated(torch, device, dtype, anchors):
               f"verified {relres} < {TOL}")
         hold_to_anchor(name, r.iters, anchors)
         for k in counts:
-            counts[k] += launches[k]
+            counts[k] += launches.get(k, 0)
         readings[name] = {"n": r.n, "nnz": r.nnz, "iters": r.iters,
                           "solve_s": r.solve_s, "score": r.score,
                           "relres": relres, "launches": launches}
@@ -2398,7 +2696,7 @@ def harness_corpus(torch, device, rows=None):
     asked = list(HARNESS_CORPUS_F64)[:rows]
     every = harness.corpus_problems
     harness.corpus_problems = lambda scale=255: every(scale)[:rows]
-    stencil2d.reset_launches()
+    reset_counts()
     try:
         with spied_calls({"run_corpus": (harness, "run_corpus")}) as spy:
             rc = main(["--corpus"], device=device_arg(torch, device))
@@ -2600,11 +2898,11 @@ def harness_path(torch, device, corpus_rows=None):
     Returns the stencil launches of its runs and the readings."""
     import shutil
     import tempfile
-    counts = {"float32": 0, "float64": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0}
 
     def add(c):
         for k in counts:
-            counts[k] += c[k]
+            counts[k] += c.get(k, 0)
 
     t0 = time.perf_counter()
     readings = {}
@@ -2645,21 +2943,21 @@ def regression_path(torch, device, sets=("core", "bsr", "matfree", "mm")):
     Returns the stencil launches and the readings."""
     from faspsolver_tpu_torch.ops import stencil2d
     from faspsolver_tpu_torch.regression import runner
-    counts = {"float32": 0, "float64": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0}
     readings = {}
     t0 = time.perf_counter()
     for kind in sets:
         fn, keys = REGRESSION_SETS[kind]
         probs = regression_problems(keys)
         cfgs = getattr(runner, fn)()
-        stencil2d.reset_launches()
+        reset_counts()
         t1 = time.perf_counter()
         res = runner.run_matrix(cfgs, probs)
         sync(torch, device)
         secs = time.perf_counter() - t1
         launches = launch_counts()
         for k in counts:
-            counts[k] += launches[k]
+            counts[k] += launches.get(k, 0)
         npass, nwarn = runner.print_tally(res)
         for r in res:
             if (r.problem, r.name) in REGRESSION_FLOOR:
@@ -2731,7 +3029,7 @@ def parallel_solves(torch, device):
     bd = shard_vector(as_tensor(b, f64), mesh)
 
     def solve(key, fn, A, b, anchor, what):
-        stencil2d.reset_launches()
+        reset_counts()
         sync(torch, device)
         t0 = time.perf_counter()
         res = fn()
@@ -2813,7 +3111,7 @@ def parallel_solves(torch, device):
         say(f"    ({key}) CommMaps {[tuple(vars(m).values()) for m in maps]}")
         readings[f"f_{key}"] = rec.summary()
     say(f"  (g) dryrun_multichip({ws})")
-    stencil2d.reset_launches()
+    reset_counts()
     readings["g"] = dryrun_multichip(ws)
     counts["g"] = launch_counts()
     say(f"    {readings['g']}, launches {counts['g']}")
@@ -2934,7 +3232,7 @@ def run_tutorial(torch, device, mod, arg):
         targets = {n: (m, n) for n in ("krylov_amg", "solve_amg",
                                        "poisson_gmg_2d") if hasattr(m, n)}
     buf = io.StringIO()
-    stencil2d.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     with call_records(targets) as calls, contextlib.redirect_stdout(buf):
         out = m.main([arg])
@@ -2953,7 +3251,7 @@ def tutorials_path(torch, device, tmp):
     Returns the launches and the readings."""
     import re
     t0 = time.perf_counter()
-    counts = {"float32": 0, "float64": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0}
     readings, got = {}, {}
     readings["write_s"] = write_tutorial_data(tmp)
     print(f"  FE and SPE01 files written in {readings['write_s']:.1f} s")
@@ -2986,14 +3284,24 @@ def tutorials_path(torch, device, tmp):
             rows["refined solve"].update(setup_s=setup_s,
                                          cold_solve_s=cold, solve_s=warm)
         for k in counts:
-            counts[k] += launches[k]
+            counts[k] += launches.get(k, 0)
         print(f"  {mod}: {secs:.1f} s (the files read included), "
               f"stencil launches {launches}")
         readings[mod] = {"s": secs, "launches": launches, "rows": rows}
+        if mod == "fast_path":
+            readings[mod]["result"] = {"rounds": out.rounds,
+                                       "syncs": out.syncs}
         got.update(rows)
     if torch.device(device).type == "cuda":
         check(readings["fast_path"]["launches"]["float32"] > 0,
               "fast_path launched the f32 kernel")
+        # fast_path refines on the host, as the JAX tutorial does: per
+        # round one resident inner PCG (one launch, one read) and the
+        # round's x to the host
+        fp = readings["fast_path"]["result"]
+        check(fp["syncs"] == 2 * fp["rounds"],
+              f"fast_path: one read per inner solve and one per round: "
+              f"{fp}")
         check(readings["poisson_its"]["rows"]["CG+ILU"]["launches"][
             "float64"] > 0, "CG+ILU launched the f64 kernel")
     misses = tutorial_misses(got, TUTORIAL_ANCHORS)
@@ -3019,7 +3327,8 @@ def bench_misses(d, spe01_anchor=None):
     inner iterations; general <= 3 rounds and within 3 of
     GENERAL_ANCHOR; fe_auto within 3 of FE_AUTO_ANCHOR; SPE01 within
     max(2, 5%) of ``spe01_anchor``, default BENCH_SPE01_ANCHOR), a timed
-    solve that replayed no graph or captured one, a headline without
+    solve that was not one program launch with one host read and
+    loop-control launches, or that captured a graph, a headline without
     both kernel dtypes, a marginal-time chain of k applies without k
     stencil launches per rep."""
     anchor = BENCH_SPE01_ANCHOR if spe01_anchor is None else spe01_anchor
@@ -3045,8 +3354,14 @@ def bench_misses(d, spe01_anchor=None):
     near("fe_auto_inner_iters", FE_AUTO_ANCHOR["inner_iters"], 3)
     near("spe01_inner_iters", anchor, max(2, round(0.05 * anchor)))
     for p in BENCH_STANZAS:
-        if not d.get(f"{p}graph_replays"):
-            bad.append(f"{p}graph_replays {d.get(f'{p}graph_replays')}")
+        # a resident solve: one program launch, one host read, and the
+        # loop-control kernel ran in it
+        for key in ("graph_replays", "host_syncs"):
+            if d.get(f"{p}{key}") != 1:
+                bad.append(f"{p}{key} {d.get(f'{p}{key}')}, not 1")
+        if not d.get(f"{p}loop_control_launches"):
+            bad.append(f"{p}loop_control_launches "
+                       f"{d.get(f'{p}loop_control_launches')}")
         if d.get(f"{p}graph_captures") != 0:
             bad.append(f"{p}graph_captures {d.get(f'{p}graph_captures')} "
                        f"in a timed solve")
@@ -3269,67 +3584,73 @@ def main(argv) -> int:
         return 1
     device = torch.device("cuda")
     profile = "--profile" in argv
+    t0 = time.perf_counter()
 
-    print("== 1. card")
+    def banner(text):
+        """A phase's header, with the seconds since the run began."""
+        print(f"== {text}  [{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    banner("1. card")
     smi = card_info(torch)
-    print("== 2. build")
+    banner("2. build")
     build()
-    print("== 3. kernel against plain version")
+    banner("3. kernels against their plain versions")
     worst = check_kernel(torch, device)
+    loop_row = check_loop_control(torch, device, smi)
     if "--kernel-only" in argv:
         print("stopped after phase 3 (--kernel-only)")
         return 0
     if "--block-only" in argv:
-        print("== 9. main path: block and factorization preconditioners")
+        banner("9. main path: block and factorization preconditioners")
         block_path(torch, device, smi)
         print("stopped after phase 9 (--block-only)")
         return 0
     if "--surface-only" in argv:
-        print("== 10. main path: the solver surface")
+        banner("10. main path: the solver surface")
         surface_path(torch, device, smi)
         print("stopped after phase 10 (--surface-only)")
         return 0
     if "--harness-only" in argv:
-        print("== 11. main path: the benchmark harness, checkpoint and "
+        banner("11. main path: the benchmark harness, checkpoint and "
               "profiling")
         harness_path(torch, device)
         print("stopped after phase 11 (--harness-only)")
         return 0
     if "--regression-only" in argv:
-        print("== 12. main path: the regression runner")
+        banner("12. main path: the regression runner")
         regression_path(torch, device)
         print("stopped after phase 12 (--regression-only)")
         return 0
     if "--parallel-only" in argv:
-        print("== 13. main path: the distribution layer")
+        banner("13. main path: the distribution layer")
         parallel_path(torch, device)
         print("stopped after phase 13 (--parallel-only)")
         return 0
     if "--tutorials-only" in argv:
-        print("== 14. main path: the tutorials")
+        banner("14. main path: the tutorials")
         with tempfile.TemporaryDirectory() as tmp:
             tutorials_path(torch, device, tmp)
         print("stopped after phase 14 (--tutorials-only)")
         return 0
     if "--bench-only" in argv:
-        print("== 15. main path: the headline benchmark (bench_torch.py)")
+        banner("15. main path: the headline benchmark (bench_torch.py)")
         with tempfile.TemporaryDirectory() as tmp:
             bench_path(torch, device, tmp)
         print("stopped after phase 15 (--bench-only)")
         return 0
     counts, res = {}, {}
-    print("== 4. main path: headline")
+    banner("4. main path: headline")
     hier, counts["headline"], res["headline"] = main_path(torch, device,
                                                           profile)
     small_reference_check(torch, device)
-    print("== 5. per-apply times")
+    banner("5. per-apply times")
     times = apply_times(torch, (
         ("1023^2 f32 factored 5-pt", hier.levels[0].A),
         ("341^2 f32 factored 9-pt", hier.levels[1].A),
         ("1023^2 f64 factored 5-pt", hier.fine64)), smi)
     del hier
     times.update(form_times(torch, device, smi))
-    print("== 6. main path: general (classical RS-AMG, P1-FE)")
+    banner("6. main path: general (classical RS-AMG, P1-FE)")
     A, b = fe_problem()
     hier, counts["general"], res["general"] = general_path(
         torch, device, A, b, profile)
@@ -3346,33 +3667,33 @@ def main(argv) -> int:
         worst[dt] = max(worst[dt], kernel_vs_plain(torch, op, gen, "FE"))
     times.update(apply_times(torch, fe7, smi))
     del hier
-    print("== 7. main path: fe_auto (structured SA-AMG, P1-FE)")
+    banner("7. main path: fe_auto (structured SA-AMG, P1-FE)")
     counts["fe_auto"], res["fe_auto"] = fe_auto_path(torch, device, A, b)
     del A, b
-    print("== 8. main path: drivers (the ini CLI, then the small grid)")
+    banner("8. main path: drivers (the ini CLI, then the small grid)")
     counts["drivers"], res["drivers"] = drivers_path(torch, device)
-    print("== 9. main path: block and factorization preconditioners")
+    banner("9. main path: block and factorization preconditioners")
     counts["block_and_factorization"], res["block_and_factorization"] = \
         block_path(torch, device, smi)
-    print("== 10. main path: the solver surface")
+    banner("10. main path: the solver surface")
     counts["solver_surface"], res["solver_surface"] = surface_path(
         torch, device, smi)
-    print("== 11. main path: the benchmark harness, checkpoint and "
+    banner("11. main path: the benchmark harness, checkpoint and "
           "profiling")
     # the whole run keeps to its time budget with ten corpus rows;
     # --harness-only runs all twenty
     counts["harness"], res["harness"] = harness_path(torch, device,
                                                      corpus_rows=10)
-    print("== 12. main path: the regression runner")
+    banner("12. main path: the regression runner")
     counts["regression"], res["regression"] = regression_path(torch, device)
-    print("== 13. main path: the distribution layer")
+    banner("13. main path: the distribution layer")
     counts["distribution"], res["distribution"] = parallel_path(torch,
                                                                 device)
     with tempfile.TemporaryDirectory() as tmp:
-        print("== 14. main path: the tutorials")
+        banner("14. main path: the tutorials")
         counts["tutorials"], res["tutorials"] = tutorials_path(torch, device,
                                                                tmp)
-        print("== 15. main path: the headline benchmark (bench_torch.py)")
+        banner("15. main path: the headline benchmark (bench_torch.py)")
         counts["bench"], res["bench"] = bench_path(torch, device, tmp)
 
     # one entry per kernel, stencil2d<T, K> by element type (the band
@@ -3399,7 +3720,11 @@ def main(argv) -> int:
             "library_of": f"1023^2 {dt} scalar 5-pt",
             "shapes": {label: row for label, row in times.items()
                        if f" {dt} " in label}})
+    by_path = {path: c.get("loop_control", 0) for path, c in counts.items()}
+    kernels.append({**loop_row, "launches": sum(by_path.values()),
+                    "launches_by_path": by_path})
     print(json.dumps({"kernels": kernels, "main_paths": res}))
+    print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

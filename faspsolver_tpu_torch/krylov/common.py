@@ -18,6 +18,7 @@ import torch
 
 from .. import is_dtensor, np_dtype
 from ..constants import StopType
+from ..utils import graphs
 from .precond import IdentityPrecond
 
 SMALLREAL = 1e-20       # reference SMALLREAL (fasp_const.h)
@@ -62,6 +63,27 @@ def like(v: torch.Tensor, b) -> torch.Tensor:
         return DTensor.from_local(v.to(b.to_local().device), b.device_mesh,
                                   [Replicate()], run_check=False)
     return v.to(b.device)
+
+
+def local_device(b) -> torch.device:
+    """The device of b's local part (b's own unless b is a DTensor)."""
+    return b.to_local().device if is_dtensor(b) else b.device
+
+
+def loop_state(kind: str, A, M, b, stop_type: int, safe: bool, make):
+    """(state, resident) of a Krylov loop over A and M: the state kept
+    with A and M for a resident solve (a CUDA vector, graphs on, both
+    modules capturable; cached by their buffers, b's dtype and length,
+    the criterion and ``safe``), else a fresh ``make()`` for the eager
+    loop."""
+    if not (graphs.active(b) and graphs.capturable(A)
+            and graphs.capturable(M)):
+        return make(), False
+    (ha, sa), (hm, sm) = graphs.identity(A), graphs.identity(M)
+    key = (b.dtype, b.shape[0], b.device, sa, sm, graphs.fingerprint(ha),
+           graphs.fingerprint(hm))
+    return graphs.cached((ha, hm), (kind, int(stop_type), bool(safe)), key,
+                         make), True
 
 
 def abs_residual(stop_type: int, r, z) -> torch.Tensor:
@@ -128,3 +150,15 @@ class HostReads:
             torch.cuda.current_stream(v.device).synchronize()
             v = host
         return [self.t(a) for a in v.tolist()]
+
+    def block(self, blk):
+        """A loop's state block (``utils.loops.Block``) -> its regions'
+        fields as NumPy arrays, in ONE transfer."""
+        self.count += 1
+        v = blk.bytes
+        if v.device.type == "cuda":
+            host = _pinned_like(v)
+            host.copy_(v, non_blocking=True)
+            torch.cuda.current_stream(v.device).synchronize()
+            v = host
+        return blk.decode(v.numpy().copy())

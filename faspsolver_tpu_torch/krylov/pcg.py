@@ -11,66 +11,84 @@ reproduced (they decide iteration counts):
 Safety-net variant (safe=True) tracks the best iterate and returns it on
 non-convergence (reference: KrySPcg.c:81-85,190-196).
 
-The loop is a Python loop around two device segments (the port's
-counterpart of the JAX package's ONE jitted ``lax.while_loop``):
+The loop is the JAX package's ONE jitted ``lax.while_loop`` as a tree of
+``utils.graphs`` (:func:`_tree`): a start piece (the initial residual and
+norms), then a While whose body is
 
-- S1: ``tp = A p``, the breakdown-guarded alpha, the x and r updates,
-  ``z = M r`` under REL_PRECRES, and the six scalars that steer the loop
-  (p.Ap, alpha, the residual norm, |x|_inf, x.x, p.p) stacked;
-- S2: ``z = M r`` (other criteria), ``temp2n = z.r``, the p update and
-  ``temp1 = temp2n``.
+- half 1: ``tp = A p``, the breakdown-guarded alpha, the x and r updates,
+  ``z = M r`` under REL_PRECRES, and the loop-control check
+  (``utils.loops``) over p.Ap, alpha, the residual norm, |x|_inf, x.x
+  and p.p;
+- an If (the ``lax.cond``): the true residual, when stagnation or a
+  claimed convergence asks for it;
+- half 2: the control's decide, the restart's ``p = 0`` and the safe
+  iterate as masked updates, ``z = M r`` (other criteria), ``temp2n =
+  z.r``, the p update and ``temp1 = temp2n``.
 
-The scalars come to the host in ONE read per iteration, where the checks
-run on NumPy scalars of b's dtype — the same roundings as the JAX
+The decisions are the control's, in b's dtype: on a CUDA vector its
+kernel, on the CPU its plain twin, bit for bit the roundings of the JAX
 package's traced scalar arithmetic (its ``tol`` is cast to b's dtype
-too).  The rare branches run between the segments: the true-residual
-recompute (one more read), the restart's ``p = 0`` and the safe
-iterate.  ``SolveResult.syncs`` counts the reads.
+too).  The state (x, r, z, p, temp1, the safe iterate and the control's
+block) lives in tensors the pieces update in place.
 
-The state (x, r, z, p, temp1 and the safe iterate) lives in tensors the
-segments update in place, with the operations of the plain expressions
-(``torch.add(x, alpha * p, out=x)`` is ``x + alpha * p``).  On a CUDA
-vector, when A and M declare themselves capturable
-(``utils.graphs.capturable``), S1 and S2 are CUDA graphs captured at the
-first solve and replayed by later iterations, rounds and solves over the
-same A and M (cached by their buffers, dtype, length and criterion); a
-failed capture raises.  Elsewhere — the CPU, DTensors, under
-``utils.graphs.eager()``, or a module that does not declare it — the
-same segments run eagerly.
+On a CUDA vector, when A and M declare themselves capturable
+(``utils.graphs.capturable``), the tree is captured at the first solve
+as one CUDA graph (``graphs.Resident``: conditional WHILE and IF nodes
+set by the control kernel) kept with A and M, and a solve is one launch
+and ONE host read at the end (``SolveResult.syncs`` = 1).  Elsewhere —
+the CPU, DTensors, under ``utils.graphs.eager()``, or a module that does
+not declare it — the same tree runs as the eager loop, which reads the
+control's block once per iteration and once more per recompute.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..constants import (ERROR_SOLVER_MISC, ERROR_SOLVER_SOLSTAG,
-                         ERROR_SOLVER_STAG, ERROR_SOLVER_TOLSMALL, MAX_RESTART,
-                         MAX_STAG, STAG_RATIO, StopType)
-from ..utils import graphs
-from .common import (SMALLREAL, SMALLREAL2, HostReads, abs_residual, dot,
-                     initial_norms, residual_norms, resolve_precond)
+from ..constants import MAX_RESTART, MAX_STAG, StopType
+from ..utils import graphs, loops
+from ..utils.loops import CHECK, DECIDE, INIT, F, I
+from .common import (SMALLREAL2, HostReads, abs_residual, dot, like,
+                     local_device, loop_state, resolve_precond)
 from .result import SolveResult
 
 
-class _State:
-    """The tensors one solve updates in place; when graphed, kept with
-    the segments' programs for the next solve over the same A and M."""
+class _State(graphs.LoopState):
+    """The tensors one solve updates in place; when resident, kept with
+    its program for the next solve over the same A and M.  ``b`` is the
+    right-hand side the program reads (a static copy unless given), and
+    ``reg`` the control's region (a block of its own unless given)."""
 
-    def __init__(self, b, precres: bool, safe: bool):
-        self.x, self.r, self.p = (torch.zeros_like(b) for _ in range(3))
-        self.z = torch.zeros_like(b) if precres else None
-        self.best_x = torch.zeros_like(b) if safe else None
-        self.temp1 = None                   # 0-d, set by the first solve
-        self.s1 = self.s2 = None            # graphs.Program, when graphed
+    def __init__(self, like_b, precres: bool, safe: bool, b=None, reg=None):
+        self.b = torch.zeros_like(like_b) if b is None else b
+        self.x, self.r, self.p = (torch.zeros_like(like_b) for _ in range(3))
+        self.z = torch.zeros_like(like_b) if precres else None
+        self.best_x = torch.zeros_like(like_b) if safe else None
+        self.temp1 = torch.zeros_like(dot(like_b, like_b))
+        self.rt = torch.zeros(1, dtype=like_b.dtype,
+                              device=local_device(like_b))
+        if reg is None:
+            self.block = loops.Block(local_device(like_b),
+                                     [("pcg", like_b.dtype)])
+            reg = self.block["pcg"]
+        self.reg = reg
 
-    def set_temp1(self, t: torch.Tensor) -> None:
-        if self.temp1 is None:
-            self.temp1 = t
-        else:
-            self.temp1.copy_(t)
+
+def _start(st: _State, A, M, stop_type: int) -> None:
+    """r = b - A x, z = M r, p = z, temp1 = z.r; the initial norms."""
+    x, r = st.x, st.r
+    torch.sub(st.b, A(x), out=r)
+    z = M(r)
+    if st.z is not None:
+        st.z.copy_(z)
+    st.p.copy_(z)
+    st.temp1.copy_(dot(z, r))
+    if st.best_x is not None:
+        st.best_x.copy_(x)
+    loops.control("pcg", INIT, torch.stack(
+        (abs_residual(stop_type, r, z), dot(x, x))), st.reg)
 
 
-def _seg1(st: _State, A, M, stop_type: int) -> torch.Tensor:
+def _half1(st: _State, A, M, stop_type: int) -> None:
     x, r, p = st.x, st.r, st.p
     tp = A(p)
     temp2 = dot(tp, p)
@@ -83,29 +101,45 @@ def _seg1(st: _State, A, M, stop_type: int) -> torch.Tensor:
     torch.sub(r, alpha * tp, out=r)
     if st.z is not None:
         st.z.copy_(M(r))
-    return torch.stack((temp2, alpha, abs_residual(stop_type, r, st.z),
-                        torch.max(torch.abs(x)), dot(x, x), dot(p, p)))
+    loops.control("pcg", CHECK, torch.stack(
+        (temp2, alpha, abs_residual(stop_type, r, st.z),
+         torch.max(torch.abs(x)), dot(x, x), dot(p, p))), st.reg)
 
 
-def _seg2(st: _State, M) -> None:
+def _recompute(st: _State, A, M, stop_type: int) -> None:
+    """The true residual and its norm (Checks II and III)."""
+    torch.sub(st.b, A(st.x), out=st.r)
+    if st.z is not None:
+        st.z.copy_(M(st.r))
+    st.rt.copy_(loops.local(abs_residual(stop_type, st.r, st.z)).reshape(1))
+
+
+def _half2(st: _State, M) -> None:
+    loops.control("pcg", DECIDE, st.rt, st.reg)
+    p = st.p
+    p.masked_fill_(like(st.reg.flag(I.RESTART), p), 0)
     z = st.z if st.z is not None else M(st.r)
     temp2n = dot(z, st.r)
-    torch.add(z, (temp2n / st.temp1) * st.p, out=st.p)
+    torch.add(z, (temp2n / st.temp1) * p, out=p)
     st.temp1.copy_(temp2n)
+    if st.best_x is not None:
+        torch.where(like(st.reg.flag(I.BETTER), p), st.x, st.best_x,
+                    out=st.best_x)
 
 
-def _state(A, M, b, stop_type: int, safe: bool):
-    """(state, graphed): the cached state of a graphed solve, or a fresh
-    one for an eager solve."""
-    precres = stop_type == StopType.REL_PRECRES
-    if not (graphs.active(b) and graphs.capturable(A)
-            and graphs.capturable(M)):
-        return _State(b, precres, safe), False
-    (ha, sa), (hm, sm) = graphs.identity(A), graphs.identity(M)
-    key = (b.dtype, b.shape[0], b.device, sa, sm, graphs.fingerprint(ha),
-           graphs.fingerprint(hm))
-    return graphs.cached((ha, hm), ("pcg", int(stop_type), bool(safe)), key,
-                         lambda: _State(b, precres, safe)), True
+def _tree(st: _State, A, M, stop_type: int):
+    """The PCG loop as a ``utils.graphs`` tree: the start, then the
+    While over half 1, the recompute's If and half 2."""
+    return [graphs.Piece(lambda: _start(st, A, M, stop_type)),
+            _loop(st, A, M, stop_type)]
+
+
+def _loop(st: _State, A, M, stop_type: int):
+    return graphs.While(st.reg, (
+        graphs.Piece(lambda: _half1(st, A, M, stop_type)),
+        graphs.If(st.reg, (
+            graphs.Piece(lambda: _recompute(st, A, M, stop_type)),)),
+        graphs.Piece(lambda: _half2(st, M))))
 
 
 def pcg(A, b, x0=None, M=None, *, tol: float = 1e-6, abstol: float = 1e-18,
@@ -120,99 +154,31 @@ def pcg(A, b, x0=None, M=None, *, tol: float = 1e-6, abstol: float = 1e-18,
     couple of restarts (the outer f64 loop supplies the robustness).
     """
     M = resolve_precond(M)
-    host = HostReads(b.dtype)
-    t = host.t
-    tol, abstol = t(tol), t(abstol)
-    maxdiff = tol * t(STAG_RATIO)
-    small, small2, slow = t(SMALLREAL), t(SMALLREAL2), t(0.9)
     precres = stop_type == StopType.REL_PRECRES
-    st, graphed = _state(A, M, b, stop_type, safe)
-
-    x, r, p = st.x, st.r, st.p
+    st, resident = loop_state("pcg", A, M, b, stop_type, safe,
+                              lambda: _State(b, precres, safe))
+    st.b.copy_(b)
     if x0 is None:
-        x.zero_()
+        st.x.zero_()
     else:
-        x.copy_(x0)
-    torch.sub(b, A(x), out=r)
-    z = M(r)
-    if precres:
-        st.z.copy_(z)
-    p.copy_(z)
-    st.set_temp1(dot(z, r))
-    absres0, normr0, normu, relres = initial_norms(
-        stop_type, *host(abs_residual(stop_type, r, z), dot(x, x)))
-    done = bool(relres < tol) or bool(absres0 < abstol)
-    it, stag, more, status = 0, 1, 1, 0
-    best_absres = absres0
-    if safe:
-        st.best_x.copy_(x)
+        st.x.copy_(x0)
+    st.block.upload({"pcg": loops.krylov_values(
+        tol, abstol, maxit, stop_type, safe, max_stag, max_restart)})
+    host = HostReads(b.dtype)
+    vals = graphs.run_loop(st, lambda: _tree(st, A, M, stop_type), host,
+                           resident)["pcg"]
+    return result(st, vals, host.count, resident)
 
-    while not done and it < maxit:
-        it += 1
-        if graphed and st.s1 is None:
-            # captured at the first iteration, over the initialized state;
-            # each warm-up run is undone (``keep``)
-            changed = [v for v in (x, r, st.z) if v is not None]
-            st.s1 = graphs.Program(lambda: _seg1(st, A, M, stop_type),
-                                   b.device, changed)
-            st.s2 = graphs.Program(lambda: _seg2(st, M), b.device,
-                                   [p, st.temp1], pool=st.s1.pool)
-        (temp2_h, alpha_h, absres, normuinf, xx, pp) = host.vec(
-            st.s1.replay() if graphed else _seg1(st, A, M, stop_type))
-        absres, relres = residual_norms(stop_type, absres, normr0, normu)
-        breakdown = abs(temp2_h) <= small2
-        factor = absres / absres0
 
-        # ---- Check I + II (only when converging slowly: factor > 0.9) ----
-        zero_sol = factor > slow and normuinf <= small
-        normu_new = max(small, np.sqrt(xx))
-        reldiff = abs(alpha_h) * np.sqrt(pp) / normu_new
-        stagnated = (factor > slow and not zero_sol and stag <= max_stag
-                     and reldiff < maxdiff)
-        # Check III on claimed convergence; one true-residual recompute
-        # serves both checks
-        claim = relres < tol and not stagnated and not zero_sol
-        need = stagnated or claim
-        if need:
-            torch.sub(b, A(x), out=r)
-            if precres:
-                st.z.copy_(M(r))
-            absres, relres = residual_norms(
-                stop_type, *host(abs_residual(stop_type, r, st.z)), normr0,
-                normu_new)
-
-        conv = need and relres < tol
-        stag_fail = stagnated and not conv and stag >= max_stag
-        tol_fail = claim and not conv and more >= max_restart
-        restart = need and not conv and not stag_fail and not tol_fail
-        if restart:
-            p.zero_()
-            stag += int(stagnated)
-            more += int(claim)
-
-        # ---- prepare next direction ----
-        if graphed:
-            st.s2.replay()
-        else:
-            _seg2(st, M)
-
-        done = bool(breakdown or zero_sol or stag_fail or tol_fail
-                    or (stagnated and conv) or (claim and conv))
-        status = (ERROR_SOLVER_MISC if breakdown else
-                  ERROR_SOLVER_SOLSTAG if zero_sol else
-                  ERROR_SOLVER_STAG if stag_fail else
-                  ERROR_SOLVER_TOLSMALL if tol_fail else 0)
-        absres0 = absres
-        if stop_type == StopType.MOD_REL_RES:
-            normu = normu_new
-        if safe and absres < best_absres:
-            st.best_x.copy_(x)
-            best_absres = absres
-
-    converged = bool(relres < tol)
-    if safe and not converged and best_absres < absres0:
-        # best-so-far iterate on non-convergence (KrySPcg.c:190-196)
+def result(st: _State, vals, syncs: int, resident: bool) -> SolveResult:
+    """The solve's result from the region's last read: x (the best
+    iterate of a safe solve that did not converge and had a better one,
+    KrySPcg.c:190-196), a copy when the state is kept."""
+    f, i = vals.f, vals.i
+    converged = bool(f[F.RELRES] < f[F.TOL])
+    x = st.x
+    if st.best_x is not None and not converged and f[F.BEST] < f[F.ABSRES]:
         x = st.best_x
-    return SolveResult(x=x.clone() if graphed else x, iters=it,
-                       relres=float(relres), converged=converged,
-                       status=int(status), syncs=host.count)
+    return SolveResult(x=x.clone() if resident else x, iters=int(i[I.IT]),
+                       relres=float(f[F.RELRES]), converged=converged,
+                       status=int(i[I.STATUS]), syncs=syncs)

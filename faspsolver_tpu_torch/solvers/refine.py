@@ -10,13 +10,18 @@ f64 true residuals with the hierarchy's exact f64 fine operator and
 accumulates the f64 solution on the device; the inner solve is an f32
 AMG-PCG.  Each round multiplies the achieved
 accuracy, so 2-3 rounds of an inner 1e-5 solve reach 1e-10.  The rounds
-are a Python loop: one host read of the f64 relative residual per round
-(the inner PCG reads once per iteration), counted in ``syncs``.  A
-round's f64 stages — the scale and the f32 residual before the inner
-solve, the update, the true residual and its norm after it — update
-static tensors in place; on a CUDA device, when the f64 operator
-declares itself capturable (``utils.graphs``), they replay from two CUDA
-graphs kept with that operator, as the inner PCG replays its own.
+are the JAX package's ``lax.while_loop`` around the inner PCG's as a
+``utils.graphs`` tree: its f64 stages — the scale and the f32 residual
+before the inner solve, the update, the true residual and its norm
+after it — update static tensors in place, and the loop-control kernel
+(``utils.loops``) counts the rounds, tests the f64 relative residual and
+sets the next inner tolerance on the device.  On a CUDA device, when
+the f64 operator, the f32 operator and M declare themselves capturable
+(``utils.graphs``), the whole refinement is one CUDA graph with the
+inner PCG's WHILE nested in the rounds' WHILE, kept with the f64
+operator and M: one launch and one host read per solve (``syncs``).
+Elsewhere the same tree runs as the eager loop: one read of the f64
+relative residual per round plus the inner PCG's reads.
 """
 from __future__ import annotations
 
@@ -27,9 +32,11 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..constants import StopType
 from ..formats import BSRMatrix, CSRMatrix
 from ..krylov.common import HostReads
-from ..utils import graphs
+from ..utils import graphs, loops
+from ..utils.loops import INIT, ROUND, F, I
 
 
 @dataclass
@@ -40,6 +47,7 @@ class RefinedResult:
     relres: float               # f64 relative residual (device-computed)
     converged: bool
     syncs: int = 0              # device-to-host reads during the solve
+    recomputes: int = 0         # inner true-residual recomputes
 
 
 class RefineOutcome(NamedTuple):
@@ -48,6 +56,7 @@ class RefineOutcome(NamedTuple):
     rounds: int
     iters: int
     syncs: int
+    recomputes: int = 0         # inner true-residual recomputes
 
 
 def _need(tol, relres, inner_tol, inner_floor) -> float:
@@ -166,77 +175,110 @@ def make_resident_refiner(op64, op32, M, *, tol: float = 1e-6,
     return run
 
 
-class _Rounds:
-    """The tensors a resident refinement updates in place, and, when
-    graphed, its two stage programs (kept with the f64 operator)."""
+class _Rounds(graphs.LoopState):
+    """The tensors a resident refinement updates in place: the f64
+    solution and residual, the round's scale and f32 right-hand side,
+    and the inner PCG's state, whose b is that right-hand side; one
+    block with the rounds' region and the inner PCG's."""
 
     def __init__(self, b64: torch.Tensor, dtype):
+        from ..krylov.pcg import _State
         self.b, self.x, self.r = (torch.zeros_like(b64) for _ in range(3))
         self.bnorm, self.scale = (b64.new_zeros(()) for _ in range(2))
         self.r32 = torch.zeros_like(b64, dtype=dtype)
-        self.d = torch.zeros_like(self.r32)
-        self.pre = self.post = None         # graphs.Program, when graphed
+        self.block = loops.Block(b64.device, [("refine", torch.float64),
+                                              ("pcg", dtype)])
+        self.reg = self.block["refine"]
+        self.pcg = _State(self.r32, False, False, b=self.r32,
+                          reg=self.block["pcg"])
+
+
+def _start(st: _Rounds) -> None:
+    """bnorm, x = 0, r = b; the entry test and the first inner tol."""
+    b = st.b
+    st.bnorm.copy_(torch.clamp_min(torch.sqrt(torch.dot(b, b)), 1e-300))
+    st.x.zero_()
+    st.r.copy_(b)
+    loops.refine(INIT, st.reg.f, st.reg, st.pcg.reg)
 
 
 def _pre(st: _Rounds) -> None:
-    """The round's scale and its f32 right-hand side r / scale."""
+    """The round's scale and its f32 right-hand side r / scale; the
+    inner solve starts from 0."""
     st.scale.copy_(torch.clamp_min(torch.max(torch.abs(st.r)), 1e-300))
     st.r32.copy_((st.r / st.scale).to(st.r32.dtype))
+    st.pcg.x.zero_()
 
 
-def _post(st: _Rounds, op64) -> torch.Tensor:
-    """x += scale d; r = b - A x; the f64 relative residual."""
-    torch.add(st.x, st.scale * st.d.to(st.x.dtype), out=st.x)
+def _post(st: _Rounds, op64) -> None:
+    """x += scale d; r = b - A x; the round's control over the f64
+    relative residual."""
+    torch.add(st.x, st.scale * st.pcg.x.to(st.x.dtype), out=st.x)
     torch.sub(st.b, op64(st.x), out=st.r)
-    return (torch.sqrt(torch.dot(st.r, st.r)) / st.bnorm).reshape(1)
+    loops.refine(ROUND, (torch.sqrt(torch.dot(st.r, st.r))
+                         / st.bnorm).reshape(1), st.reg, st.pcg.reg)
 
 
-def _rounds(op64, b64, dtype):
-    """(rounds state, graphed)."""
-    if not (graphs.active(b64) and graphs.capturable(op64)):
+def _tree(st: _Rounds, op64, op32, M, entry: bool):
+    """The rounds as a ``utils.graphs`` tree: the start, then a While
+    whose body is the round's f32 right-hand side, the inner PCG (its
+    start and its own While) and the f64 update."""
+    from ..krylov.pcg import _loop, _start as _pcg_start
+    rel = int(StopType.REL_RES)
+    return [graphs.Piece(lambda: _start(st)), graphs.While(st.reg, (
+        graphs.Piece(lambda: _pre(st)),
+        graphs.Piece(lambda: _pcg_start(st.pcg, op32, M, rel)),
+        _loop(st.pcg, op32, M, rel),
+        graphs.Piece(lambda: _post(st, op64))), entry=entry)]
+
+
+def _rounds(op64, op32, M, b64):
+    """(rounds state, resident): kept with the f64 operator and M when
+    the whole program can be captured (op64, op32 and M capturable)."""
+    dtype = op32.dtype
+    if not (graphs.active(b64) and all(
+            graphs.capturable(m) for m in (op64, op32, M))):
         return _Rounds(b64, dtype), False
-    home, static = graphs.identity(op64)
-    key = (b64.shape[0], b64.device, static, graphs.fingerprint(home))
-    return graphs.cached((home,), ("refine", dtype), key,
+    (home, static), (hm, sm) = graphs.identity(op64), graphs.identity(M)
+    key = (b64.shape[0], b64.device, static, sm, graphs.fingerprint(home),
+           graphs.fingerprint(op32), graphs.fingerprint(hm))
+    return graphs.cached((home, hm), ("refine", dtype), key,
                          lambda: _Rounds(b64, dtype)), True
 
 
 def _refine_body(op64, op32, M, b64, tol_, inner_tol, inner_floor,
                  max_rounds, maxit_inner) -> RefineOutcome:
-    from ..krylov import pcg
-
-    st, graphed = _rounds(op64, b64, op32.dtype)
-    if graphed and st.pre is None:
-        st.pre = graphs.Program(lambda: _pre(st), b64.device,
-                                [st.scale, st.r32])
-        st.post = graphs.Program(lambda: _post(st, op64), b64.device,
-                                 [st.x, st.r], pool=st.pre.pool)
+    """The rounds (``faspsolver_tpu/solvers/refine.py`` ``_refine_body``):
+    each an f64 residual's scale, an f32 AMG-PCG to the round's inner
+    tolerance (the remaining reduction times 0.3, between
+    ``inner_floor`` and ``inner_tol``, computed by the control in f64),
+    and the f64 update, until the f64 relative residual is below
+    ``tol_`` or ``max_rounds`` ran.  Tight safeguard budgets inside
+    (``max_stag=2``, ``max_restart=2``): when the inner f32 solve hits
+    its residual floor, Check II/III restarts would burn ~20 dead
+    iterations per round — the outer f64 loop is the recovery.  Resident
+    on a CUDA vector when op64, op32 and M are capturable: one launch
+    and one read (``syncs`` 1); else the eager loop, one read per round
+    plus the inner PCG's."""
+    st, resident = _rounds(op64, op32, M, b64)
     st.b.copy_(b64)
-    st.bnorm.copy_(torch.clamp_min(torch.sqrt(torch.dot(b64, b64)), 1e-300))
-    st.x.zero_()
-    st.r.copy_(b64)
+    st.block.upload({
+        "refine": {("f", F.TOL): tol_, ("f", F.INNER_TOL): inner_tol,
+                   ("f", F.INNER_FLOOR): inner_floor,
+                   ("i", I.MAXIT): max_rounds},
+        "pcg": loops.krylov_values(0.0, 1e-18, maxit_inner,
+                                   StopType.REL_RES, False, 2, 2)})
     host = HostReads(b64.dtype)
-    relres, rnd, iters, syncs = 1.0, 0, 0, 0
-    while relres >= tol_ and rnd < max_rounds:
-        if graphed:
-            st.pre.replay()
-        else:
-            _pre(st)
-        need = min(max(0.3 * tol_ / max(relres, 1e-300), inner_floor),
-                   inner_tol)
-        # tight safeguard budgets: when the inner f32 solve hits its
-        # residual floor, Check II/III restarts would burn ~20 dead
-        # iterations per round — the outer f64 loop is the recovery
-        res = pcg(op32, st.r32, M=M, tol=need, maxit=maxit_inner,
-                  max_stag=2, max_restart=2)
-        st.d.copy_(res.x)
-        relres = float(host.vec(st.post.replay() if graphed
-                                else _post(st, op64))[0])
-        rnd += 1
-        iters += res.iters
-        syncs += res.syncs + 1
-    return RefineOutcome(st.x.clone() if graphed else st.x, relres, rnd,
-                         iters, syncs)
+    entry = 1.0 >= tol_ and 0 < max_rounds
+    vals = graphs.run_loop(st, lambda: _tree(st, op64, op32, M, entry),
+                           host, resident)
+    if vals is None:              # the eager loop ran no round
+        return RefineOutcome(st.x, 1.0, 0, 0, host.count)
+    ref, inner = vals["refine"], vals["pcg"]
+    return RefineOutcome(st.x.clone() if resident else st.x,
+                         float(ref.f[F.RELRES]), int(ref.i[I.IT]),
+                         int(inner.i[I.NBODY]), host.count,
+                         int(inner.i[I.NIF]))
 
 
 def solve_refined_resident(hier, b, M=None, *, tol: float = 1e-6,
@@ -261,4 +303,5 @@ def solve_refined_resident(hier, b, M=None, *, tol: float = 1e-6,
     out = run(b64)
     return RefinedResult(x=out.x.cpu().numpy(), rounds=out.rounds,
                          inner_iters=out.iters, relres=out.relres,
-                         converged=out.relres < tol, syncs=out.syncs)
+                         converged=out.relres < tol, syncs=out.syncs,
+                         recomputes=out.recomputes)

@@ -28,12 +28,29 @@ declare it, so anything else runs eagerly and is never tried and caught.
 On a CPU tensor, a DTensor, inside another capture (graphs nest inline)
 or under :func:`eager`, the same functions simply run (:func:`active`).
 
-A replay issues nothing through the stencil kernel's wrapper, so each
-program records the launches its capture made and adds them to
-``ops.stencil2d.launches`` at every replay: a warm graphed solve counts
-the launches an eager one does (a cold one adds those of each program's
-warm-up run, which really ran).  ``stats`` counts captures, replays, graph
+A replay issues nothing through the kernels' wrappers, so each program
+records the launches its capture made and adds them to
+``ops.stencil2d.launches`` and ``utils.loops.launches`` at every replay:
+a warm graphed solve counts the launches an eager one does (a cold one
+adds those of each program's warm-up run, which really ran).  ``stats`` counts captures, replays, graph
 nodes, capture seconds and the memory the captures reserved.
+
+The solve loops (the counterpart of ``lax.while_loop`` / ``lax.cond``)
+are trees of :class:`Piece` (a function of static tensors), :class:`If`
+and :class:`While`, whose conditions are flags of a loop's state region
+(``utils/loops.py``): ``NEED`` for an If, ``CONT`` for a While.  The
+same tree runs two ways:
+
+- :func:`run_eager`, the eager loop: the pieces in order, each condition
+  read on the host (one counted read of the state block at a While's
+  entry, at each If, and after a body whose If ran or that has none);
+- :class:`Resident`, one CUDA graph: every piece captured once (a
+  warm-up run of all of them first, undone through ``keep``; one memory
+  pool), embedded as a child graph, and each If / While a conditional
+  node whose handle the loop-control kernel sets from the same flag.  A
+  solve is one launch of it and one read of the block at the end.  The
+  device counts the executions of each body (``NBODY``, ``NIF``), from
+  which :meth:`Resident.account` adds each piece's recorded launches.
 """
 from __future__ import annotations
 
@@ -41,12 +58,14 @@ import contextlib
 import ctypes
 import time
 import weakref
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
 
 from .. import is_dtensor
 from ..ops import stencil2d
+from . import loops
 
 _enabled = True
 _programs = weakref.WeakKeyDictionary()
@@ -131,6 +150,30 @@ def peek(home, slot):
     return None if hit is None else hit[2]
 
 
+_COUNTERS = (stencil2d.launches, loops.launches)
+
+
+@contextlib.contextmanager
+def _recorded():
+    """Record the kernel launches a capture issues, by the counters' keys
+    (the stencil kernel's dtypes, the loop control's entry points), and
+    take them back off the counters: a capture launches nothing."""
+    before = [dict(c) for c in _COUNTERS]
+    made = {}
+    try:
+        yield made
+    finally:
+        for c, b in zip(_COUNTERS, before):
+            made.update({k: c[k] - v for k, v in b.items()})
+            c.update(b)
+
+
+def _add_launches(recorded, times: int) -> None:
+    for c in _COUNTERS:
+        for k in c:
+            c[k] += recorded[k] * times
+
+
 def _count_nodes(graph):
     """Nodes of a kept graph, through the driver (None if it says no)."""
     n = ctypes.c_size_t(0)
@@ -173,15 +216,12 @@ class Program:
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = dict(stencil2d.launches)
-        with torch.cuda.graph(self.graph, pool=pool):
-            out = fn()
-            if out is not None:
-                self.out.copy_(out)
+        with _recorded() as self.launches:
+            with torch.cuda.graph(self.graph, pool=pool):
+                out = fn()
+                if out is not None:
+                    self.out.copy_(out)
         self.pool = self.graph.pool()
-        self.launches = {k: stencil2d.launches[k] - v
-                         for k, v in before.items()}
-        stencil2d.launches.update(before)     # the capture launched nothing
         self.nodes = _count_nodes(self.graph)
         self.graph.instantiate()
         torch.cuda.synchronize(device)
@@ -194,8 +234,7 @@ class Program:
 
     def replay(self):
         self.graph.replay()
-        for k, v in self.launches.items():
-            stencil2d.launches[k] += v
+        _add_launches(self.launches, 1)
         stats["replays"] += 1
         stats["nodes_replayed"] += self.nodes or 0
         return self.out
@@ -253,3 +292,282 @@ def _apply_program(fn, r: torch.Tensor) -> Program:
     prog = Program(lambda: fn(r_in), r.device)
     prog.r_in = r_in
     return prog
+
+
+# ---------------------------------------------------------------------------
+# resident loops: lax.while_loop / lax.cond as CUDA conditional nodes
+# ---------------------------------------------------------------------------
+
+class Piece(NamedTuple):
+    """Device work on static tensors: no host read, no allocation that
+    outlives it, nothing but kernels and device copies."""
+    fn: Callable[[], None]
+
+
+class If(NamedTuple):
+    """``body`` runs where ``reg``'s ``NEED`` flag is set (the
+    counterpart of ``lax.cond``); the control before it sets the flag
+    and ``reg.h_if``."""
+    reg: "loops.Region"
+    body: Sequence
+
+
+class While(NamedTuple):
+    """``body`` runs while ``reg``'s ``CONT`` flag is set (the
+    counterpart of ``lax.while_loop``): set before the loop by an init
+    control, and by the body's last control.  ``entry``: the entry test
+    where the host knows it (the eager loop then reads nothing first)."""
+    reg: "loops.Region"
+    body: Sequence
+    entry: Optional[bool] = None
+
+
+def run_eager(tree: Sequence, block, host):
+    """Run a loop tree eagerly, reading ``block`` on the host through
+    ``host`` (``krylov.common.HostReads``) where a condition is needed:
+    at a While's entry (unless ``entry`` says), at each If, and after a
+    body whose If ran or that has none (a check leaves the While's
+    ``CONT`` as the body's end will set it when its If does not run).
+    Returns the last read (decoded), or None if nothing was read."""
+    last = [None]
+
+    def read(reg):
+        last[0] = host.block(block)
+        return last[0][reg.name].i
+
+    def run(items):
+        for item in items:
+            if isinstance(item, Piece):
+                item.fn()
+                continue
+            if not isinstance(item, While):
+                raise TypeError("an If runs inside a While body")
+            cont = (item.entry if item.entry is not None
+                    else read(item.reg)[loops.I.CONT])
+            while cont:
+                cont = None
+                for sub in item.body:
+                    if isinstance(sub, If):
+                        i = read(sub.reg)
+                        if i[loops.I.NEED]:
+                            run(sub.body)
+                        else:
+                            cont = i[loops.I.CONT]
+                    else:
+                        run((sub,))
+                if cont is None:
+                    cont = read(item.reg)[loops.I.CONT]
+
+    run(tree)
+    return last[0]
+
+
+def _pieces(tree):
+    """The tree's pieces in execution order."""
+    for item in tree:
+        if isinstance(item, Piece):
+            yield item
+        else:
+            yield from _pieces(item.body)
+
+
+def _regions(tree):
+    for item in tree:
+        if not isinstance(item, Piece):
+            yield item.reg
+            yield from _regions(item.body)
+
+
+# node kinds a conditional body refuses (CUgraphNodeType values)
+_NODE_KINDS = {3: "host", 6: "event wait", 7: "event record",
+               8: "external semaphore signal", 9: "external semaphore wait",
+               10: "memory allocation", 11: "memory free",
+               12: "batch memory operation"}
+
+
+# CUgraphInstantiateResult values
+_INSTANTIATE = {1: "error", 2: "invalid structure",
+                3: "node operation not supported",
+                4: "multiple devices not supported",
+                5: "conditional handle unused"}
+
+
+def _destroy(lib, graph, exe):
+    if exe.value:
+        lib.fasp_graph_exec_destroy(exe)
+    if graph.value:
+        lib.fasp_graph_destroy(graph)
+
+
+class Resident:
+    """A loop tree as ONE CUDA graph on ``device``, launched once per
+    solve.
+
+    The pieces run once for real first (libraries load, plans build,
+    and each side of every If is warmed), then the tensors in ``keep``
+    are restored.  Each piece is then captured with ``torch.cuda.graph``
+    (all into one memory pool: they never run concurrently) and embedded
+    as a child graph node; each If / While becomes a conditional node
+    whose handle is created in the graph that holds it and handed to the
+    control kernels through their region (``h_if`` / ``h_while``) while
+    the pieces are captured.  A piece inside a conditional may hold
+    kernels, device copies and memsets only: anything else raises, as
+    does any failed call.  ``capture_s`` times the captures and the
+    instantiation, ``bytes`` the memory they reserved."""
+
+    def __init__(self, tree: Sequence, device, keep=()):
+        device = torch.device(device)
+        lib = loops.library()
+        self._lib = lib
+        saved = [t.clone() for t in keep]
+        cur = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        # eagerly: a module's own graph (GraphedModule) is not made for a
+        # program that captures it inline
+        with torch.cuda.stream(side), eager():
+            for piece in _pieces(tree):
+                piece.fn()
+        cur.wait_stream(side)
+        for t, s in zip(keep, saved):
+            t.copy_(s)
+        del saved
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        t0 = time.perf_counter()
+        self._graph, self._exec = ctypes.c_void_p(), ctypes.c_void_p()
+        weakref.finalize(self, _destroy, lib, self._graph, self._exec)
+        loops.check_graph(lib.fasp_graph_create(ctypes.byref(self._graph)),
+                    "cudaGraphCreate")
+        self.pool = None
+        self.runs = []          # (captured graph, launches, nodes, counter)
+        regs = list(_regions(tree))
+        try:
+            self._build(self._graph, tree, None)
+        finally:
+            for reg in regs:
+                reg.h_while = reg.h_if = 0
+        result, kind = ctypes.c_int(0), ctypes.c_int(-1)
+        loops.check_graph(lib.fasp_graph_instantiate(
+            ctypes.byref(self._exec), self._graph, ctypes.byref(result),
+            ctypes.byref(kind)),
+            f"instantiating the resident loop's graph (result "
+            f"{_INSTANTIATE.get(result.value, result.value)}, at a node "
+            f"of kind {kind.value})")
+        torch.cuda.synchronize(device)
+        self.capture_s = time.perf_counter() - t0
+        self.bytes = torch.cuda.memory_reserved(device) - reserved
+        self.nodes = sum(r[2] for r in self.runs)
+        self.device = device
+        stats["captures"] += len(self.runs)
+        stats["capture_s"] += self.capture_s
+        stats["graph_bytes"] += self.bytes
+        stats["nodes_captured"] += self.nodes
+
+    def _handle(self, graph) -> int:
+        h = ctypes.c_ulonglong(0)
+        loops.check_graph(self._lib.fasp_graph_handle(graph, ctypes.byref(h)),
+                    "cudaGraphConditionalHandleCreate")
+        return h.value
+
+    def _build(self, graph, items, counter):
+        lib = self._lib
+        # the handles of this level's conditionals first: the pieces
+        # before a conditional set it
+        for item in items:
+            if isinstance(item, While):
+                item.reg.h_while = self._handle(graph)
+            elif isinstance(item, If):
+                item.reg.h_if = self._handle(graph)
+        prev = None
+        for item in items:
+            node = ctypes.c_void_p()
+            if isinstance(item, Piece):
+                cg = self._capture(item, counter)
+                loops.check_graph(lib.fasp_graph_add_child(
+                    graph, prev, ctypes.c_void_p(cg.raw_cuda_graph()),
+                    ctypes.byref(node)), "adding a loop piece to its graph")
+            else:
+                body = ctypes.c_void_p()
+                kind = isinstance(item, While)
+                loops.check_graph(lib.fasp_graph_add_conditional(
+                    graph, prev, item.reg.h_while if kind else item.reg.h_if,
+                    int(kind), ctypes.byref(node), ctypes.byref(body)),
+                    "adding a conditional node")
+                self._build(body, item.body, (
+                    item.reg.name, loops.I.NBODY if kind else loops.I.NIF))
+            prev = node
+
+    def _capture(self, piece, counter):
+        cg = torch.cuda.CUDAGraph(keep_graph=True)
+        with _recorded() as launched:
+            with torch.cuda.graph(cg, pool=self.pool):
+                piece.fn()
+        if self.pool is None:
+            self.pool = cg.pool()
+        n, refused = ctypes.c_size_t(0), ctypes.c_int(-1)
+        loops.check_graph(self._lib.fasp_graph_node_kinds(
+            ctypes.c_void_p(cg.raw_cuda_graph()), ctypes.byref(n),
+            ctypes.byref(refused)), "reading a captured piece's nodes")
+        if counter is not None and refused.value >= 0:
+            raise RuntimeError(
+                f"a piece of a resident loop holds a "
+                f"{_NODE_KINDS.get(refused.value, refused.value)} node, "
+                f"which a conditional body does not take")
+        self.runs.append((cg, launched, int(n.value), counter))
+        return cg
+
+    def launch(self) -> None:
+        """One launch of the whole loop on the current stream."""
+        loops.check_graph(self._lib.fasp_graph_launch(
+            self._exec, ctypes.c_void_p(
+                torch.cuda.current_stream(self.device).cuda_stream)),
+            "launching the resident loop")
+        stats["replays"] += 1
+
+    def account(self, vals) -> None:
+        """Add each piece's recorded launches and nodes times its
+        executions in the launch just read (``vals``: the decoded
+        block)."""
+        for _, launched, nodes, counter in self.runs:
+            times = 1 if counter is None else int(
+                vals[counter[0]].i[counter[1]])
+            _add_launches(launched, times)
+            stats["nodes_replayed"] += nodes * times
+
+
+class LoopState:
+    """The static tensors of one loop program (subclasses set them) with
+    its state block and, once captured, its :class:`Resident`."""
+
+    block = None
+    prog: Optional[Resident] = None
+
+    def tensors(self):
+        """Every tensor the program changes (the block included), for
+        the warm-up's ``keep``; nested loop states' too."""
+        out = [] if self.block is None else [self.block.bytes]
+        for v in vars(self).values():
+            if isinstance(v, LoopState):
+                out += v.tensors()
+            elif isinstance(v, torch.Tensor) and all(v is not t
+                                                     for t in out):
+                out.append(v)
+        return out
+
+
+def run_loop(st: LoopState, tree: Callable[[], Sequence], host,
+             resident: bool):
+    """Run a loop program over state ``st``: launch its resident program
+    (captured from ``tree()`` at the first resident run) and read the
+    block once, or run ``tree()`` eagerly.  Returns the decoded block of
+    the last read (None if the eager loop read nothing)."""
+    if not resident:
+        return run_eager(tree(), st.block, host)
+    if st.prog is None:
+        st.prog = Resident(tree(), st.block.bytes.device, st.tensors())
+    st.prog.launch()
+    vals = host.block(st.block)
+    st.prog.account(vals)
+    return vals

@@ -61,7 +61,8 @@ BENCH_KEYS = {
 RENAMED = {"general_packed_mb": "general_device_mb"}
 DROPPED = {"general_pack_s", "fe_auto_warn"}
 COUNTERS = {"cold_solve_s", "host_syncs", "graph_captures", "graph_replays",
-            "graph_nodes_replayed", "stencil_launches"}
+            "graph_nodes_replayed", "stencil_launches",
+            "loop_control_launches"}
 ADDED = ({"device_name", "power_limit_w", "chain_launches_per_rep"}
          | COUNTERS | {f"{p}{k}" for p in ("general_", "fe_auto_")
                        for k in COUNTERS})
@@ -202,13 +203,17 @@ def test_card_checks_name_each_fault(run):
                 stencil_launches={"float32": 319, "float64": 2},
                 chain_launches_per_rep={
                     c: {"1": 1, "8": 8} for c in chip_smoke.BENCH_CHAINS},
-                **{f"{p}graph_replays": 44 for p in chip_smoke.BENCH_STANZAS})
+                **{f"{p}{k}": v for p in chip_smoke.BENCH_STANZAS
+                   for k, v in (("graph_replays", 1), ("host_syncs", 1),
+                                ("loop_control_launches", 43))})
     assert chip_smoke.bench_misses(good, spe01_anchor=100) == []
     faults = [dict(spe01_error="x"), dict(general_converged=False),
               dict(refine_rounds=3), dict(inner_iters=24),
               dict(general_rounds=4), dict(general_inner_iters=13),
               dict(fe_auto_inner_iters=32), dict(spe01_inner_iters=106),
               dict(fe_auto_graph_replays=0), dict(graph_captures=1),
+              dict(graph_replays=44), dict(host_syncs=27),
+              dict(general_loop_control_launches=0),
               dict(stencil_launches={"float32": 319, "float64": 0}),
               dict(chain_launches_per_rep={
                   c: {"1": 1, "8": 7 if c == "spmv" else 8}

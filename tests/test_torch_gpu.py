@@ -539,25 +539,29 @@ def test_gs_sweeps_on_the_card_are_bit_equal_to_the_cpu():
 
 def _graphed_and_eager(solve):
     """``solve()`` graphed (cold, then warm) and under graphs.eager():
-    the results and the stencil launches and graph replays of each."""
-    from faspsolver_tpu_torch.utils import graphs
+    the results, the stencil and loop-control launches and the graph
+    replays of each."""
+    from faspsolver_tpu_torch.utils import graphs, loops
     runs = []
     for eager in (False, False, True):
         stencil2d.reset_launches()
+        loops.reset_launches()
         graphs.reset_stats()
         with graphs.eager() if eager else contextlib.nullcontext():
             out = solve()
         torch.cuda.synchronize()
-        runs.append((out, dict(stencil2d.launches), graphs.stats["replays"]))
+        runs.append((out, {**stencil2d.launches, **loops.launches},
+                     graphs.stats["replays"]))
     return runs
 
 
 @pytest.mark.cuda
 def test_graphed_pcg_amg_is_bit_equal_to_the_eager_loop():
     """PCG + structured AMG on poisson_2d(255) and the refined solve
-    around it: replayed from CUDA graphs, cold and warm, x is bit-equal
-    to the eager loop's, with equal iterations and syncs, and the warm
-    solve's stencil launches equal the eager loop's."""
+    around it: resident (one CUDA graph with conditional nodes, one
+    launch and one host read per solve), cold and warm, x is bit-equal
+    to the eager loop's, with equal iterations, and the warm solve's
+    stencil and loop-control launches equal the eager loop's."""
     _need_cuda()
     import chip_smoke
     from faspsolver_tpu_torch.krylov import pcg
@@ -572,10 +576,11 @@ def test_graphed_pcg_amg_is_bit_equal_to_the_eager_loop():
                   lambda: chip_smoke.solve(torch, hier, b)):
         (cold, n_cold, r_cold), (warm, n_warm, r_warm), (eager, n_e, r_e) = \
             _graphed_and_eager(solve)
-        assert r_cold > 0 and r_warm > 0 and r_e == 0
+        assert r_cold == 1 and r_warm == 1 and r_e == 0
         for got in (cold, warm):
             assert torch.equal(got.x, eager.x)
-            assert (got.iters, got.syncs) == (eager.iters, eager.syncs)
+            assert got.iters == eager.iters
+            assert got.syncs == 1 < eager.syncs
         # a replay counts what its capture recorded; the cold solve also
         # ran each program once for real before capturing it
         assert n_warm == n_e and n_e[torch.float32] > 0
@@ -626,3 +631,50 @@ def test_checkpoint_round_trip_captures_again(tmp_path):
     assert graphs.stats["captures"] > 0 and graphs.stats["replays"] > 0
     assert torch.equal(again.x, first.x)
     assert (again.rounds, again.iters) == (first.rounds, first.iters)
+
+
+@pytest.mark.cuda
+def test_loop_control_kernel_is_bit_equal_to_its_twin():
+    """Every entry point of csrc/loop_control.cu over chip_smoke's edge
+    cases, f32 and f64: the state block after each step bit-equal to the
+    plain twin's on the CPU."""
+    _need_cuda()
+    import chip_smoke
+    for name in chip_smoke.LOOP_CASES:
+        for dt in (torch.float32, torch.float64):
+            got = chip_smoke.loop_case_blocks(torch, name, dt, "cuda",
+                                              plain=False)
+            want = chip_smoke.loop_case_blocks(torch, name, dt, "cpu",
+                                               plain=True)
+            for k, (g, w) in enumerate(zip(got, want)):
+                assert torch.equal(g, w), (name, dt, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["pcg", "bicgstab", "minres"])
+def test_resident_krylov_reads_once_and_equals_the_eager_loop(method):
+    """Each resident loop over structured AMG on poisson_2d(127) (the
+    safe variant too): one launch, one host read, x bit-equal to the
+    eager loop's on the card, equal iterations and status, and the warm
+    solve's launches equal the eager loop's."""
+    _need_cuda()
+    import chip_smoke
+    from faspsolver_tpu_torch import krylov
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    A = poisson_2d(127)
+    hier = chip_smoke.setup(torch, A, "cuda")
+    b = torch.as_tensor(np.random.default_rng(3).standard_normal(A.nrow),
+                        device="cuda", dtype=torch.float32)
+    for safe in (False, True):
+        solve = lambda: getattr(krylov, method)(  # noqa: E731
+            hier.levels[0].A, b, M=AMGPrecond(hier), tol=1e-6, maxit=60,
+            safe=safe)
+        (cold, _, r_cold), (warm, n_warm, r_warm), (eager, n_e, r_e) = \
+            _graphed_and_eager(solve)
+        assert (r_cold, r_warm, r_e) == (1, 1, 0)
+        for got in (cold, warm):
+            assert torch.equal(got.x, eager.x)
+            assert (got.iters, got.status, got.syncs) == (eager.iters,
+                                                          eager.status, 1)
+        assert n_warm == n_e and n_e[method] > 0

@@ -1,16 +1,18 @@
 """The port's graph layer (``faspsolver_tpu_torch/utils/graphs.py``) and
-the segmented PCG and refiner built on it, on the CPU.
+the resident PCG and refiner built on it, on the CPU.
 
-On the CPU the PCG's two segments run eagerly; each branch of the loop
-is driven by one seeded case and held to the JAX ``pcg`` in f64: equal
-iterations and status, x within 1e-12 (relative to max |x|), and one
-host read per iteration plus one per true-residual recompute (``syncs``
-equals the number of applies of A).  The graphed path's control flow —
-the state cached per (A, M), updated in place across solves, copied out
-of the static tensors — is driven here too, with a stand-in for
-``graphs.Program`` that runs the captured function at every replay
-(what a replay computes), and held equal to the eager path bit for bit.
-The graphs themselves run on the card: ``tests/test_torch_gpu.py``."""
+On the CPU the PCG's loop tree runs as the eager loop; each branch of
+the loop is driven by one seeded case and held to the JAX ``pcg`` in
+f64: equal iterations and status, x within 1e-12 (relative to max |x|),
+and one host read per iteration plus one per true-residual recompute
+(``syncs`` equals the number of applies of A).  The resident path's
+control flow — the state cached per (A, M), updated in place across
+solves, copied out of the static tensors, one read per solve — is driven
+here too, with a stand-in for ``graphs.Resident`` that runs the loop
+tree as the device runs its graph (each If and While decided by its
+region's flag, read without a host read), and held equal to the eager
+path bit for bit.  The graphs themselves run on the card:
+``tests/test_torch_gpu.py``."""
 import copy
 
 import jax.numpy as jnp
@@ -35,7 +37,7 @@ from faspsolver_tpu_torch.precond import AMGPrecond, FMGPrecond
 from faspsolver_tpu_torch.precond.amg import setup_rs, setup_structured
 from faspsolver_tpu_torch.solvers import refine
 from faspsolver_tpu_torch.testgen import poisson_2d
-from faspsolver_tpu_torch.utils import graphs
+from faspsolver_tpu_torch.utils import graphs, loops
 from faspsolver_tpu_torch.utils.params import AMGParam
 
 torch.set_num_threads(2)
@@ -157,8 +159,11 @@ def graphed_on_cpu(monkeypatch):
     """The graphed path's control flow on CPU tensors: ``graphs.Program``
     replaced by a stand-in whose replay runs the captured function over
     the same static tensors (what the graph computes), made once per
-    cache entry as a capture is, with the same undone warm-up run.
-    Returns the list of programs made."""
+    cache entry as a capture is, with the same undone warm-up run; and
+    ``graphs.Resident`` by one whose launch runs the loop tree as the
+    device runs the graph: each piece, each If and While decided by its
+    region's flag (what the control sets its handle to).  Returns the
+    list of programs made."""
     made = []
 
     class Replayed:
@@ -177,9 +182,36 @@ def graphed_on_cpu(monkeypatch):
                 self.out.copy_(out)
             return self.out
 
+    class Emulated:
+        def __init__(self, tree, device, keep=()):
+            saved = [t.clone() for t in keep]
+            made.append(self)
+            for piece in graphs._pieces(tree):
+                piece.fn()
+            for t, s in zip(keep, saved):
+                t.copy_(s)
+            self.tree = tree
+
+        def launch(self):
+            def run(items):
+                for item in items:
+                    if isinstance(item, graphs.Piece):
+                        item.fn()
+                    elif isinstance(item, graphs.If):
+                        if int(item.reg.i[loops.I.NEED]):
+                            run(item.body)
+                    else:
+                        while int(item.reg.i[loops.I.CONT]):
+                            run(item.body)
+            run(self.tree)
+
+        def account(self, vals):
+            pass
+
     monkeypatch.setattr(graphs, "active", lambda t: isinstance(
         t, torch.Tensor) and graphs._enabled)
     monkeypatch.setattr(graphs, "Program", Replayed)
+    monkeypatch.setattr(graphs, "Resident", Emulated)
     return made
 
 
@@ -192,9 +224,10 @@ def _structured():
 
 
 def test_graphed_pcg_control_flow_is_the_eager_loop(graphed_on_cpu):
-    """Two solves through the cached state (the second replays: no new
-    programs) against the eager loop: the same x bit for bit, counts and
-    syncs; the returned x is a copy, not the static state."""
+    """Two solves through the cached state (the second launches the same
+    program: no new programs) against the eager loop: the same x bit for
+    bit and counts, one host read per resident solve; the returned x is
+    a copy, not the static state."""
     hier = _structured()
     op = hier.levels[0].A
     bs = [torch.from_numpy(np.random.default_rng(s).standard_normal(
@@ -203,12 +236,13 @@ def test_graphed_pcg_control_flow_is_the_eager_loop(graphed_on_cpu):
         want = [pcg(op, b, M=AMGPrecond(hier), tol=1e-10, maxit=60)
                 for b in bs]
     got = [pcg(op, bs[0], M=AMGPrecond(hier), tol=1e-10, maxit=60)]
-    assert len(graphed_on_cpu) == 3     # S1, S2 and the cycle's own apply
+    assert len(graphed_on_cpu) == 2     # the loop and the cycle's own apply
     got.append(pcg(op, bs[1], M=AMGPrecond(hier), tol=1e-10, maxit=60))
-    assert len(graphed_on_cpu) == 3     # the second solve replays them
+    assert len(graphed_on_cpu) == 2     # the second solve launches them
     for g, w in zip(got, want):
         assert torch.equal(g.x, w.x)
-        assert (g.iters, g.status, g.syncs) == (w.iters, w.status, w.syncs)
+        assert (g.iters, g.status) == (w.iters, w.status)
+        assert g.syncs == 1 and w.syncs > w.iters
     st = graphs.peek(op, ("pcg", int(StopType.REL_RES), False))
     assert st is not None and st.x.data_ptr() != got[1].x.data_ptr()
     assert not torch.equal(got[0].x, got[1].x)
@@ -223,8 +257,13 @@ def test_graphed_refiner_control_flow_is_the_eager_loop(graphed_on_cpu):
            for _ in range(2)]
     for g in got:
         assert np.array_equal(g.x, want.x)
-        assert (g.rounds, g.inner_iters, g.syncs) == (
-            want.rounds, want.inner_iters, want.syncs)
+        assert (g.rounds, g.inner_iters, g.recomputes) == (
+            want.rounds, want.inner_iters, want.recomputes)
+        assert g.syncs == 1
+    # the eager loop: a read per round, per inner start, iteration and
+    # recompute
+    assert want.syncs == (2 * want.rounds + want.inner_iters
+                          + want.recomputes)
     assert graphs.peek(hier.fine64, ("refine", torch.float64)) is not None
 
 
