@@ -26,7 +26,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    loop-control kernel (PCG, BiCGstab, MINRES, refinement) over the
    edge-case table LOOP_CASES in f32 and f64, its state block after each
    step bit-equal to its plain twin's, and its launch time beside an
-   empty one-thread kernel's;
+   empty one-thread kernel's; then its GMRES entry point over
+   GMRES_CASES the same way (block and window arrays bit-equal), and the
+   times of one Arnoldi step's rotations at j = R - 1 and one window's
+   back-substitution at j = R, for R = 30 and 60 in f64;
 4. the headline at full size: poisson_2d(1023) (1,046,529 dof), the
    structured SA-AMG setup in f32 with the f64 fine operator, moved to the
    card, then f64 refinement around f32 AMG-PCG (tol 1e-6, 4 rounds, 40
@@ -142,12 +145,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    timed region, both kernel dtypes launched by the headline, k stencil
    launches per rep in every marginal-time chain).
 
-On the card the refinement, its inner PCG, and the PCG, BiCGstab and
-MINRES solves over capturable operators are resident: the whole loop is
-one CUDA graph captured at the first solve, with conditional WHILE and
-IF nodes set by the loop-control kernel
-(``faspsolver_tpu_torch/utils/graphs.py``), launched once per solve and
-read once at its end.  Phases 4, 6 and 7 run each solve twice: cold (the
+On the card the refinement, its inner PCG, and the PCG, BiCGstab, MINRES
+and GMRES-family solves over capturable operators are resident: the
+whole loop is one CUDA graph captured at the first solve, with
+conditional WHILE and IF nodes set by the loop-control kernel
+(``faspsolver_tpu_torch/utils/graphs.py``; GMRES: a WHILE over restart
+cycles around a WHILE over Arnoldi steps), launched once per solve and
+read once at its end.  Phases 8, 9, 11, 12 and 14 record every
+GMRES-family solve (:func:`gmres_solves`): each resident one must be one
+program launch and one host read, one must have run, and the phase's
+first is held to its own eager loop.  Phases 4, 6 and 7 run each solve twice: cold (the
 capture included) and warm, the timed one, each with the kernel launch
 counts and the graph counters set to 0 just before it and read just
 after: its seconds, program launches and nodes, captures, capture
@@ -170,7 +177,11 @@ and of the corpus run; phases 12 and 13 those of each config set and
 each solve, phase 14 those of each tutorial and each of its driver calls;
 fast_path must have launched the f32 kernel, CG + ILU the f64 one; phase
 15 reads the launches of bench_torch.py's three timed solves from its
-JSON line.  It prints a JSON line of the kernels, the nvidia-smi line,
+JSON line.  The loop-control kernel's GMRES entry point is counted apart
+("gmres") from its other entry points ("loop_control") and has its own
+row in the kernels' JSON line.  Each phase's banner gives the seconds
+since the start and those of the phase before.  It prints a JSON line of
+the kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It needs nothing but this
 checkout and exits non-zero when no CUDA device is available.
 """
@@ -205,7 +216,8 @@ BENCH_TIMEOUT = 900
 REPLACES = {"k1": "faspsolver_tpu/ops/pallas_kernels.py:149",
             "k2": "faspsolver_tpu/ops/pallas_kernels.py:36",
             # no Pallas kernel: XLA's while / cond around the loop bodies
-            "loop": "faspsolver_tpu/krylov/pcg.py:173"}
+            "loop": "faspsolver_tpu/krylov/pcg.py:173",
+            "gmres": "faspsolver_tpu/krylov/gmres.py:243"}
 
 # phase 8, the user entry point: the JAX CLI's iteration counts on the
 # same runs (python -m faspsolver_tpu -ini ini/<f>.dat -problem poisson2d
@@ -236,8 +248,9 @@ _KRYLOV = (("BiCGstab", _BICG, 69, 5), ("MinRes", _MINRES, 99, 8),
            ("GCG", _GCG, 99, 8))
 _GMRES_FAMILY = (_GMRES, _VGMRES, _VFGMRES)
 # the small-grid solves whose loop is resident on the card
-RESIDENT_SMALL_GRID = ("BiCGstab + diag", "MinRes + diag",
-                       "BiCGstab + AMG", "MinRes + AMG")
+RESIDENT_SMALL_GRID = tuple(f"{name} + {pre}" for pre in ("diag", "AMG")
+                            for name in ("BiCGstab", "MinRes", "GMRES",
+                                         "vGMRES", "vFGMRES"))
 SMALL_GRID = [
     *[(f"{name} + diag", "krylov_diag", dict(itsolver_type=t, **_DIAG_ITS),
        None, n_diag, 3 if t == _BICG else 2 if t in _GMRES_FAMILY else 1)
@@ -1092,12 +1105,14 @@ def sync(torch, device):
 
 def launch_counts():
     """The stencil wrapper's launch counts since they were last set to 0,
-    by element type, and the loop-control kernel's (all entry points)."""
+    by element type, the loop-control kernel's GMRES entry point's
+    ("gmres") and its other entry points' ("loop_control")."""
     from faspsolver_tpu_torch.ops import stencil2d
     from faspsolver_tpu_torch.utils import loops
     out = {str(k).replace("torch.", ""): v
            for k, v in stencil2d.launches.items()}
-    out["loop_control"] = sum(loops.launches.values())
+    out["gmres"] = loops.launches["gmres"]
+    out["loop_control"] = sum(loops.launches.values()) - out["gmres"]
     return out
 
 
@@ -1475,6 +1490,319 @@ def check_loop_control(torch, device, smi):
             "eager_ms": eager_ms, "cases": len(LOOP_CASES), "steps": steps}
 
 
+# phase 3, third part: the GMRES family's control (``gmres_control`` in
+# csrc/loop_control.cu) against its twin, bit for bit.  A case is
+# (parameters, steps) over GMRES_PARAMS (R the window), a step (phase,
+# inputs): 0 init {absres0, x0.x0, |r0|}; 1 cycle; 2 arnoldi, the column
+# h_0 .. h_j then hn (:func:`_col` pads it); 3 solve; 4 restart the true
+# residual's {|r|, absres, x.x}.  Together the cases take every branch:
+# convergence of the least-squares residual, a happy breakdown, the
+# rotation's den guard, a full window and its restart, maxit inside a
+# window, the adaptive rule's four outcomes, stagnation (-42) and the
+# crawl zone within 4 tol, the safe iterate, an entry test already done,
+# MOD_REL_RES and REL_PRECRES, an empty window; and two full windows of
+# seeded columns at R = 30 and 60 (what phase 3 times).
+GMRES_PARAMS = dict(tol=1e-6, abstol=1e-18, maxit=50, stop_type=1,
+                    safe=False, adaptive=False, R=4)
+_G_INIT = (0, [1.0, 0.0, 1.0])
+
+
+def _col(R, h, hn):
+    """An Arnoldi column for window R: h (entries 0..j), zeros, hn."""
+    return list(h) + [0.0] * (R + 1 - len(h)) + [hn]
+
+
+def _cycles(R, rnorms, steps=1, h=(0.6, 0.3), hn=0.5):
+    """Restart cycles of ``steps`` Arnoldi steps each, cycle k ending
+    with the true residual rnorms[k] (absres = |r|, x.x = 1)."""
+    out = []
+    for rn in rnorms:
+        out += [(1, [])]
+        out += [(2, _col(R, h[:j + 1] if j < len(h) else [0.1] * (j + 1),
+                         hn)) for j in range(steps)]
+        out += [(3, []), (4, [rn, rn, 1.0])]
+    return out
+
+
+def _window(R, seed):
+    """A full window of seeded columns, solved, then a restart."""
+    import random
+    rnd = random.Random(seed)
+    cols = [(2, _col(R, [rnd.uniform(-1.0, 1.0) for _ in range(j + 1)],
+                     rnd.uniform(0.5, 1.5))) for j in range(R)]
+    return [_G_INIT, (1, [])] + cols + [(3, []), (4, [0.5, 0.5, 1.0])]
+
+
+GMRES_CASES = {
+    "gmres converges in its first window": ({}, [
+        _G_INIT, (1, []), (2, _col(4, [0.5], 0.8)),
+        (2, _col(4, [0.3, 0.2], 1e-8)), (3, []), (4, [5e-7, 5e-7, 1.0])]),
+    "gmres happy breakdown": ({}, [
+        _G_INIT, (1, []), (2, _col(4, [2.0], 1e-30)), (3, []),
+        (4, [1e-12, 1e-12, 1.0])]),
+    "gmres den guard": ({}, [
+        _G_INIT, (1, []), (2, _col(4, [0.0], 0.0)), (3, []),
+        (4, [1.0, 1.0, 1.0])]),
+    "gmres full window restarts": ({"R": 3}, [
+        _G_INIT, *_cycles(3, [0.1], steps=3, h=(0.6, 0.3, -0.2)),
+        (1, []), (2, _col(3, [0.4], 1e-9)), (3, []),
+        (4, [5e-7, 5e-7, 1.0])]),
+    "gmres maxit inside a window": ({"maxit": 6}, [
+        _G_INIT, *_cycles(4, [0.1, 0.05], steps=4)[:7],
+        (1, []), (2, _col(4, [0.5], 0.5)), (2, _col(4, [0.2, 0.4], 0.5)),
+        (3, []), (4, [0.05, 0.05, 1.0])]),
+    "vgmres adaptive restart rule": ({"R": 8, "adaptive": True}, [
+        _G_INIT, *_cycles(8, [0.5, 0.25, 0.2499, 0.025, 0.0125,
+                              0.00625])]),
+    "gmres stagnation exits": ({}, [
+        _G_INIT, *_cycles(4, [0.5] * 5)]),
+    "gmres crawl within 4 tol": ({}, [
+        _G_INIT, *_cycles(4, [3e-6] * 6)]),
+    "gmres safe iterate": ({"safe": True}, [
+        _G_INIT, *_cycles(4, [0.5, 0.6, 0.3])]),
+    "gmres done at entry": ({}, [(0, [1e-19, 1.0, 1e-19])]),
+    "gmres MOD_REL_RES": ({"stop_type": 3}, [
+        (0, [1.0, 4.0, 1.0]), *_cycles(4, [0.1, 1e-6])]),
+    "gmres REL_PRECRES": ({"stop_type": 2}, [
+        (0, [2.0, 1.0, 1.0]), (1, []), (2, _col(4, [0.5], 0.8)),
+        (2, _col(4, [0.3, 0.2], 1e-8)), (3, []), (4, [1e-6, 1e-6, 1.0])]),
+    "gmres empty window ends": ({}, [_G_INIT, (1, []), (3, []),
+                                     (4, [1.0, 1.0, 1.0])]),
+    "gmres window 30": ({"R": 30, "tol": 1e-30, "maxit": 1000},
+                        _window(30, 30)),
+    "gmres window 60": ({"R": 60, "tol": 1e-30, "maxit": 1000},
+                        _window(60, 60)),
+}
+
+
+def gmres_case_state(torch, name, dtype, device):
+    """Case ``name`` of GMRES_CASES set up on ``device``: (block, its
+    two regions, the window's arrays, R)."""
+    from faspsolver_tpu_torch.utils import loops
+    params, _ = GMRES_CASES[name]
+    p = {**GMRES_PARAMS, **params}
+    R = p.pop("R")
+    blk = loops.Block(device, [("gmres", dtype), ("arnoldi", dtype)])
+    blk.upload({"gmres": loops.gmres_values(**p)})
+    arr = torch.zeros(loops.gmres_arrays(R), dtype=dtype, device=device)
+    return blk, blk["gmres"], blk["arnoldi"], arr, R
+
+
+def gmres_case_blocks(torch, name, dtype, device, plain):
+    """Case ``name`` of GMRES_CASES in ``dtype`` on ``device`` through the
+    twin (``plain``) or the wrapper (the kernel on the card): the block's
+    bytes and the arrays' after every step."""
+    from faspsolver_tpu_torch.utils import loops
+    blk, reg, inner, arr, R = gmres_case_state(torch, name, dtype, device)
+    call = loops.gmres_plain if plain else loops.gmres
+    out = []
+    for phase, vals in GMRES_CASES[name][1]:
+        inp = torch.tensor(vals or [0.0], dtype=dtype, device=device)
+        call(phase, inp, reg, inner, arr, R)
+        out.append((blk.bytes.cpu().clone(), arr.cpu().clone()))
+    return out
+
+
+def _same_bits(torch, a, b):
+    """Bit-equal (NaN and infinities included)."""
+    ints = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.view(ints), b.view(ints))
+
+
+def check_gmres_control(torch, device, smi):
+    """Every case in f32 and f64: the kernel's block and arrays after
+    each step bit-equal to the twin's on the CPU and on the card; then
+    the times of one arnoldi launch at j = R - 1 (R = 30 and 60) and of
+    one solve launch at j = R, each replayed from a CUDA graph of 200
+    launches beside the same graph of 200 empty one-thread kernels and,
+    for the solve, of 200 ``torch.linalg.solve_triangular`` on the same
+    R x R triangle and g, and the twin's on the card.  Returns the kernel's JSON row (launches
+    filled in by the caller)."""
+    from faspsolver_tpu_torch.ops.stencil2d import HBM_BYTES_PER_S
+    from faspsolver_tpu_torch.utils import loops
+    steps = 0
+    for name in GMRES_CASES:
+        for dt in (torch.float32, torch.float64):
+            got = gmres_case_blocks(torch, name, dt, device, plain=False)
+            want = gmres_case_blocks(torch, name, dt, "cpu", plain=True)
+            on_card = gmres_case_blocks(torch, name, dt, device, plain=True)
+            bad = [k for k, (g, w, c) in enumerate(zip(got, want, on_card))
+                   if not (torch.equal(g[0], w[0]) and torch.equal(c[0], w[0])
+                           and _same_bits(torch, g[1], w[1])
+                           and _same_bits(torch, c[1], w[1]))]
+            steps += len(got)
+            if bad:
+                k = bad[0]
+                print(f"  gmres control {name} {dt}: step {k} differs: "
+                      f"kernel {got[k][0].tolist()} {got[k][1].tolist()} "
+                      f"twin {want[k][0].tolist()} {want[k][1].tolist()}")
+            check(not bad, f"gmres control {name} {dt}: kernel bit-equal "
+                           f"to its plain twin")
+    print(f"  gmres control: {len(GMRES_CASES)} cases x f32/f64, {steps} "
+          f"steps, every block and array bit-equal to the twin's (CPU and "
+          f"card)")
+    saved = dict(loops.launches)
+    empty = lambda x: loops.launch_empty(device)  # noqa: E731
+    floor_ms = time_ms(torch, empty, None, graph=True)
+    row = {}
+    for R in (30, 60):
+        name = f"gmres window {R}"
+        blk, reg, inner, arr, R = gmres_case_state(torch, name,
+                                                   torch.float64, device)
+        seq = GMRES_CASES[name][1]
+        for phase, vals in seq[:R + 1]:       # init, cycle, R - 1 columns
+            loops.gmres(phase, torch.tensor(vals or [0.0], device=device,
+                                            dtype=torch.float64),
+                        reg, inner, arr, R)
+        col = torch.tensor(seq[R + 1][1], dtype=torch.float64, device=device)
+        j = reg.i[loops.I.J:loops.I.J + 1]
+        j0 = j.clone()
+
+        def reset(x):                           # j back to R - 1
+            j.copy_(j0)
+
+        def arnoldi(x):
+            j.copy_(j0)
+            loops.gmres(loops.ARNOLDI, x, reg, inner, arr, R)
+
+        reset_ms = time_ms(torch, reset, col, graph=True)
+        arnoldi_ms = time_ms(torch, arnoldi, col, graph=True) - reset_ms
+        plain_arnoldi_ms = time_ms(torch, lambda x: (
+            j.copy_(j0), loops.gmres_plain(loops.ARNOLDI, x, reg, inner, arr,
+                                           R)), col, reps=3, tries=2)
+        j.copy_(j0)
+        loops.gmres(loops.ARNOLDI, col, reg, inner, arr, R)   # j = R
+        solve = lambda x: loops.gmres(loops.SOLVE, x, reg, inner,  # noqa
+                                      arr, R)
+        solve_ms = time_ms(torch, solve, col, graph=True)
+        plain_solve_ms = time_ms(torch, lambda x: loops.gmres_plain(
+            loops.SOLVE, x, reg, inner, arr, R), col, reps=3, tries=2)
+        # the library's call for the same solve (timed, used nowhere)
+        H, g, *_ = loops.gmres_views(arr, R)
+        Ht, gt = H[:R, :R].contiguous(), g[:R, None].contiguous()
+        solve_library_ms = time_ms(torch, lambda x: torch.linalg.
+                                   solve_triangular(Ht, gt, upper=True),
+                                   col, graph=True)
+        # the least work in f64: the column and both regions in, the
+        # column of H, g, cs, sn and the regions out, some 6 R + 12
+        # operations (arnoldi); H's upper triangle and g in, y out, R^2
+        # operations (solve).  Operations over the FP64 vector peak (34
+        # TFLOP/s, NVIDIA's H100 SXM data sheet)
+        region = 2 * (loops.F.COUNT * 8 + loops.I.COUNT * 4)
+        a_bytes = (R + 2) * 8 + 2 * region + (R + 5) * 8
+        s_bytes = (R * (R + 1) // 2 + 2 * R) * 8
+        row[R] = {
+            "arnoldi_ms": arnoldi_ms, "solve_ms": solve_ms,
+            "plain_arnoldi_ms": plain_arnoldi_ms,
+            "plain_solve_ms": plain_solve_ms,
+            "solve_library_ms": solve_library_ms,
+            "arnoldi_bound_ms": max(a_bytes / HBM_BYTES_PER_S,
+                                    (6 * R + 12) / 34e12) * 1e3,
+            "solve_bound_ms": max(s_bytes / HBM_BYTES_PER_S,
+                                  R * R / 34e12) * 1e3}
+        print(f"  gmres control, f64, R = {R}: arnoldi at j = R - 1 "
+              f"{arnoldi_ms * 1e3:.3f} us per launch (graph of 200, less "
+              f"the {reset_ms * 1e3:.3f} us of its j reset), solve at j = R "
+              f"{solve_ms * 1e3:.3f} us; empty one-thread kernel "
+              f"{floor_ms * 1e3:.3f} us; torch.linalg.solve_triangular "
+              f"{solve_library_ms * 1e3:.3f} us; plain twin on the card "
+              f"{plain_arnoldi_ms * 1e3:.1f} / {plain_solve_ms * 1e3:.1f} "
+              f"us; roofline bounds {row[R]['arnoldi_bound_ms'] * 1e3:.6f}"
+              f" / {row[R]['solve_bound_ms'] * 1e3:.6f} us; {smi}")
+    loops.launches.update(saved)        # the timing's launches: not a path's
+    main = row[60]
+    return {"name": "loop_control gmres", "route": "cuda",
+            "source": "faspsolver_tpu_torch/csrc/loop_control.cu",
+            "replaces": REPLACES["gmres"], "max_abs_err": 0.0,
+            "ms": main["arnoldi_ms"], "plain_ms": main["plain_arnoldi_ms"],
+            "bound_ms": main["arnoldi_bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "launch_floor_ms": floor_ms,
+            "timed": "arnoldi at j = R - 1, R = 60, f64",
+            "windows": {str(k): v for k, v in row.items()},
+            "cases": len(GMRES_CASES), "steps": steps}
+
+
+@contextlib.contextmanager
+def gmres_solves(torch):
+    """While the block runs, every GMRES-family solve (``krylov/gmres.py``
+    ``_gmres``, whatever entry point called it) is recorded: whether it
+    ran resident (``SolveResult.resident``), its host reads, its program
+    launches and iterations.  The first resident one also runs once more
+    as the eager loop (``graphs.eager()``; its launches are not the
+    path's, its seconds are in the phase's), whose count and x it is held
+    to (:func:`check_gmres_resident`)."""
+    import faspsolver_tpu_torch.krylov  # noqa: F401  (loads the module)
+    from faspsolver_tpu_torch.utils import graphs
+    mod = sys.modules["faspsolver_tpu_torch.krylov.gmres"]
+    real = mod._gmres
+    seen = []
+
+    def spy(A, b, x0, M, tol, abstol, maxit, restart, *args, **kw):
+        before = graphs.stats["replays"]
+        out = real(A, b, x0, M, tol, abstol, maxit, restart, *args, **kw)
+        resident = out.resident
+        rec = {"resident": resident, "syncs": out.syncs,
+               "launches": graphs.stats["replays"] - before,
+               "iters": out.iters, "n": int(b.shape[0]),
+               "dtype": str(b.dtype).replace("torch.", "")}
+        if resident and not any("eager_iters" in r for r in seen):
+            # a check, not the path: its launches are taken back off
+            from faspsolver_tpu_torch.ops import stencil2d
+            from faspsolver_tpu_torch.utils import loops
+            saved = [dict(stencil2d.launches), dict(loops.launches)]
+            with graphs.eager():
+                e = real(A, b, x0, M, tol, abstol, maxit, restart, *args,
+                         **kw)
+            stencil2d.launches.update(saved[0])
+            loops.launches.update(saved[1])
+            rec.update(eager_iters=e.iters, eager_syncs=e.syncs,
+                       bit_equal=torch.equal(out.x, e.x),
+                       x_diff=float((out.x - e.x).norm()
+                                    / max(float(e.x.norm()), 1e-300)),
+                       tol=float(tol))
+        seen.append(rec)
+        return out
+
+    mod._gmres = spy
+    try:
+        yield seen
+    finally:
+        mod._gmres = real
+
+
+# a resident GMRES solve against its eager loop where the sums are not
+# deterministic: |x - x_eager| / |x| on the H100 was 6.3e-16 to 1.35e-14
+# (PERF.md section 6); the limit leaves a margin of some 7,000
+X_DIFF_LIMIT = 1e-10
+
+
+def check_gmres_resident(torch, device, phase, seen):
+    """On the card every resident GMRES-family solve of the phase is one
+    program launch and one host read, at least one ran, and the one run
+    again eagerly agrees with its eager loop (:func:`gmres_solves`): the
+    same count, x bit-equal or, where the preconditioner adds with
+    atomics, within X_DIFF_LIMIT of |x|."""
+    res = [r for r in seen if r["resident"]]
+    twin = [r for r in res if "eager_iters" in r]
+    print(f"  phase {phase}: {len(seen)} GMRES-family solves, {len(res)} "
+          f"resident (host reads {sorted({r['syncs'] for r in res})}, "
+          f"program launches {sorted({r['launches'] for r in res})}), "
+          f"{sum(r['iters'] for r in res)} iterations; eager check "
+          f"{twin[0] if twin else None}")
+    if torch.device(device).type != "cuda":
+        return
+    check(res, f"phase {phase}: a resident GMRES-family solve ran")
+    bad = [r for r in res if (r["syncs"], r["launches"]) != (1, 1)]
+    check(not bad, f"phase {phase}: every resident GMRES-family solve is "
+                   f"one program launch and one host read: {bad[:3]}")
+    r = twin[0]
+    check(r["eager_syncs"] > r["eager_iters"]
+          and r["iters"] == r["eager_iters"]
+          and (r["bit_equal"] or r["x_diff"] <= X_DIFF_LIMIT),
+        f"phase {phase}: a resident GMRES-family solve and its eager loop "
+        f"agree: {r}")
+
+
 # ---------------------------------------------------------------------------
 # phases 4, 6, 7: the main paths
 # ---------------------------------------------------------------------------
@@ -1772,7 +2100,7 @@ def profile_solve(torch, hier, b64, refine=HEADLINE_REFINE):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         counted = sum(v for k, v in launch_counts().items()
-                      if k != "loop_control")
+                      if k not in ("loop_control", "gmres"))
         rows = prof.key_averages()
         dev = sum(r.self_device_time_total for r in rows
                   if getattr(r, "device_type", None) == DeviceType.CUDA)
@@ -1926,7 +2254,8 @@ def drivers_path(torch, device):
     warned = []
     warn = messages.warn
     messages.warn = lambda m: (warned.append(m), warn(m))
-    counts = {"float32": 0, "float64": 0, "loop_control": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0,
+              "gmres": 0}
     readings = {}
     try:
         A, b, _ = poisson_2d_manufactured(NX)
@@ -1950,8 +2279,9 @@ def drivers_path(torch, device):
             print(graph_line("  cold", r["cold"]) + f", {r['cold']['iters']}"
                   f" iterations, host syncs {r['cold']['syncs']}")
             print(graph_line("  warm", r["warm"]))
-            if name == "input" and torch.device(device).type == "cuda":
-                # CG + RS-AMG: the resident PCG, one launch and one read
+            if torch.device(device).type == "cuda":
+                # CG over RS / SA / UA and bamg.dat's vGMRES over UA: the
+                # resident loop, one launch and one read
                 check(r["cold"]["replays"] == 1 and r["warm"]["replays"] == 1
                       and r["syncs"] == 1 and r["cold"]["syncs"] == 1,
                       f"{ini}: one program launch and one host read per "
@@ -1998,6 +2328,7 @@ def drivers_path(torch, device):
             if amg is not None:
                 kw["amg"] = AMGParam(**amg)
             t0 = time.perf_counter()
+            graphs.reset_stats()
             res = getattr(solvers, driver)(A, b, dtype=torch.float64,
                                            device=device, **kw)
             res = res[0] if isinstance(res, tuple) else res
@@ -2014,7 +2345,8 @@ def drivers_path(torch, device):
                   f"small grid {name}: {res.iters} iterations, relres "
                   f"{relres}")
             grid[name] = {"iters": res.iters, "relres": relres,
-                          "syncs": res.syncs, "s": wall}
+                          "syncs": res.syncs, "s": wall,
+                          "replays": graphs.stats["replays"]}
             if name in RESIDENT_SMALL_GRID and \
                     torch.device(device).type == "cuda":
                 # resident: one read, and its own eager loop's result: bit
@@ -2032,12 +2364,14 @@ def drivers_path(torch, device):
                       f"syncs {e.syncs}; x bit-equal: "
                       f"{torch.equal(res.x, e.x)}, relative difference "
                       f"{diff:.2e}")
-                check(res.syncs == 1 and e.syncs > e.iters
+                check(res.syncs == 1 and grid[name]["replays"] == 1
+                      and e.syncs > e.iters
                       and (torch.equal(res.x, e.x) and res.iters == e.iters
                            if exact else diff <= 1e-6
                            and abs(res.iters - e.iters) <= bound),
                       f"small grid {name}: resident (1 read, not "
-                      f"{res.syncs}) and its eager loop's result")
+                      f"{res.syncs}; 1 launch, not {grid[name]['replays']})"
+                      f" and its eager loop's result")
                 grid[name]["eager_syncs"] = e.syncs
         readings["small_grid"] = grid
     finally:
@@ -2234,7 +2568,8 @@ def block_path(torch, device, smi):
     from faspsolver_tpu_torch.precond.amg import smooth
     from faspsolver_tpu_torch.testgen import poisson_fe_manufactured
     from faspsolver_tpu_torch.utils import params
-    counts = {"float32": 0, "float64": 0, "loop_control": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0,
+              "gmres": 0}
     readings = {}
     gen = torch.Generator(device=device).manual_seed(SEED)
     on_card = torch.device(device).type == "cuda"
@@ -2593,7 +2928,8 @@ def surface_leftovers(torch, add):
 def surface_path(torch, device, smi):
     """Phase 10.  Returns the stencil launches of its solves and the
     readings."""
-    counts = {"float32": 0, "float64": 0, "loop_control": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0,
+              "gmres": 0}
 
     def add(r):
         for k in counts:
@@ -2651,7 +2987,8 @@ def harness_generated(torch, device, dtype, anchors):
     rows = harness.generated_problems()
     check([n for n, _, _ in rows] == list(anchors),
           f"the generated rows are the anchored ones: {list(anchors)}")
-    counts = {"float32": 0, "float64": 0, "loop_control": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0,
+              "gmres": 0}
     readings = {"lmvu": lmvu}
     for name, A, b in rows:
         reset_counts()
@@ -2898,7 +3235,8 @@ def harness_path(torch, device, corpus_rows=None):
     Returns the stencil launches of its runs and the readings."""
     import shutil
     import tempfile
-    counts = {"float32": 0, "float64": 0, "loop_control": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0,
+              "gmres": 0}
 
     def add(c):
         for k in counts:
@@ -2943,7 +3281,8 @@ def regression_path(torch, device, sets=("core", "bsr", "matfree", "mm")):
     Returns the stencil launches and the readings."""
     from faspsolver_tpu_torch.ops import stencil2d
     from faspsolver_tpu_torch.regression import runner
-    counts = {"float32": 0, "float64": 0, "loop_control": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0,
+              "gmres": 0}
     readings = {}
     t0 = time.perf_counter()
     for kind in sets:
@@ -3251,7 +3590,8 @@ def tutorials_path(torch, device, tmp):
     Returns the launches and the readings."""
     import re
     t0 = time.perf_counter()
-    counts = {"float32": 0, "float64": 0, "loop_control": 0}
+    counts = {"float32": 0, "float64": 0, "loop_control": 0,
+              "gmres": 0}
     readings, got = {}, {}
     readings["write_s"] = write_tutorial_data(tmp)
     print(f"  FE and SPE01 files written in {readings['write_s']:.1f} s")
@@ -3586,9 +3926,15 @@ def main(argv) -> int:
     profile = "--profile" in argv
     t0 = time.perf_counter()
 
+    last = [t0]
+
     def banner(text):
-        """A phase's header, with the seconds since the run began."""
-        print(f"== {text}  [{time.perf_counter() - t0:.1f} s]", flush=True)
+        """A phase's header, with the seconds since the run began and
+        those the phase before it took."""
+        now = time.perf_counter()
+        print(f"== {text}  [{now - t0:.1f} s; the phase before "
+              f"{now - last[0]:.1f} s]", flush=True)
+        last[0] = now
 
     banner("1. card")
     smi = card_info(torch)
@@ -3597,12 +3943,15 @@ def main(argv) -> int:
     banner("3. kernels against their plain versions")
     worst = check_kernel(torch, device)
     loop_row = check_loop_control(torch, device, smi)
+    gmres_row = check_gmres_control(torch, device, smi)
     if "--kernel-only" in argv:
         print("stopped after phase 3 (--kernel-only)")
         return 0
     if "--block-only" in argv:
         banner("9. main path: block and factorization preconditioners")
-        block_path(torch, device, smi)
+        with gmres_solves(torch) as seen:
+            block_path(torch, device, smi)
+        check_gmres_resident(torch, device, 9, seen)
         print("stopped after phase 9 (--block-only)")
         return 0
     if "--surface-only" in argv:
@@ -3613,12 +3962,16 @@ def main(argv) -> int:
     if "--harness-only" in argv:
         banner("11. main path: the benchmark harness, checkpoint and "
               "profiling")
-        harness_path(torch, device)
+        with gmres_solves(torch) as seen:
+            harness_path(torch, device)
+        check_gmres_resident(torch, device, 11, seen)
         print("stopped after phase 11 (--harness-only)")
         return 0
     if "--regression-only" in argv:
         banner("12. main path: the regression runner")
-        regression_path(torch, device)
+        with gmres_solves(torch) as seen:
+            regression_path(torch, device)
+        check_gmres_resident(torch, device, 12, seen)
         print("stopped after phase 12 (--regression-only)")
         return 0
     if "--parallel-only" in argv:
@@ -3629,7 +3982,9 @@ def main(argv) -> int:
     if "--tutorials-only" in argv:
         banner("14. main path: the tutorials")
         with tempfile.TemporaryDirectory() as tmp:
-            tutorials_path(torch, device, tmp)
+            with gmres_solves(torch) as seen:
+                tutorials_path(torch, device, tmp)
+            check_gmres_resident(torch, device, 14, seen)
         print("stopped after phase 14 (--tutorials-only)")
         return 0
     if "--bench-only" in argv:
@@ -3671,10 +4026,14 @@ def main(argv) -> int:
     counts["fe_auto"], res["fe_auto"] = fe_auto_path(torch, device, A, b)
     del A, b
     banner("8. main path: drivers (the ini CLI, then the small grid)")
-    counts["drivers"], res["drivers"] = drivers_path(torch, device)
+    with gmres_solves(torch) as seen:
+        counts["drivers"], res["drivers"] = drivers_path(torch, device)
+    check_gmres_resident(torch, device, 8, seen)
     banner("9. main path: block and factorization preconditioners")
-    counts["block_and_factorization"], res["block_and_factorization"] = \
-        block_path(torch, device, smi)
+    with gmres_solves(torch) as seen:
+        counts["block_and_factorization"], \
+            res["block_and_factorization"] = block_path(torch, device, smi)
+    check_gmres_resident(torch, device, 9, seen)
     banner("10. main path: the solver surface")
     counts["solver_surface"], res["solver_surface"] = surface_path(
         torch, device, smi)
@@ -3682,17 +4041,24 @@ def main(argv) -> int:
           "profiling")
     # the whole run keeps to its time budget with ten corpus rows;
     # --harness-only runs all twenty
-    counts["harness"], res["harness"] = harness_path(torch, device,
-                                                     corpus_rows=10)
+    with gmres_solves(torch) as seen:
+        counts["harness"], res["harness"] = harness_path(torch, device,
+                                                         corpus_rows=10)
+    check_gmres_resident(torch, device, 11, seen)
     banner("12. main path: the regression runner")
-    counts["regression"], res["regression"] = regression_path(torch, device)
+    with gmres_solves(torch) as seen:
+        counts["regression"], res["regression"] = regression_path(torch,
+                                                                  device)
+    check_gmres_resident(torch, device, 12, seen)
     banner("13. main path: the distribution layer")
     counts["distribution"], res["distribution"] = parallel_path(torch,
                                                                 device)
     with tempfile.TemporaryDirectory() as tmp:
         banner("14. main path: the tutorials")
-        counts["tutorials"], res["tutorials"] = tutorials_path(torch, device,
-                                                               tmp)
+        with gmres_solves(torch) as seen:
+            counts["tutorials"], res["tutorials"] = tutorials_path(
+                torch, device, tmp)
+        check_gmres_resident(torch, device, 14, seen)
         banner("15. main path: the headline benchmark (bench_torch.py)")
         counts["bench"], res["bench"] = bench_path(torch, device, tmp)
 
@@ -3722,6 +4088,9 @@ def main(argv) -> int:
                        if f" {dt} " in label}})
     by_path = {path: c.get("loop_control", 0) for path, c in counts.items()}
     kernels.append({**loop_row, "launches": sum(by_path.values()),
+                    "launches_by_path": by_path})
+    by_path = {path: c.get("gmres", 0) for path, c in counts.items()}
+    kernels.append({**gmres_row, "launches": sum(by_path.values()),
                     "launches_by_path": by_path})
     print(json.dumps({"kernels": kernels, "main_paths": res}))
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")

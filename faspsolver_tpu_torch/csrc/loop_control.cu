@@ -28,6 +28,10 @@
 //     the recompute, which may not have run; sets the WHILE handle);
 //   refinement: 0 init, 1 round (after a round's f64 residual; sets the
 //     WHILE handle and the next inner tolerance).
+//   GMRES family: two nested WHILEs, the restart cycles around the Arnoldi
+//     steps (faspsolver_tpu/krylov/gmres.py:175/:243): 0 init, 1 cycle,
+//     2 arnoldi (the Hessenberg column's Givens rotations), 3 solve (the
+//     window's back-substitution), 4 restart (see gmres_control).
 //
 // Rounding: the decisions must be those of the eager loop's scalar
 // arithmetic in b's dtype (the JAX package's traced scalars), so every
@@ -41,6 +45,9 @@
 // What bounds it: nothing but the launch.  One thread reads a few dozen
 // scalars and writes as many; the time is the launch floor of a graph
 // kernel node, a few microseconds, once or twice per iteration.
+// GMRES's arnoldi phase does up to R rotations (R the restart window) and
+// its solve phase R^2 / 2 dependent multiply-adds on one thread: at R = 60
+// a few microseconds more, once per step and once per cycle.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -48,8 +55,8 @@
 
 // Field layouts of a loop's state region (utils/loops.py reads these two
 // enums from this file: keep each a single "enum Name { ... };").
-enum LoopI { I_IT, I_MAXIT, I_STOP, I_SAFE, I_MAX_STAG, I_MAX_RESTART, I_STAG, I_MORE, I_STATUS, I_BREAKDOWN, I_ZERO_SOL, I_STAGNATED, I_CLAIM, I_NEED, I_CONV, I_RESTART, I_BETTER, I_CONT, I_NINIT, I_NBODY, I_NIF, I_COUNT };
-enum LoopF { F_TOL, F_ABSTOL, F_MAXDIFF, F_ABSRES0, F_NORMR0, F_NORMU, F_NORMU_NEW, F_ABSRES, F_RELRES, F_BEST, F_INNER_TOL, F_INNER_FLOOR, F_COUNT };
+enum LoopI { I_IT, I_MAXIT, I_STOP, I_SAFE, I_MAX_STAG, I_MAX_RESTART, I_STAG, I_MORE, I_STATUS, I_BREAKDOWN, I_ZERO_SOL, I_STAGNATED, I_CLAIM, I_NEED, I_CONV, I_RESTART, I_BETTER, I_CONT, I_NINIT, I_NBODY, I_NIF, I_J, I_CUR_RESTART, I_CYCLES, I_ADAPTIVE, I_COUNT };
+enum LoopF { F_TOL, F_ABSTOL, F_MAXDIFF, F_ABSRES0, F_NORMR0, F_NORMU, F_NORMU_NEW, F_ABSRES, F_RELRES, F_BEST, F_INNER_TOL, F_INNER_FLOOR, F_R_NORM, F_R_NORM_OLD, F_STAG_BEST, F_SCALE, F_COUNT };
 
 // constants of faspsolver_tpu_torch/constants.py and krylov/common.py,
 // handed in as -D flags by utils/loops.py
@@ -65,6 +72,10 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
 __device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 
 // Python's max(a, b) and min(a, b): the first argument unless the second
 // is strictly greater (smaller) — what the eager loop's host checks did
@@ -307,6 +318,174 @@ __global__ void refine_control(int phase, const double* in, double* f, int* i,
     set_cond(h, i[I_CONT]);
 }
 
+// The GMRES family (faspsolver_tpu/krylov/gmres.py:85-250): the scalar
+// work of the restart cycles (the outer while_loop) and of each Arnoldi
+// step (the inner one).  f / i are the outer loop's region, ia the inner
+// loop's (its CONT and NBODY); `arr` holds the window's small arrays, R
+// the window (restart, at most maxit), laid out as gmres_arrays says:
+// H (R+1) x R row-major, then g (R+1), cs (R), sn (R) and y (R).
+//   0 init     in = {absres0, x0.x0, |r0|}; sets the outer CONT
+//   1 cycle    in unused: clears arr, g[0] = |r|, the scale of V[0]
+//              (1/|r|, 0 at or under SMALLREAL), j = 0; the inner CONT
+//   2 arnoldi  in = {h_0 .. h_R (0 past j), hn}: the j earlier rotations
+//              on the column, the new one (den > SMALLREAL guard), column
+//              j of H, g[j], g[j+1], cs[j], sn[j]; happy breakdown and
+//              the least-squares residual's convergence; the inner CONT
+//   3 solve    in unused: y from the j x j upper-triangular H y = g, row
+//              j-1 first, each row's sum in increasing column; 0 past j
+//   4 restart  in = {|r|, absres, x.x} of the true residual: relres, the
+//              adaptive restart rule, stagnation against the best relres,
+//              the safe iterate's flag; the outer CONT
+// Phases 1 and 3 run on a block (the clear, the tile's load); the rest on
+// its thread 0.  Phase 3 solves from a shared tile of H's first R rows, g
+// and y: at R = 60 in f64 it takes 26.6 us where one thread reading H and
+// g where they lie takes 90.0 us (tools/gmres_solve_tile.py, H100).
+__host__ __device__ constexpr int gmres_arrays(int R) { return (R + 1) * R + (R + 1) + 3 * R; }
+
+template <typename T>
+__global__ void gmres_control(int phase, const T* in, T* f, int* i, int* ia, T* arr, int R,
+                              unsigned long long h) {
+    const T small = T(FASP_SMALLREAL);
+    T* H = arr;
+    T* g = H + (R + 1) * R;
+    T* cs = g + R + 1;
+    T* sn = cs + R;
+    T* y = sn + R;
+    if (phase == 1) {
+        for (int k = threadIdx.x; k < gmres_arrays(R); k += blockDim.x) arr[k] = T(0);
+        __syncthreads();
+        if (threadIdx.x) return;
+        const T r_norm = f[F_R_NORM];
+        g[0] = r_norm;
+        f[F_SCALE] = r_norm > small ? div_rn(T(1), r_norm) : T(0);
+        i[I_J] = 0;
+        ia[I_CONT] = 0 < i[I_CUR_RESTART] && i[I_IT] < i[I_MAXIT];
+        set_cond(h, ia[I_CONT]);
+        return;
+    }
+    if (phase == 3) {
+        extern __shared__ __align__(16) unsigned char gmres_smem[];
+        const int j = i[I_J];
+        T* Hs = reinterpret_cast<T*>(gmres_smem);
+        T* gs = Hs + R * R;
+        T* ys = gs + R;
+        for (int k = threadIdx.x; k < R * R; k += blockDim.x) Hs[k] = H[k];
+        for (int k = threadIdx.x; k < R; k += blockDim.x) gs[k] = g[k];
+        __syncthreads();
+        for (int k = j + threadIdx.x; k < R; k += blockDim.x) y[k] = T(0);
+        if (threadIdx.x) return;
+        for (int k = j - 1; k >= 0; --k) {
+            T acc = T(0);
+            for (int m = k + 1; m < j; ++m) acc = add_rn(acc, mul_rn(Hs[k * R + m], ys[m]));
+            ys[k] = div_rn(sub_rn(gs[k], acc), Hs[k * R + k]);
+        }
+        for (int k = 0; k < j; ++k) y[k] = ys[k];
+        return;
+    }
+    if (threadIdx.x) return;
+    const bool mod = i[I_STOP] == FASP_MOD_REL_RES;
+    if (phase == 0) {
+        init_norms(in[0], in[1], f, i, false);
+        f[F_BEST] = f[F_RELRES];
+        f[F_STAG_BEST] = f[F_RELRES];
+        f[F_R_NORM] = in[2];
+        f[F_R_NORM_OLD] = in[2];
+        i[I_STAG] = 0;
+        i[I_CYCLES] = 0;
+        i[I_CUR_RESTART] = R;
+        i[I_J] = 0;
+        set_cond(h, i[I_CONT]);
+        return;
+    }
+    if (phase == 2) {
+        const int j = i[I_J];
+        const T hn = in[R + 1];
+        for (int k = 0; k <= R; ++k) H[k * R + j] = in[k];
+        H[(j + 1) * R + j] = hn;
+        for (int k = 0; k < j; ++k) {
+            const T hk = H[k * R + j], hk1 = H[(k + 1) * R + j];
+            H[k * R + j] = add_rn(mul_rn(cs[k], hk), mul_rn(sn[k], hk1));
+            H[(k + 1) * R + j] = add_rn(mul_rn(-sn[k], hk), mul_rn(cs[k], hk1));
+        }
+        const T a = H[j * R + j], b = H[(j + 1) * R + j];
+        const T den = sqrt_rn(add_rn(mul_rn(a, a), mul_rn(b, b)));
+        const bool den_ok = den > small;
+        const T c = den_ok ? div_rn(a, den) : T(1);
+        const T s = den_ok ? div_rn(b, den) : T(0);
+        H[j * R + j] = add_rn(mul_rn(c, a), mul_rn(s, b));
+        H[(j + 1) * R + j] = T(0);
+        const T gj = g[j];
+        g[j] = mul_rn(c, gj);
+        g[j + 1] = mul_rn(-s, gj);
+        cs[j] = c;
+        sn[j] = s;
+        const bool happy = hn <= T(FASP_HAPPY);
+        const bool conv = div_rn(fabs(g[j + 1]), f[F_NORMR0]) < f[F_TOL];
+        i[I_J] = j + 1;
+        ia[I_NBODY] += 1;
+        ia[I_CONT] = j + 1 < i[I_CUR_RESTART] && i[I_IT] + j + 1 < i[I_MAXIT] && !happy && !conv;
+        set_cond(h, ia[I_CONT]);
+        return;
+    }
+    // phase 4
+    const int j = i[I_J];
+    i[I_IT] += j;
+    const T r_norm = in[0], absres = in[1];
+    const T normu = pymax(small, sqrt_rn(in[2]));
+    const T relres = div_rn(absres, mod ? normu : f[F_NORMR0]);
+    int cur = i[I_CUR_RESTART];
+    if (i[I_ADAPTIVE]) {
+        // the reference's rule (KryPvgmres.c:200-210)
+        const T cr = div_rn(r_norm, pymax(f[F_R_NORM], small));
+        const int shrunk = cur - FASP_RESTART_DEC > FASP_RESTART_MIN ? cur - FASP_RESTART_DEC : R;
+        cur = cr > T(FASP_CR_MAX) || i[I_CYCLES] == 0 ? R : cr < T(FASP_CR_MIN) ? cur : shrunk;
+    }
+    const int stag = relres > mul_rn(T(FASP_STAG_FACTOR), f[F_STAG_BEST]) ? i[I_STAG] + 1 : 0;
+    const bool stalled = stag >= FASP_MAX_STAG_CYCLES && relres > mul_rn(T(4), f[F_TOL]);
+    const bool done = relres < f[F_TOL] || j == 0 || stalled;
+    f[F_STAG_BEST] = pymin(f[F_STAG_BEST], relres);
+    f[F_R_NORM_OLD] = f[F_R_NORM];
+    f[F_R_NORM] = r_norm;
+    f[F_ABSRES] = absres;
+    f[F_RELRES] = relres;
+    f[F_NORMU_NEW] = normu;
+    const bool better = i[I_SAFE] && relres < f[F_BEST];
+    if (better) f[F_BEST] = relres;
+    i[I_BETTER] = better;
+    i[I_CUR_RESTART] = cur;
+    i[I_STAG] = stag;
+    i[I_CYCLES] += 1;
+    i[I_STATUS] = stalled ? FASP_ERR_STAG : 0;
+    i[I_NBODY] += 1;
+    i[I_CONT] = !done && i[I_IT] < i[I_MAXIT];
+    set_cond(h, i[I_CONT]);
+}
+
+// The launch of GMRES's control; `R` is the window.  The cycle and solve
+// phases take a block of 256 threads, the solve a shared tile of (R + 2) R
+// values: above 48 KB the kernel's limit is raised to it first, and a tile
+// past the card's opt-in limit (R > 168 in f64 on an H100) is refused.
+template <typename T>
+int gmres_entry(int phase, const T* in, T* f, int* i, int* ia, T* arr, int R,
+                unsigned long long h, void* stream) {
+    const int threads = phase == 1 || phase == 3 ? 256 : 1;
+    const size_t smem = phase == 3 ? static_cast<size_t>(R + 2) * R * sizeof(T) : 0;
+    if (smem > 48 * 1024) {
+        int dev = 0, most = 0;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (e == cudaSuccess && smem > static_cast<size_t>(most)) e = cudaErrorInvalidValue;
+        if (e == cudaSuccess)
+            e = cudaFuncSetAttribute(gmres_control<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    gmres_control<T><<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        phase, in, f, i, ia, arr, R, h);
+    return static_cast<int>(cudaGetLastError());
+}
+
 __global__ void empty_control() {}
 
 // The driver API entry points the graph calls use, from the process's
@@ -392,6 +571,17 @@ int fasp_loop_refine_f64(int phase, const double* in, double* f, int* i, double*
     refine_control<double><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
         phase, in, f, i, inner_f, h);
     return static_cast<int>(cudaGetLastError());
+}
+
+// GMRES's control (gmres_entry); R is the window
+int fasp_loop_gmres_f32(int phase, const float* in, float* f, int* i, int* ia, float* arr,
+                        int R, unsigned long long h, void* stream) {
+    return gmres_entry(phase, in, f, i, ia, arr, R, h, stream);
+}
+
+int fasp_loop_gmres_f64(int phase, const double* in, double* f, int* i, int* ia, double* arr,
+                        int R, unsigned long long h, void* stream) {
+    return gmres_entry(phase, in, f, i, ia, arr, R, h, stream);
 }
 
 // An empty one-thread kernel: the launch floor the control kernels sit on

@@ -55,6 +55,29 @@ def zeros_rows(m: int, b) -> torch.Tensor:
     return torch.zeros((m, b.shape[0]), dtype=b.dtype, device=b.device)
 
 
+def take_row(V, j: torch.Tensor, b) -> torch.Tensor:
+    """Row ``j`` (a one-element index tensor on V's local device, read on
+    the device) of a basis V made by :func:`zeros_rows`, laid out like
+    b.  A DTensor basis is indexed in its local part (split by column,
+    each rank holds its slice of every row): DTensor has no sharding rule
+    for the index ops in every PyTorch release."""
+    if is_dtensor(V):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(V.to_local().index_select(0, j)[0],
+                                  b.device_mesh, b.placements,
+                                  run_check=False, shape=b.shape,
+                                  stride=b.stride())
+    return V.index_select(0, j)[0]
+
+
+def put_row(V, j: torch.Tensor, v) -> None:
+    """V[j] = v in place (j as for :func:`take_row`)."""
+    if is_dtensor(V):
+        V.to_local().index_copy_(0, j, v.to_local()[None])
+    else:
+        V.index_copy_(0, j, v[None])
+
+
 def like(v: torch.Tensor, b) -> torch.Tensor:
     """A small host-computed tensor v on b's device, replicated over b's
     mesh when b is a DTensor."""
@@ -70,20 +93,21 @@ def local_device(b) -> torch.device:
     return b.to_local().device if is_dtensor(b) else b.device
 
 
-def loop_state(kind: str, A, M, b, stop_type: int, safe: bool, make):
+def loop_state(kind: str, A, M, b, stop_type: int, safe: bool, make,
+               static: tuple = ()):
     """(state, resident) of a Krylov loop over A and M: the state kept
     with A and M for a resident solve (a CUDA vector, graphs on, both
     modules capturable; cached by their buffers, b's dtype and length,
-    the criterion and ``safe``), else a fresh ``make()`` for the eager
-    loop."""
+    the criterion, ``safe`` and the loop's other ``static`` settings that
+    shape its program), else a fresh ``make()`` for the eager loop."""
     if not (graphs.active(b) and graphs.capturable(A)
             and graphs.capturable(M)):
         return make(), False
     (ha, sa), (hm, sm) = graphs.identity(A), graphs.identity(M)
     key = (b.dtype, b.shape[0], b.device, sa, sm, graphs.fingerprint(ha),
            graphs.fingerprint(hm))
-    return graphs.cached((ha, hm), (kind, int(stop_type), bool(safe)), key,
-                         make), True
+    return graphs.cached((ha, hm), (kind, int(stop_type), bool(safe))
+                         + tuple(static), key, make), True
 
 
 def abs_residual(stop_type: int, r, z) -> torch.Tensor:
@@ -137,11 +161,8 @@ class HostReads:
 
     def __call__(self, *scalars):
         """0-d tensors -> list of host scalars."""
-        return self.vec(torch.stack(scalars))
-
-    def vec(self, v: torch.Tensor):
-        """A 1-d tensor -> list of host scalars."""
         self.count += 1
+        v = torch.stack(scalars)
         if is_dtensor(v):
             v = v.full_tensor()
         if v.device.type == "cuda":

@@ -4,36 +4,61 @@ preconditioned (port of ``faspsolver_tpu/krylov/gmres.py``).
 Reference: base/src/KryPgmres.c (fixed restart), KryPvgmres.c (adaptive
 restart, the cr_max/cr_min rule at :79-80, :200-210), KryPvfgmres.c
 (flexible).  One core serves all three.  The Krylov basis is a dense
-(restart + 1, n) tensor orthogonalised by CGS2 (classical Gram-Schmidt
-twice: two matrix-vector products against the stored basis per step).
-The Hessenberg column, its Givens rotations and the small triangular
-solve live on the host: each Arnoldi step reads its column (j + 2
-values) in one transfer, and each restart cycle reads its true residual
-once more (``SolveResult.syncs``).
+(R + 1, n) tensor, R the window (restart, at most maxit), orthogonalised
+by CGS2 (classical Gram-Schmidt twice) as masked full-window products:
+``h = (V @ w) * (k <= j)``, ``w -= h @ V``, twice — the JAX package's
+design, which keeps every shape static (up to twice the bytes of products
+over the first j + 1 rows).
+
+The JAX package's two nested ``lax.while_loop`` as a ``utils.graphs``
+tree (:func:`_tree`): a start piece (r0 = b - A x0, the initial norms and
+the control's ``INIT``), then a While over the restart cycles whose body
+is
+
+- the cycle's start: the control's ``CYCLE`` (it clears the Hessenberg
+  matrix H, g, the rotations and y, sets g[0] = |r| and the scale of
+  V[0]), the per-cycle clear of V (and Z) and V[0] = r / |r|;
+- a While over the Arnoldi steps: v = V[j] with j a device index of the
+  control's region, z = M v, w = A z (Z[j] = z when flexible), the masked
+  CGS2, hn = |w|, V[j + 1] = w / hn (0 on a happy breakdown) and the
+  control's ``ARNOLDI`` over the column (h, hn): the Givens rotations,
+  the least-squares residual's test and the Arnoldi While's condition;
+- the cycle's end: the control's ``SOLVE`` (y from the j x j triangular
+  system), x += M(y @ V[:R]) (x += y @ Z when flexible), the true
+  residual, the control's ``RESTART`` (relres, the adaptive restart rule,
+  stagnation with status -42, the restart While's condition) and the
+  safe iterate as a masked update.
+
+All scalar work is the control's (``utils/loops.py``: on a CUDA vector
+its kernel, on the CPU its plain twin), in b's dtype, bit for bit the
+roundings of the JAX package's traced scalar arithmetic.  On the CPU
+(:func:`_on_host`) the Arnoldi step reads j on the host and the tree
+computes as the host loop it replaced did: CGS2 over the first j + 1
+rows of V, y by LAPACK's triangular solve over the j x j system and x
+updated over those j rows, bit for bit.  An f32 solve at its floor
+turns on the last bit of each such sum (the refined harness's fallback
+on jump_2d at a contrast of 1e6 takes another branch under the masked
+products), and the CPU is where the port is held to the JAX package.
+On a CUDA vector, when A and M declare themselves capturable, the tree
+is captured at the first solve as one CUDA graph kept with A and M (per
+criterion, ``safe``, R and variant) and a solve is one launch and ONE
+host read (``SolveResult.syncs`` = 1, ``resident``).  Elsewhere — the CPU, DTensors, under
+``utils.graphs.eager()``, or a module that does not declare it — the
+same tree runs as the eager loop, which reads the control's block once
+at the start, once after every Arnoldi step and once after every cycle:
+``syncs`` = 1 + iterations + cycles.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..constants import StopType
-from .common import (SMALLREAL, HostReads, abs_residual, dot, initial_norms,
-                     like, replicated, residual_norms, resolve_precond,
-                     zeros_rows)
+from ..utils import graphs, loops
+from ..utils.loops import ARNOLDI, CYCLE, INIT, RESTART, SOLVE, F, I
+from .common import (HostReads, abs_residual, dot, like, local_device,
+                     loop_state, put_row, replicated, resolve_precond,
+                     take_row, zeros_rows)
 from .result import SolveResult
-
-_CR_MAX = 0.99    # cos(8 deg)  (reference: KryPvgmres.c:79)
-_CR_MIN = 0.174   # cos(80 deg) (reference: KryPvgmres.c:80)
-_RESTART_MIN = 3
-_RESTART_DEC = 3
-# stagnation bail-out: consecutive restart cycles whose true residual
-# improves on the best seen by less than 0.5% end the solve with
-# ERROR_SOLVER_STAG (-42) while still more than 4x from tol (the JAX
-# package's rule, which keeps a solve pinned at the f32 residual floor
-# from running out its whole maxit)
-_STAG_FACTOR = 0.995
-_MAX_STAG_CYCLES = 4
-_ERROR_GMRES_STAG = -42
 
 
 def gmres(A, b, x0=None, M=None, *, tol=1e-6, abstol=1e-18, maxit=500,
@@ -63,116 +88,153 @@ def vfgmres(A, b, x0=None, M=None, *, tol=1e-6, abstol=1e-18, maxit=500,
                   adaptive=True, flexible=True, safe=safe)
 
 
+def _on_host(b) -> bool:
+    """Whether a solve of b takes j on the host (the CPU's arithmetic in
+    the module docstring); on the card j stays on the device."""
+    return local_device(b).type == "cpu"
+
+
+class _State(graphs.LoopState):
+    """The tensors one solve updates in place; when resident, kept with
+    its program for the next solve over the same A and M: b, x, the
+    residual r, the basis V (and Z), the safe iterate, the control's
+    block (the restart cycles' region and the Arnoldi steps') and the
+    window's arrays (``loops.gmres_arrays``)."""
+
+    def __init__(self, like_b, R: int, flexible: bool, safe: bool):
+        self.R = R
+        self.b, self.x, self.r = (torch.zeros_like(like_b) for _ in range(3))
+        self.best_x = torch.zeros_like(like_b) if safe else None
+        self.V = zeros_rows(R + 1, like_b)
+        self.Z = zeros_rows(R, like_b) if flexible else None
+        dev, dt = local_device(like_b), like_b.dtype
+        self.host = _on_host(like_b)
+        self.rows = torch.arange(R + 1, device=dev)
+        self.arr = torch.zeros(loops.gmres_arrays(R), dtype=dt, device=dev)
+        self.block = loops.Block(dev, [("gmres", dt), ("arnoldi", dt)])
+        self.reg, self.inner = self.block["gmres"], self.block["arnoldi"]
+
+
+def _control(st: _State, phase: int, inp=None) -> None:
+    loops.gmres(phase, st.arr[:1] if inp is None else inp, st.reg, st.inner,
+                st.arr, st.R)
+
+
+def _start(st: _State, A, M, stop_type: int) -> None:
+    """r0 = b - A x0; the initial norms."""
+    x, r = st.x, st.r
+    torch.sub(st.b, A(x), out=r)
+    z = M(r) if stop_type == StopType.REL_PRECRES else None
+    if st.best_x is not None:
+        st.best_x.copy_(x)
+    _control(st, INIT, torch.stack((abs_residual(stop_type, r, z),
+                                    dot(x, x), torch.sqrt(dot(r, r)))))
+
+
+def _cycle(st: _State) -> None:
+    """A window's start: its arrays cleared, V (and Z) zeroed, V[0] =
+    r / |r|."""
+    _control(st, CYCLE)
+    st.V.zero_()
+    if st.Z is not None:
+        st.Z.zero_()
+    st.V[0] = st.r * like(st.reg.f[F.SCALE], st.r)
+
+
+def _arnoldi(st: _State, A, M) -> None:
+    """Arnoldi step j (a device index): z = M V[j], w = A z, CGS2,
+    V[j + 1] = w / |w|; the control's rotations.  On the card the
+    products run over the whole window, masked to k <= j; on the CPU over
+    the first j + 1 rows."""
+    V, b = st.V, st.b
+    j = st.reg.i[I.J:I.J + 1].long()
+    z = M(take_row(V, j, b))
+    w = A(z)
+    if st.Z is not None:
+        put_row(st.Z, j, z)
+    if st.host:
+        Vj, mask = V[:int(j) + 1], 1
+    else:
+        Vj, mask = V, like((st.rows <= j).to(st.arr.dtype), b)
+    h1 = replicated(Vj @ w) * mask
+    w = w - h1 @ Vj
+    h2 = replicated(Vj @ w) * mask
+    w = w - h2 @ Vj
+    hn = torch.sqrt(dot(w, w))
+    happy = hn <= loops.HAPPY
+    inv = torch.where(happy, torch.zeros_like(hn),
+                      1.0 / torch.where(happy, torch.ones_like(hn), hn))
+    put_row(V, j + 1, w * inv)
+    h = torch.nn.functional.pad(h1 + h2, (0, st.R + 1 - Vj.shape[0]))
+    _control(st, ARNOLDI, torch.cat([h, hn.reshape(1)]))
+
+
+def _finish(st: _State, A, M, stop_type: int) -> None:
+    """A window's end: y (on the card the control's back-substitution,
+    on the CPU LAPACK's), the update of x, the true residual (it doubles
+    as the safeguard's recheck), the restart rules, the safe iterate."""
+    if st.host:
+        j = int(st.reg.i[I.J])
+        H, g, *_ = loops.gmres_views(st.arr, st.R)
+        if j:
+            y = like(torch.linalg.solve_triangular(
+                H[:j, :j].contiguous(), g[:j, None], upper=True)[:, 0], st.b)
+            dx = y @ st.Z[:j] if st.Z is not None else M(y @ st.V[:j])
+            torch.add(st.x, dx, out=st.x)
+    else:
+        _control(st, SOLVE)
+        y = like(st.arr[st.arr.numel() - st.R:], st.b)
+        dx = y @ st.Z if st.Z is not None else M(y @ st.V[:st.R])
+        torch.add(st.x, dx, out=st.x)
+    x, r = st.x, st.r
+    torch.sub(st.b, A(x), out=r)
+    z = M(r) if stop_type == StopType.REL_PRECRES else r
+    _control(st, RESTART, torch.stack((torch.sqrt(dot(r, r)),
+                                       abs_residual(stop_type, r, z),
+                                       dot(x, x))))
+    if st.best_x is not None:
+        torch.where(like(st.reg.flag(I.BETTER), x), x, st.best_x,
+                    out=st.best_x)
+
+
+def _tree(st: _State, A, M, stop_type: int):
+    """The restart cycles around the Arnoldi steps.  An Arnoldi While
+    always runs its first step (the cycles' condition implies it for any
+    window), so the eager loop reads nothing at its entry."""
+    return [graphs.Piece(lambda: _start(st, A, M, stop_type)),
+            graphs.While(st.reg, (
+                graphs.Piece(lambda: _cycle(st)),
+                graphs.While(st.inner, (
+                    graphs.Piece(lambda: _arnoldi(st, A, M)),),
+                    entry=st.R > 0),
+                graphs.Piece(lambda: _finish(st, A, M, stop_type))))]
+
+
 def _gmres(A, b, x0, M, tol, abstol, maxit, restart, stop_type,
            adaptive, flexible, safe):
     M = resolve_precond(M)
-    host = HostReads(b.dtype)
-    t = host.t
-    tol, abstol = t(tol), t(abstol)
-    small = t(SMALLREAL)
-    happy_tol = t(SMALLREAL * 1e-8)
-    precres = stop_type == StopType.REL_PRECRES
     R = int(min(restart, maxit))
+    make = lambda: _State(b, R, flexible, safe)  # noqa: E731
+    # a window of 0 takes no Arnoldi step: nothing to capture
+    st, resident = (loop_state("gmres", A, M, b, stop_type, safe, make,
+                               (R, bool(adaptive), bool(flexible)))
+                    if R > 0 else (make(), False))
+    st.b.copy_(b)
     if x0 is None:
-        x0 = torch.zeros_like(b)
-
-    x = x0
-    r = b - A(x0)
-    absres0, xx, r_norm = host(abs_residual(stop_type, r, M(r)),
-                               dot(x0, x0), torch.sqrt(dot(r, r)))
-    absres0, normr0, _, relres = initial_norms(stop_type, absres0, xx)
-    done = bool(relres < tol) or bool(absres0 < abstol)
-
-    V = zeros_rows(R + 1, b)
-    Z = zeros_rows(R, b) if flexible else None
-    it, cycles, cur, status = 0, 0, R, 0
-    stag, stag_best = 0, relres
-    best_x, best_relres = x0, relres
-
-    while not done and it < maxit:
-        # ---- one restart cycle: Arnoldi with Givens rotations ----------
-        V[0] = r * (t(1.0) / r_norm if r_norm > small else t(0.0))
-        H = np.zeros((R + 1, R), dtype=t)
-        g = np.zeros(R + 1, dtype=t)
-        g[0] = r_norm
-        cs = np.zeros(R, dtype=t)
-        sn = np.zeros(R, dtype=t)
-        j, brk = 0, False
-        while j < cur and it + j < maxit and not brk:
-            z = M(V[j])
-            w = A(z)
-            if flexible:
-                Z[j] = z
-            Vj = V[:j + 1]
-            h1 = replicated(Vj @ w)
-            w = w - h1 @ Vj
-            h2 = replicated(Vj @ w)
-            w = w - h2 @ Vj
-            hn_t = torch.sqrt(dot(w, w))
-            *h, hn = host.vec(torch.cat([h1 + h2, hn_t.reshape(1)]))
-            happy = hn <= happy_tol
-            V[j + 1] = w * (t(0.0) if happy else t(1.0) / hn)
-
-            # previous rotations on the column, then the new one
-            hcol = np.zeros(R + 1, dtype=t)
-            hcol[:j + 1] = h
-            hcol[j + 1] = hn
-            for k in range(j):
-                hk, hk1 = hcol[k], hcol[k + 1]
-                hcol[k] = cs[k] * hk + sn[k] * hk1
-                hcol[k + 1] = -sn[k] * hk + cs[k] * hk1
-            a_, b_ = hcol[j], hcol[j + 1]
-            den = np.sqrt(a_ * a_ + b_ * b_)
-            c, s = (a_ / den, b_ / den) if den > small else (t(1.0), t(0.0))
-            hcol[j] = c * a_ + s * b_
-            hcol[j + 1] = 0.0
-            gj = g[j]
-            g[j] = c * gj
-            g[j + 1] = -s * gj
-            H[:, j] = hcol
-            cs[j], sn[j] = c, s
-            brk = happy or abs(g[j + 1]) / normr0 < tol
-            j += 1
-
-        # least squares: the j x j upper-triangular system
-        if j:
-            y = like(torch.linalg.solve_triangular(
-                torch.from_numpy(H[:j, :j].copy()),
-                torch.from_numpy(g[:j].copy())[:, None],
-                upper=True)[:, 0], b)
-            x = x + (y @ Z[:j] if flexible else M(y @ V[:j]))
-        it += j
-
-        # ---- true residual per restart (doubles as the safeguard) ------
-        r = b - A(x)
-        z = M(r) if precres else r
-        r_norm_old = r_norm
-        r_norm, absres, xx = host(torch.sqrt(dot(r, r)),
-                                  abs_residual(stop_type, r, z),
-                                  dot(x, x))
-        normu_new = max(small, np.sqrt(xx))
-        absres, relres = residual_norms(stop_type, absres, normr0, normu_new)
-        if adaptive:
-            # reference rule (KryPvgmres.c:200-210)
-            cr = r_norm / max(r_norm_old, small)
-            shrunk = cur - _RESTART_DEC if cur - _RESTART_DEC > _RESTART_MIN \
-                else R
-            cur = (R if cr > _CR_MAX or cycles == 0
-                   else cur if cr < _CR_MIN else shrunk)
-        # stagnation against the BEST residual: a wobbling plateau must
-        # improve on its best by > 0.5% to stay alive
-        stag = stag + 1 if relres > _STAG_FACTOR * stag_best else 0
-        stag_best = min(stag_best, relres)
-        # within 4x of tol a slow last digit is not a floor stall
-        stalled = stag >= _MAX_STAG_CYCLES and relres > 4.0 * tol
-        done = bool(relres < tol) or j == 0 or stalled
-        status = _ERROR_GMRES_STAG if stalled else 0
-        cycles += 1
-        if safe and relres < best_relres:
-            best_x, best_relres = x, relres
-
-    converged = bool(relres < tol)
-    if safe and not converged and best_relres < relres:
-        x = best_x
-    return SolveResult(x=x, iters=it, relres=float(relres),
-                       converged=converged, status=status, syncs=host.count)
+        st.x.zero_()
+    else:
+        st.x.copy_(x0)
+    st.block.upload({"gmres": loops.gmres_values(
+        tol, abstol, maxit, stop_type, safe, adaptive)})
+    host = HostReads(b.dtype)
+    vals = graphs.run_loop(st, lambda: _tree(st, A, M, stop_type), host,
+                           resident)["gmres"]
+    f, i = vals.f, vals.i
+    converged = bool(f[F.RELRES] < f[F.TOL])
+    x = st.x
+    if st.best_x is not None and not converged and f[F.BEST] < f[F.RELRES]:
+        x = st.best_x
+    return SolveResult(x=x.clone() if resident else x, iters=int(i[I.IT]),
+                       relres=float(f[F.RELRES]), converged=converged,
+                       status=int(i[I.STATUS]), syncs=host.count,
+                       resident=resident)

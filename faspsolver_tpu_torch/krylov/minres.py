@@ -152,4 +152,4 @@ def minres(A, b, x0=None, M=None, *, tol=1e-6, abstol=1e-18, maxit=500,
         x = st.best_x
     return SolveResult(x=x.clone() if resident else x, iters=int(i[I.IT]),
                        relres=float(f[F.RELRES]), converged=converged,
-                       status=0, syncs=host.count)
+                       status=0, syncs=host.count, resident=resident)

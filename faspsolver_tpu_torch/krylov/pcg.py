@@ -181,4 +181,5 @@ def result(st: _State, vals, syncs: int, resident: bool) -> SolveResult:
         x = st.best_x
     return SolveResult(x=x.clone() if resident else x, iters=int(i[I.IT]),
                        relres=float(f[F.RELRES]), converged=converged,
-                       status=int(i[I.STATUS]), syncs=syncs)
+                       status=int(i[I.STATUS]), syncs=syncs,
+                       resident=resident)

@@ -14,6 +14,8 @@ class SolveResult:
     return value); negative = ERROR_SOLVER_* code.  ``syncs`` counts the
     device-to-host reads the eager loop made (one per iteration for the
     stopping test, one more where a true residual is recomputed).
+    ``resident``: the solve ran as one resident CUDA graph (one launch,
+    one read) rather than the eager loop.
     """
 
     x: torch.Tensor
@@ -22,6 +24,7 @@ class SolveResult:
     converged: bool
     status: int
     syncs: int = 0
+    resident: bool = False
 
     def __repr__(self):
         return (f"SolveResult(iters={self.iters}, relres={self.relres:.4e}, "

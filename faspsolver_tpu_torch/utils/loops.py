@@ -33,6 +33,7 @@ neither nvcc nor a GPU.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import re
 import shutil
@@ -55,6 +56,16 @@ SMALLREAL2 = 1e-40
 
 INIT, CHECK, DECIDE = 0, 1, 2
 ROUND = 1
+CYCLE, ARNOLDI, SOLVE, RESTART = 1, 2, 3, 4       # GMRES's, after INIT
+
+# the GMRES family's restart and stagnation rules (krylov/gmres.py)
+CR_MAX = 0.99     # cos(8 deg)  (reference: KryPvgmres.c:79)
+CR_MIN = 0.174    # cos(80 deg) (reference: KryPvgmres.c:80)
+RESTART_MIN = 3
+RESTART_DEC = 3
+STAG_FACTOR = 0.995
+MAX_STAG_CYCLES = 4
+HAPPY = SMALLREAL * 1e-8          # an Arnoldi step's happy breakdown
 
 
 def _fields(name: str) -> SimpleNamespace:
@@ -71,7 +82,8 @@ I = _fields("LoopI")
 
 # kernel launches per entry point; incremented only where a launch is
 # issued (a resident solve adds its device-counted executions)
-launches = {"pcg": 0, "bicgstab": 0, "minres": 0, "refine": 0}
+launches = {"pcg": 0, "bicgstab": 0, "minres": 0, "refine": 0,
+            "gmres": 0}
 
 
 def reset_launches() -> None:
@@ -163,12 +175,44 @@ def krylov_values(tol, abstol, maxit, stop_type, safe, max_stag,
             ("i", I.MAX_RESTART): max_restart}
 
 
+def gmres_values(tol, abstol, maxit, stop_type, safe, adaptive) -> dict:
+    """The GMRES outer region's parameters for :meth:`Block.upload`."""
+    return {("f", F.TOL): tol, ("f", F.ABSTOL): abstol,
+            ("i", I.MAXIT): maxit, ("i", I.STOP): int(stop_type),
+            ("i", I.SAFE): int(bool(safe)),
+            ("i", I.ADAPTIVE): int(bool(adaptive))}
+
+
+def gmres_arrays(R: int) -> int:
+    """The length of GMRES's array tensor for window R: H ((R + 1) x R,
+    row-major), g (R + 1), cs, sn and y (R each), in that order."""
+    return (R + 1) * R + (R + 1) + 3 * R
+
+
+def gmres_views(arr: torch.Tensor, R: int):
+    """(H, g, cs, sn, y): views of GMRES's array tensor for window R."""
+    H = arr[:(R + 1) * R].view(R + 1, R)
+    g = arr[(R + 1) * R:(R + 1) * (R + 1)]
+    cs, sn, y = arr[(R + 1) * (R + 1):].view(3, R).unbind()
+    return H, g, cs, sn, y
+
+
 # ---------------------------------------------------------------------------
 # the plain twins: the kernel's arithmetic on 0-d tensors, bit for bit
 # ---------------------------------------------------------------------------
 
 def _c(v, dt):
     return torch.tensor(v, dtype=dt)
+
+
+def _sqrt(v):
+    """The correctly rounded square root of a 0-d tensor, as the kernel's
+    ``sqrt_rn`` and NumPy take it: ``torch.sqrt`` on the CPU misrounds
+    about 1% of its results in the last bit (AVX-512 builds), so it is
+    taken in f64 on the host (exact for an f32 input once rounded)."""
+    x = float(v)
+    root = math.sqrt(x) if x >= 0 else math.nan
+    return torch.tensor(root, dtype=v.dtype, device=v.device)
 
 
 def _pymax(a, b):
@@ -186,7 +230,7 @@ def _init_norms(absres0, xx, f, i, extra_done):
     mod = int(i[I.STOP]) == StopType.MOD_REL_RES
     f[F.MAXDIFF] = f[F.TOL] * _c(STAG_RATIO, dt)
     f[F.NORMR0] = _pymax(small, absres0)
-    f[F.NORMU] = _pymax(small, torch.sqrt(xx))
+    f[F.NORMU] = _pymax(small, _sqrt(xx))
     f[F.ABSRES0] = absres0
     f[F.ABSRES] = absres0
     f[F.RELRES] = absres0 / (f[F.NORMU] if mod else f[F.NORMR0])
@@ -261,8 +305,8 @@ def pcg_plain(phase: int, inp: torch.Tensor, reg: Region) -> None:
     breakdown = temp2.abs() <= small2
     factor = absres / f[F.ABSRES0]
     zero_sol = (factor > slow) & (normuinf <= small)
-    normu_new = _pymax(small, torch.sqrt(xx))
-    reldiff = alpha.abs() * torch.sqrt(pp) / normu_new
+    normu_new = _pymax(small, _sqrt(xx))
+    reldiff = alpha.abs() * _sqrt(pp) / normu_new
     stagnated = ((factor > slow) & ~zero_sol & (i[I.STAG] <= i[I.MAX_STAG])
                  & (reldiff < f[F.MAXDIFF]))
     claim = (relres < f[F.TOL]) & ~stagnated & ~zero_sol
@@ -297,9 +341,9 @@ def bicgstab_plain(phase: int, inp: torch.Tensor, reg: Region) -> None:
     relres = absres / (f[F.NORMU] if mod else f[F.NORMR0])
     breakdown = (sigma.abs() <= small2) | (tt <= small2)
     factor = absres / f[F.ABSRES0]
-    normu_new = _pymax(small, torch.sqrt(xx))
+    normu_new = _pymax(small, _sqrt(xx))
     stagnated = ((factor > slow) & (i[I.STAG] <= i[I.MAX_STAG])
-                 & (torch.sqrt(ss) / normu_new < f[F.MAXDIFF]))
+                 & (_sqrt(ss) / normu_new < f[F.MAXDIFF]))
     claim = (relres < f[F.TOL]) & ~stagnated
     need = stagnated | claim
     f[F.ABSRES] = absres
@@ -338,7 +382,7 @@ def minres_plain(phase: int, inp: torch.Tensor, reg: Region) -> None:
         return
     relres = f[F.RELRES]
     if int(i[I.NEED]):
-        f[F.NORMU_NEW] = _pymax(small, torch.sqrt(inp[1]))
+        f[F.NORMU_NEW] = _pymax(small, _sqrt(inp[1]))
         f[F.ABSRES] = inp[0]
         relres = inp[0] / (f[F.NORMU_NEW] if mod else f[F.NORMR0])
     done = ((i[I.CLAIM] != 0) & (relres < f[F.TOL])) | (i[I.BREAKDOWN] != 0)
@@ -376,6 +420,106 @@ PLAIN = {"pcg": pcg_plain, "bicgstab": bicgstab_plain,
          "minres": minres_plain}
 
 
+def gmres_plain(phase: int, inp: torch.Tensor, reg: Region, inner: Region,
+                arr: torch.Tensor, R: int) -> None:
+    """GMRES's control on CPU regions (``gmres_control``): ``reg`` the
+    restart cycles', ``inner`` the Arnoldi steps', ``arr`` the window's
+    arrays (:func:`gmres_arrays`), R the window."""
+    f, i = reg.f, reg.i
+    dt = f.dtype
+    small = _c(SMALLREAL, dt)
+    H, g, cs, sn, y = gmres_views(arr, R)
+    if phase == CYCLE:
+        arr.zero_()
+        g[0] = f[F.R_NORM]
+        f[F.SCALE] = torch.where(f[F.R_NORM] > small,
+                                 _c(1.0, dt) / f[F.R_NORM], _c(0.0, dt))
+        i[I.J] = 0
+        inner.i[I.CONT] = (0 < i[I.CUR_RESTART]) & (i[I.IT] < i[I.MAXIT])
+        return
+    if phase == SOLVE:
+        j = int(i[I.J])
+        y.zero_()
+        for k in range(j - 1, -1, -1):
+            acc = _c(0.0, dt)
+            for m in range(k + 1, j):
+                acc = acc + H[k, m] * y[m]
+            y[k] = (g[k] - acc) / H[k, k]
+        return
+    mod = int(i[I.STOP]) == StopType.MOD_REL_RES
+    if phase == INIT:
+        _init_norms(inp[0], inp[1], f, i, False)
+        f[F.BEST] = f[F.RELRES]
+        f[F.STAG_BEST] = f[F.RELRES]
+        f[F.R_NORM] = inp[2]
+        f[F.R_NORM_OLD] = inp[2]
+        i[I.STAG] = 0
+        i[I.CYCLES] = 0
+        i[I.CUR_RESTART] = R
+        i[I.J] = 0
+        return
+    if phase == ARNOLDI:
+        j = int(i[I.J])
+        hn = inp[R + 1]
+        H[:, j] = inp[:R + 1]
+        H[j + 1, j] = hn
+        for k in range(j):
+            hk, hk1 = H[k, j].clone(), H[k + 1, j].clone()
+            H[k, j] = cs[k] * hk + sn[k] * hk1
+            H[k + 1, j] = -sn[k] * hk + cs[k] * hk1
+        a, b = H[j, j].clone(), H[j + 1, j].clone()
+        den = _sqrt(a * a + b * b)
+        den_ok = den > small
+        c = torch.where(den_ok, a / den, _c(1.0, dt))
+        s = torch.where(den_ok, b / den, _c(0.0, dt))
+        H[j, j] = c * a + s * b
+        H[j + 1, j] = 0
+        gj = g[j].clone()
+        g[j] = c * gj
+        g[j + 1] = -s * gj
+        cs[j] = c
+        sn[j] = s
+        happy = hn <= _c(HAPPY, dt)
+        conv = g[j + 1].abs() / f[F.NORMR0] < f[F.TOL]
+        i[I.J] = j + 1
+        inner.i[I.NBODY] += 1
+        inner.i[I.CONT] = ((j + 1 < i[I.CUR_RESTART])
+                           & (i[I.IT] + j + 1 < i[I.MAXIT]) & ~happy & ~conv)
+        return
+    j = int(i[I.J])
+    i[I.IT] += j
+    r_norm, absres = inp[0], inp[1]
+    normu = _pymax(small, _sqrt(inp[2]))
+    relres = absres / (normu if mod else f[F.NORMR0])
+    cur = int(i[I.CUR_RESTART])
+    if int(i[I.ADAPTIVE]):
+        # the reference's rule (KryPvgmres.c:200-210)
+        cr = r_norm / _pymax(f[F.R_NORM], small)
+        shrunk = cur - RESTART_DEC if cur - RESTART_DEC > RESTART_MIN else R
+        cur = (R if bool(cr > _c(CR_MAX, dt)) or int(i[I.CYCLES]) == 0
+               else cur if bool(cr < _c(CR_MIN, dt)) else shrunk)
+    stag = (int(i[I.STAG]) + 1
+            if bool(relres > _c(STAG_FACTOR, dt) * f[F.STAG_BEST]) else 0)
+    stalled = stag >= MAX_STAG_CYCLES and bool(relres > _c(4.0, dt)
+                                               * f[F.TOL])
+    done = bool(relres < f[F.TOL]) or j == 0 or stalled
+    f[F.STAG_BEST] = _pymin(f[F.STAG_BEST], relres)
+    f[F.R_NORM_OLD] = f[F.R_NORM]
+    f[F.R_NORM] = r_norm
+    f[F.ABSRES] = absres
+    f[F.RELRES] = relres
+    f[F.NORMU_NEW] = normu
+    better = (i[I.SAFE] != 0) & (relres < f[F.BEST])
+    f[F.BEST] = torch.where(better, relres, f[F.BEST])
+    i[I.BETTER] = better
+    i[I.CUR_RESTART] = cur
+    i[I.STAG] = stag
+    i[I.CYCLES] += 1
+    i[I.STATUS] = ERROR_SOLVER_STAG if stalled else 0
+    i[I.NBODY] += 1
+    i[I.CONT] = not done and bool(i[I.IT] < i[I.MAXIT])
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
@@ -392,7 +536,11 @@ def _nvcc(sources, out):
               "ERR_MISC": ERROR_SOLVER_MISC,
               "ERR_SOLSTAG": ERROR_SOLVER_SOLSTAG,
               "ERR_STAG": ERROR_SOLVER_STAG,
-              "ERR_TOLSMALL": ERROR_SOLVER_TOLSMALL}
+              "ERR_TOLSMALL": ERROR_SOLVER_TOLSMALL,
+              "HAPPY": repr(HAPPY), "CR_MAX": repr(CR_MAX),
+              "CR_MIN": repr(CR_MIN), "RESTART_MIN": RESTART_MIN,
+              "RESTART_DEC": RESTART_DEC, "STAG_FACTOR": repr(STAG_FACTOR),
+              "MAX_STAG_CYCLES": MAX_STAG_CYCLES}
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
             "-ftz=false", "-Xptxas", "-v",
@@ -413,6 +561,8 @@ def library() -> ctypes.CDLL:
         for dt in ("f32", "f64"):
             fn = getattr(lib, f"fasp_loop_refine_{dt}")
             fn.restype, fn.argtypes = i32, [i32, p, p, p, p, u64, p]
+            fn = getattr(lib, f"fasp_loop_gmres_{dt}")
+            fn.restype, fn.argtypes = i32, [i32, p, p, p, p, p, i32, u64, p]
         sig = {"fasp_loop_empty": [p],
                "fasp_graph_create": [p], "fasp_graph_destroy": [p],
                "fasp_graph_handle": [p, p],
@@ -507,6 +657,39 @@ def refine(phase: int, inp: torch.Tensor, reg: Region,
              torch.cuda.current_stream(reg.f.device).cuda_stream)
     check(err, "loop_control refine launch")
     launches["refine"] += 1
+
+
+def gmres(phase: int, inp: torch.Tensor, reg: Region, inner: Region,
+          arr: torch.Tensor, R: int) -> None:
+    """GMRES's control, phase ``phase`` (``INIT``, ``CYCLE``, ``ARNOLDI``,
+    ``SOLVE``, ``RESTART``) over the restart cycles' region ``reg``, the
+    Arnoldi steps' ``inner``, the window's arrays ``arr`` (window R) and
+    the body's values ``inp`` (1-d, the regions' dtype; read by
+    ``INIT``, ``ARNOLDI`` and ``RESTART`` only): the twin on the CPU, else
+    the kernel, setting the outer WHILE handle at ``INIT`` and
+    ``RESTART`` and the inner one at ``CYCLE`` and ``ARNOLDI``."""
+    inp = _device_args(inp, reg)
+    if (inner.f.device != reg.f.device or arr.device != reg.f.device
+            or inner.dtype != reg.dtype or arr.dtype != reg.dtype
+            or arr.numel() != gmres_arrays(R) or not arr.is_contiguous()):
+        raise ValueError("GMRES control: regions and arrays differ in "
+                         "device, dtype or window")
+    if reg.f.device.type == "cpu":
+        return gmres_plain(phase, inp, reg, inner, arr, R)
+    if reg.f.device.type != "cuda":
+        raise ValueError(f"no loop-control kernel for device {reg.f.device}")
+    if reg.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"loop control takes f32/f64, got {reg.dtype}")
+    lib = library()
+    fn = (lib.fasp_loop_gmres_f32 if reg.dtype == torch.float32
+          else lib.fasp_loop_gmres_f64)
+    h = (reg.h_while if phase in (INIT, RESTART)
+         else inner.h_while if phase in (CYCLE, ARNOLDI) else 0)
+    err = fn(phase, inp.data_ptr(), reg.f.data_ptr(), reg.i.data_ptr(),
+             inner.i.data_ptr(), arr.data_ptr(), R, h,
+             torch.cuda.current_stream(reg.f.device).cuda_stream)
+    check(err, "loop_control gmres launch")
+    launches["gmres"] += 1
 
 
 def launch_empty(device) -> None:

@@ -678,3 +678,141 @@ def test_resident_krylov_reads_once_and_equals_the_eager_loop(method):
             assert (got.iters, got.status, got.syncs) == (eager.iters,
                                                           eager.status, 1)
         assert n_warm == n_e and n_e[method] > 0
+
+
+@pytest.mark.cuda
+def test_gmres_control_kernel_is_bit_equal_to_its_twin():
+    """The GMRES entry point of csrc/loop_control.cu over chip_smoke's
+    GMRES_CASES, f32 and f64: the state block and the window's arrays
+    after each step bit-equal to the plain twin's on the CPU."""
+    _need_cuda()
+    import chip_smoke
+    for name in chip_smoke.GMRES_CASES:
+        for dt in (torch.float32, torch.float64):
+            got = chip_smoke.gmres_case_blocks(torch, name, dt, "cuda",
+                                               plain=False)
+            want = chip_smoke.gmres_case_blocks(torch, name, dt, "cpu",
+                                                plain=True)
+            for k, ((gb, ga), (wb, wa)) in enumerate(zip(got, want)):
+                assert torch.equal(gb, wb), (name, dt, k)
+                assert chip_smoke._same_bits(torch, ga, wa), (name, dt, k)
+
+
+@pytest.mark.cuda
+def test_gmres_control_solves_past_the_default_shared_limit():
+    """A full window of R = 100 in f64 (an 81.6 KB tile, past the default
+    48 KB a block may take) bit-equal to the twin; R = 200 (past the
+    card's opt-in limit) refused at its solve."""
+    _need_cuda()
+    import chip_smoke
+    from faspsolver_tpu_torch.utils import loops
+    for R, fits in ((100, True), (200, False)):
+        out = []
+        for device in ("cuda", "cpu"):
+            blk = loops.Block(device, [("gmres", torch.float64),
+                                       ("arnoldi", torch.float64)])
+            blk.upload({"gmres": loops.gmres_values(
+                1e-30, 1e-18, 1000, 1, False, False)})
+            arr = torch.zeros(loops.gmres_arrays(R), dtype=torch.float64,
+                              device=device)
+            call = loops.gmres if device == "cuda" else loops.gmres_plain
+            for phase, vals in chip_smoke._window(R, R)[:R + 3]:
+                inp = torch.tensor(vals or [0.0], dtype=torch.float64,
+                                   device=device)
+                if phase == loops.SOLVE and device == "cuda" and not fits:
+                    with pytest.raises(RuntimeError):
+                        call(phase, inp, blk["gmres"], blk["arnoldi"], arr,
+                             R)
+                    break
+                call(phase, inp, blk["gmres"], blk["arnoldi"], arr, R)
+            out.append(arr.cpu())
+        if fits:
+            assert chip_smoke._same_bits(torch, out[0], out[1])
+
+
+def _gmres_problem():
+    """poisson_2d(127) on the card: its f64 operator and Jacobi, the f32
+    structured AMG hierarchy, and seeded right-hand sides of both."""
+    import chip_smoke
+    from faspsolver_tpu_torch.krylov import JacobiPrecond
+    from faspsolver_tpu_torch.ops import device_operator
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    A = poisson_2d(127)
+    b = np.random.default_rng(4).standard_normal(A.nrow)
+    op64 = device_operator(A, dtype=torch.float64).to("cuda")
+    jac = JacobiPrecond.from_csr(A, torch.float64).to("cuda")
+    hier = chip_smoke.setup(torch, A, "cuda")
+    return (op64, jac, torch.as_tensor(b, device="cuda"),
+            hier, torch.as_tensor(b, device="cuda", dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["jacobi", "amg"])
+@pytest.mark.parametrize("method", ["gmres", "vgmres", "vfgmres"])
+def test_resident_gmres_reads_once_and_equals_the_eager_loop(method,
+                                                             precond):
+    """The GMRES family resident over Jacobi (f64) and structured AMG
+    (f32) on poisson_2d(127), plain and safe: one program launch and one
+    host read per solve, cold and warm, x bit-equal to the eager loop's
+    on the card with equal iterations and status, the eager loop's reads
+    1 + iterations + cycles, and the warm solve's launches equal the
+    eager loop's."""
+    _need_cuda()
+    from faspsolver_tpu_torch import krylov
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    op64, jac, b64, hier, b32 = _gmres_problem()
+    op, b = (op64, b64) if precond == "jacobi" else (hier.levels[0].A, b32)
+    for safe in (False, True):
+        solve = lambda: getattr(krylov, method)(  # noqa: E731
+            op, b, M=jac if precond == "jacobi" else AMGPrecond(hier),
+            tol=1e-8, maxit=300, restart=12, safe=safe)
+        (cold, _, r_cold), (warm, n_warm, r_warm), (eager, n_e, r_e) = \
+            _graphed_and_eager(solve)
+        assert (r_cold, r_warm, r_e) == (1, 1, 0)
+        for got in (cold, warm):
+            assert torch.equal(got.x, eager.x)
+            assert (got.iters, got.status, got.syncs) == (eager.iters,
+                                                          eager.status, 1)
+            assert got.resident and not eager.resident
+        assert eager.iters > 12 and eager.syncs > 1 + eager.iters
+        assert n_warm == n_e and n_e["gmres"] > 0
+
+
+@pytest.mark.cuda
+def test_resident_gmres_state_is_kept_per_window():
+    """vGMRES(10) and vGMRES(20) over the same operator and Jacobi each
+    capture their own program (the cached state is keyed on the window)
+    and each equals its eager loop; the second solve of each replays."""
+    _need_cuda()
+    from faspsolver_tpu_torch.krylov import vgmres
+    from faspsolver_tpu_torch.utils import graphs
+    op64, jac, b64, _, _ = _gmres_problem()
+    for restart, captures in ((10, True), (20, True), (10, False),
+                              (20, False)):
+        graphs.reset_stats()
+        got = vgmres(op64, b64, M=jac, tol=1e-8, maxit=300, restart=restart)
+        assert (graphs.stats["captures"] > 0) == captures, restart
+        assert got.syncs == 1 and graphs.stats["replays"] == 1
+        with graphs.eager():
+            want = vgmres(op64, b64, M=jac, tol=1e-8, maxit=300,
+                          restart=restart)
+        assert torch.equal(got.x, want.x) and got.iters == want.iters
+
+
+@pytest.mark.cuda
+def test_resident_gmres_raises_when_its_capture_fails():
+    """A preconditioner that declares itself capturable but reads the
+    host in its apply: the resident GMRES raises at its capture and does
+    not run the eager loop instead."""
+    _need_cuda()
+    from faspsolver_tpu_torch.krylov import gmres
+
+    class HostReading(torch.nn.Module):
+        capturable = True
+
+        def forward(self, r):
+            return r * float(r.abs().max() > 0)
+
+    op64, _, b64, _, _ = _gmres_problem()
+    with pytest.raises(RuntimeError):
+        gmres(op64, b64, M=HostReading(), tol=1e-8, maxit=50, restart=10)

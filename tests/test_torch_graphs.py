@@ -14,6 +14,7 @@ region's flag, read without a host read), and held equal to the eager
 path bit for bit.  The graphs themselves run on the card:
 ``tests/test_torch_gpu.py``."""
 import copy
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -265,6 +266,50 @@ def test_graphed_refiner_control_flow_is_the_eager_loop(graphed_on_cpu):
     assert want.syncs == (2 * want.rounds + want.inner_iters
                           + want.recomputes)
     assert graphs.peek(hier.fine64, ("refine", torch.float64)) is not None
+
+
+@pytest.mark.parametrize("method", ["gmres", "vgmres", "vfgmres"])
+def test_graphed_gmres_control_flow_is_the_eager_loop(graphed_on_cpu,
+                                                      monkeypatch, method):
+    """The GMRES family's nested While (restart cycles around Arnoldi
+    steps) run as the device runs its graph, in the card's arithmetic
+    (the Arnoldi step's j a device index), over structured AMG, plain
+    and safe, two windows: x bit for bit the eager loop's with equal
+    counts and status, one host read per resident solve against the
+    eager loop's 1 + iterations + cycles, the warm-up undone, and one
+    kept state per window (the second solve of a window makes no new
+    program)."""
+    from faspsolver_tpu_torch import krylov
+    monkeypatch.setattr(importlib.import_module(
+        "faspsolver_tpu_torch.krylov.gmres"), "_on_host", lambda b: False)
+    hier = _structured()
+    op = hier.levels[0].A
+    b = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        op.shape[0]))
+    fn = getattr(krylov, method)
+
+    def loops_made():
+        return sum(type(p).__name__ == "Emulated" for p in graphed_on_cpu)
+
+    for safe in (False, True):
+        for restart in (7, 12):
+            kw = dict(M=AMGPrecond(hier), tol=1e-10, maxit=80,
+                      restart=restart, safe=safe)
+            with graphs.eager():
+                want = fn(op, b, **kw)
+            made = loops_made()
+            got = [fn(op, b, **kw) for _ in range(2)]
+            assert loops_made() == made + 1
+            for g in got:
+                assert torch.equal(g.x, want.x)
+                assert (g.iters, g.status, g.converged) == (
+                    want.iters, want.status, want.converged)
+                assert g.syncs == 1 and want.syncs > 1 + want.iters
+                assert g.resident and not want.resident
+    for restart in (7, 12):
+        assert graphs.peek(op, ("gmres", int(StopType.REL_RES), True,
+                                restart, method != "gmres",
+                                method == "vfgmres")) is not None
 
 
 CYCLES = {"V": CycleType.V, "W": CycleType.W, "VW": CycleType.VW,

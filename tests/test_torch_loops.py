@@ -18,8 +18,20 @@ it, on the CPU.
    reason and allowance), and the f32-inner refiner with equal rounds.
    Each test says where the eager loop before the control already
    differed from JAX.
+3. The GMRES family's control (``loops.gmres_plain``): its twin against
+   the NumPy arithmetic of the host loop it replaced (the Arnoldi step's
+   rotations and the per-cycle restart rules, copied; the window's
+   back-substitution in the order the control states), bit for bit,
+   over chip_smoke.GMRES_CASES and over the whole control sequences of
+   real solves; the eager loop tree against the JAX ``gmres`` /
+   ``vgmres`` / ``vfgmres`` in f64 and f32 with its reads.
+4. The twins' square roots are correctly rounded, as the kernel's are
+   (``torch.sqrt`` on the CPU is not, in the last bit, for about 1% of
+   its inputs).
 The kernel itself runs only on the card: ``tests/test_torch_gpu.py`` and
 chip_smoke.py's phase 3 hold it bit-equal to the twin."""
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -323,7 +335,9 @@ def test_twin_decides_as_the_numpy_checks_in_real_solves(
 # the loop bodies against the JAX package
 # ---------------------------------------------------------------------------
 
-def _jax_pair(method, problem, dt, **kw):
+def _jax_pair(method, problem, dt, port=None, **kw):
+    """(port's iterations, JAX's, max |x - x_jax| / max |x_jax|); the
+    port's result appended to ``port`` when given."""
     A, b = _problem(problem)
     jdt = {"f32": jnp.float32, "f64": jnp.float64}[dt]
     Aj = JaxCSRMatrix(A.indptr, A.indices, A.data, A.shape)
@@ -339,6 +353,8 @@ def _jax_pair(method, problem, dt, **kw):
     assert got.status == int(ref.status) and got.converged == bool(
         ref.converged)
     assert got.syncs > got.iters
+    if port is not None:
+        port.append(got)
     return got.iters, int(ref.iters), err
 
 
@@ -409,3 +425,422 @@ def test_refine_body_matches_jax(hierarchies, dt):
     err = np.abs(got.x.numpy() - xr).max()
     assert err <= (1e-12 if dt == "f64" else 1e-6) * np.abs(xr).max(), err
     assert got.syncs == 2 * got.rounds + got.iters + got.recomputes
+
+
+# ---------------------------------------------------------------------------
+# the GMRES family's control: the twin against the host loop it replaced
+# ---------------------------------------------------------------------------
+
+GMRES = ("gmres", "vgmres", "vfgmres")
+GMRES_MODULE = importlib.import_module("faspsolver_tpu_torch.krylov.gmres")
+
+
+def _numpy_gmres(phase, inp, f, i, ia, arr, R):
+    """One GMRES control step on NumPy copies of the regions (``f``, ``i``
+    the restart cycles', ``ia`` the Arnoldi steps') and of the window's
+    arrays, updated in place: the eager host loop's arithmetic as it
+    stood before the control existed (its Arnoldi step's rotations and
+    its per-cycle restart rules, copied), and the back-substitution in
+    the order the control states (row j - 1 first, each row's sum in
+    increasing column), which replaced its LAPACK solve."""
+    t = f.dtype.type
+    small, happy_tol = t(1e-20), t(1e-20 * 1e-8)
+    H = arr[:(R + 1) * R].reshape(R + 1, R)
+    g = arr[(R + 1) * R:(R + 1) * (R + 1)]
+    cs, sn, y = arr[(R + 1) * (R + 1):].reshape(3, R)
+    mod = i[I.STOP] == StopType.MOD_REL_RES
+    tol = f[F.TOL]
+    if phase == loops.INIT:
+        absres0, xx, r_norm = (t(v) for v in inp[:3])
+        normr0 = max(small, absres0)
+        normu = max(small, np.sqrt(xx))
+        relres = absres0 / (normu if mod else normr0)
+        done = bool(relres < tol) or bool(absres0 < f[F.ABSTOL])
+        f[F.MAXDIFF] = tol * t(STAG_RATIO)
+        f[F.NORMR0], f[F.NORMU] = normr0, normu
+        f[F.ABSRES0] = f[F.ABSRES] = absres0
+        f[F.RELRES] = f[F.BEST] = f[F.STAG_BEST] = relres
+        f[F.R_NORM] = f[F.R_NORM_OLD] = r_norm
+        i[I.IT], i[I.STAG], i[I.MORE], i[I.STATUS] = 0, 0, 1, 0
+        i[I.NEED] = i[I.CONV] = i[I.RESTART] = i[I.BETTER] = 0
+        i[I.CYCLES], i[I.CUR_RESTART], i[I.J] = 0, R, 0
+        i[I.NINIT] += 1
+        i[I.CONT] = not done and 0 < i[I.MAXIT]
+        return
+    if phase == loops.CYCLE:
+        r_norm = f[F.R_NORM]
+        arr[:] = 0
+        g[0] = r_norm
+        f[F.SCALE] = t(1.0) / r_norm if r_norm > small else t(0.0)
+        i[I.J] = 0
+        ia[I.CONT] = 0 < i[I.CUR_RESTART] and i[I.IT] < i[I.MAXIT]
+        return
+    if phase == loops.ARNOLDI:
+        j = int(i[I.J])
+        *h, hn = (t(v) for v in inp[:j + 1].tolist() + [inp[R + 1]])
+        happy = hn <= happy_tol
+        # previous rotations on the column, then the new one
+        hcol = np.zeros(R + 1, dtype=t)
+        hcol[:j + 1] = h
+        hcol[j + 1] = hn
+        for k in range(j):
+            hk, hk1 = hcol[k], hcol[k + 1]
+            hcol[k] = cs[k] * hk + sn[k] * hk1
+            hcol[k + 1] = -sn[k] * hk + cs[k] * hk1
+        a_, b_ = hcol[j], hcol[j + 1]
+        den = np.sqrt(a_ * a_ + b_ * b_)
+        c, s = (a_ / den, b_ / den) if den > small else (t(1.0), t(0.0))
+        hcol[j] = c * a_ + s * b_
+        hcol[j + 1] = 0.0
+        gj = g[j]
+        g[j] = c * gj
+        g[j + 1] = -s * gj
+        H[:, j] = hcol
+        cs[j], sn[j] = c, s
+        brk = happy or abs(g[j + 1]) / f[F.NORMR0] < tol
+        j += 1
+        i[I.J] = j
+        ia[I.NBODY] += 1
+        ia[I.CONT] = (j < i[I.CUR_RESTART] and i[I.IT] + j < i[I.MAXIT]
+                      and not brk)
+        return
+    if phase == loops.SOLVE:
+        j = int(i[I.J])
+        y[:] = 0
+        with np.errstate(divide="ignore", invalid="ignore"):  # den guard
+            for k in range(j - 1, -1, -1):
+                acc = t(0.0)
+                for m in range(k + 1, j):
+                    acc = acc + H[k, m] * y[m]
+                y[k] = (g[k] - acc) / H[k, k]
+        return
+    j = int(i[I.J])
+    i[I.IT] += j
+    cur, cycles = int(i[I.CUR_RESTART]), int(i[I.CYCLES])
+    r_norm_old = f[F.R_NORM]
+    r_norm, absres, xx = (t(v) for v in inp[:3])
+    normu_new = max(small, np.sqrt(xx))
+    relres = absres / (normu_new if mod else f[F.NORMR0])
+    if i[I.ADAPTIVE]:
+        # reference rule (KryPvgmres.c:200-210)
+        cr = r_norm / max(r_norm_old, small)
+        shrunk = cur - 3 if cur - 3 > 3 else R
+        cur = (R if cr > 0.99 or cycles == 0
+               else cur if cr < 0.174 else shrunk)
+    stag_best = f[F.STAG_BEST]
+    stag = i[I.STAG] + 1 if relres > 0.995 * stag_best else 0
+    stag_best = min(stag_best, relres)
+    stalled = stag >= 4 and relres > 4.0 * tol
+    done = bool(relres < tol) or j == 0 or stalled
+    better = bool(i[I.SAFE]) and relres < f[F.BEST]
+    if better:
+        f[F.BEST] = relres
+    f[F.STAG_BEST], f[F.R_NORM_OLD], f[F.R_NORM] = stag_best, r_norm_old, \
+        r_norm
+    f[F.ABSRES], f[F.RELRES], f[F.NORMU_NEW] = absres, relres, normu_new
+    i[I.BETTER], i[I.CUR_RESTART], i[I.STAG] = better, cur, stag
+    i[I.CYCLES] = cycles + 1
+    i[I.STATUS] = -42 if stalled else 0
+    i[I.NBODY] += 1
+    i[I.CONT] = not done and i[I.IT] < i[I.MAXIT]
+
+
+def _numpy_gmres_blocks(name, dtype):
+    """chip_smoke.GMRES_CASES[name] through the NumPy oracle: the block's
+    and the arrays' bytes after every step."""
+    blk, reg, inner, arr, R = chip_smoke.gmres_case_state(torch, name, dtype,
+                                                          "cpu")
+    raw, a = blk.bytes.numpy(), arr.numpy()
+    host = blk.decode(raw)
+    out = []
+    for phase, vals in chip_smoke.GMRES_CASES[name][1]:
+        _numpy_gmres(phase, np.asarray(vals, dtype=a.dtype), host["gmres"].f,
+                     host["gmres"].i, host["arnoldi"].i, a, R)
+        out.append((torch.from_numpy(raw.copy()), torch.from_numpy(a.copy())))
+    return out
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(chip_smoke.GMRES_CASES))
+def test_gmres_twin_computes_as_the_host_loop_on_the_edge_cases(name, dt):
+    want = _numpy_gmres_blocks(name, DTYPES[dt])
+    got = chip_smoke.gmres_case_blocks(torch, name, DTYPES[dt], "cpu",
+                                       plain=True)
+    assert len(got) == len(want)
+    for k, ((gb, ga), (wb, wa)) in enumerate(zip(got, want)):
+        assert torch.equal(gb, wb), (name, dt, k)
+        assert np.array_equal(_bits(ga.numpy()), _bits(wa.numpy())), \
+            (name, dt, k)
+
+
+def test_the_gmres_cases_take_their_branches():
+    """What the cases are there for, read from the twin's blocks."""
+    def steps(name, dt=torch.float32):
+        blk, _, _, _, R = chip_smoke.gmres_case_state(torch, name, dt, "cpu")
+        out = chip_smoke.gmres_case_blocks(torch, name, dt, "cpu",
+                                           plain=True)
+        return [(blk.decode(b.numpy()), a.numpy()) for b, a in out], R
+
+    def last(name):
+        d = steps(name)[0][-1][0]
+        return d["gmres"], d["arnoldi"]
+
+    g, a = last("gmres converges in its first window")
+    assert (g.i[I.IT], g.i[I.CONT], g.i[I.STATUS]) == (2, 0, 0)
+    s, _ = steps("gmres converges in its first window")
+    assert [x[0]["arnoldi"].i[I.CONT] for x in s[2:4]] == [1, 0]   # conv
+    s, _ = steps("gmres happy breakdown")
+    assert s[2][0]["arnoldi"].i[I.CONT] == 0 and s[-1][0]["gmres"].i[
+        I.IT] == 1
+    s, R = steps("gmres den guard")
+    arrs = s[2][1]
+    assert arrs[(R + 1) * (R + 1)] == 1 and arrs[(R + 1) * (R + 1) + R] == 0
+    g, _ = last("gmres full window restarts")
+    assert (g.i[I.IT], g.i[I.CYCLES], g.i[I.CONT]) == (4, 2, 0)
+    g, _ = last("gmres maxit inside a window")
+    assert (g.i[I.IT], g.i[I.CONT]) == (6, 0)
+    s, _ = steps("vgmres adaptive restart rule")
+    curs = [x[0]["gmres"].i[I.CUR_RESTART] for x in s]
+    restarts = [c for c, (ph, _) in zip(curs, chip_smoke.GMRES_CASES[
+        "vgmres adaptive restart rule"][1]) if ph == loops.RESTART]
+    # cycles == 0, cr 0.5 (shrink), cr > cr_max, cr < cr_min (keep), cr
+    # 0.5 (shrink), cr 0.5 below the minimum (back to R)
+    assert restarts == [8, 5, 8, 8, 5, 8]
+    g, _ = last("gmres stagnation exits")
+    assert (g.i[I.STATUS], g.i[I.CONT], g.i[I.STAG]) == (-42, 0, 4)
+    g, _ = last("gmres crawl within 4 tol")
+    assert (g.i[I.STATUS], g.i[I.CONT]) == (0, 1) and g.i[I.STAG] >= 4
+    s, _ = steps("gmres safe iterate")
+    better = [x[0]["gmres"].i[I.BETTER] for x, (ph, _) in zip(
+        s, chip_smoke.GMRES_CASES["gmres safe iterate"][1])
+        if ph == loops.RESTART]
+    assert better == [1, 0, 1]
+    assert last("gmres done at entry")[0].i[I.CONT] == 0
+    g, _ = last("gmres MOD_REL_RES")        # relres against |x| = 1
+    assert g.i[I.CONT] == 1 and g.f[F.NORMU] == np.float32(2.0)
+    assert g.f[F.RELRES] == np.float32(1e-6)
+    g, _ = last("gmres empty window ends")
+    assert (g.i[I.IT], g.i[I.CONT]) == (0, 0)
+    for R in (30, 60):
+        s, _ = steps(f"gmres window {R}", torch.float64)
+        assert s[-3][0]["gmres"].i[I.J] == R          # the window full
+        H = s[-2][1][:(R + 1) * R].reshape(R + 1, R)[:R]
+        g = s[-2][1][(R + 1) * R:(R + 1) * R + R]
+        y = s[-2][1][-R:]
+        # the back-substitution solves the triangular system
+        assert np.allclose(np.triu(H) @ y, g, rtol=0, atol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# the GMRES family's loop tree against the host loop and the JAX package
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def checked_gmres_twin(monkeypatch):
+    """Every GMRES twin call of a solve also run through the NumPy oracle
+    on copies of the regions and arrays before it, and the two held
+    bit-equal.  Returns the calls checked, by phase."""
+    calls = {}
+    twin = loops.gmres_plain
+
+    def run(phase, inp, reg, inner, arr, R):
+        f0, i0 = reg.f.numpy().copy(), reg.i.numpy().copy()
+        ia0, a0 = inner.i.numpy().copy(), arr.numpy().copy()
+        _numpy_gmres(phase, inp.numpy(), f0, i0, ia0, a0, R)
+        twin(phase, inp, reg, inner, arr, R)
+        assert np.array_equal(_bits(reg.f.numpy()), _bits(f0)), phase
+        assert np.array_equal(reg.i.numpy(), i0), phase
+        assert np.array_equal(inner.i.numpy(), ia0), phase
+        assert np.array_equal(_bits(arr.numpy()), _bits(a0)), phase
+        calls[phase] = calls.get(phase, 0) + 1
+
+    monkeypatch.setattr(loops, "gmres_plain", run)
+    return calls
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("method", GMRES)
+def test_gmres_twin_computes_as_the_host_loop_in_real_solves(
+        checked_gmres_twin, method, dt):
+    A, b = _problem("fe")
+    op = device_operator(A, dtype=DTYPES[dt])
+    M = tk.JacobiPrecond.from_csr(A, DTYPES[dt])
+    res = getattr(tk, method)(op, torch.from_numpy(b).to(DTYPES[dt]), M=M,
+                              tol=1e-8, maxit=200, restart=10, safe=True,
+                              stop_type=int(StopType.MOD_REL_RES))
+    assert res.iters > 20
+    assert checked_gmres_twin[loops.ARNOLDI] == res.iters
+    assert checked_gmres_twin[loops.RESTART] >= 3
+
+
+@pytest.fixture
+def gmres_cycles(monkeypatch):
+    """The restart cycles of the solves run in the test, counted at the
+    control's restart phase."""
+    seen = [0]
+    twin = loops.gmres_plain
+
+    def run(phase, *args):
+        seen[0] += phase == loops.RESTART
+        twin(phase, *args)
+
+    monkeypatch.setattr(loops, "gmres_plain", run)
+    return seen
+
+
+@pytest.mark.parametrize("arithmetic", ["cpu", "card"])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("problem", ["poisson", "fe"])
+@pytest.mark.parametrize("method", GMRES)
+def test_gmres_tree_matches_jax(gmres_cycles, monkeypatch, method, problem,
+                                dt, arithmetic):
+    """The eager loop tree against the JAX package on the CPU, restart 20
+    (vGMRES shrinks its window), in the CPU's arithmetic (products over
+    the first j + 1 rows, LAPACK's y) and in the card's (masked
+    full-window products, the control's back-substitution): in f64 (tol
+    1e-10) iterations equal and x within 1e-12 of max |x|; in f32 (tol
+    1e-5) within 2 iterations and 1e-4 of max |x| (the f32 products sum
+    in another order under XLA than under torch: the allowance of the
+    other loops above).  The status equal, and the eager loop's reads
+    the module docstring's 1 + iterations + cycles."""
+    if arithmetic == "card":
+        monkeypatch.setattr(GMRES_MODULE, "_on_host", lambda b: False)
+    tol = 1e-10 if dt == "f64" else 1e-5
+    port = []
+    got, ref, err = _jax_pair(method, problem, dt, port=port, tol=tol,
+                              maxit=400, restart=20)
+    if dt == "f64":
+        assert got == ref and err <= 1e-12, (got, ref, err)
+    else:
+        assert abs(got - ref) <= 2 and err <= 1e-4, (got, ref, err)
+    # the last solve _jax_pair ran is the port's: its cycles
+    assert gmres_cycles[0] >= 1
+    assert port[0].syncs == 1 + port[0].iters + gmres_cycles[0]
+
+
+def _host_loop_gmres(A, b, M, tol, maxit, restart, stop_type, adaptive,
+                     flexible, safe):
+    """The GMRES family's host loop as it stood before its loop tree (a
+    copy): a column read per Arnoldi step, CGS2 over V[:j + 1], the
+    rotations in NumPy, y by LAPACK over the j x j system.  Returns (x,
+    iterations, status)."""
+    from faspsolver_tpu_torch.krylov.common import (abs_residual, dot,
+                                                    initial_norms,
+                                                    residual_norms)
+    t = np.float32 if b.dtype == torch.float32 else np.float64
+    small = t(loops.SMALLREAL)
+    precres = stop_type == StopType.REL_PRECRES
+    R = int(min(restart, maxit))
+    x = torch.zeros_like(b)
+    r = b - A(x)
+    absres0, xx, r_norm = (t(v.item()) for v in (
+        abs_residual(stop_type, r, M(r)), dot(x, x), torch.sqrt(dot(r, r))))
+    absres0, normr0, _, relres = initial_norms(stop_type, absres0, xx)
+    done = bool(relres < tol) or bool(absres0 < 1e-18)
+    V = torch.zeros(R + 1, b.shape[0], dtype=b.dtype)
+    Z = torch.zeros(R, b.shape[0], dtype=b.dtype) if flexible else None
+    it, cycles, cur, status = 0, 0, R, 0
+    stag, stag_best = 0, relres
+    best_x, best_relres = x, relres
+    while not done and it < maxit:
+        V[0] = r * (t(1.0) / r_norm if r_norm > small else t(0.0))
+        H = np.zeros((R + 1, R), dtype=t)
+        g = np.zeros(R + 1, dtype=t)
+        g[0] = r_norm
+        cs, sn = np.zeros(R, dtype=t), np.zeros(R, dtype=t)
+        j, brk = 0, False
+        while j < cur and it + j < maxit and not brk:
+            z = M(V[j])
+            w = A(z)
+            if flexible:
+                Z[j] = z
+            Vj = V[:j + 1]
+            h1 = Vj @ w
+            w = w - h1 @ Vj
+            h2 = Vj @ w
+            w = w - h2 @ Vj
+            *h, hn = torch.cat([h1 + h2, torch.sqrt(dot(w, w)).reshape(1)]
+                               ).numpy()
+            happy = hn <= t(loops.HAPPY)
+            V[j + 1] = w * (t(0.0) if happy else t(1.0) / hn)
+            hcol = np.zeros(R + 1, dtype=t)
+            hcol[:j + 1] = h
+            hcol[j + 1] = hn
+            for k in range(j):
+                hk, hk1 = hcol[k], hcol[k + 1]
+                hcol[k] = cs[k] * hk + sn[k] * hk1
+                hcol[k + 1] = -sn[k] * hk + cs[k] * hk1
+            a_, b_ = hcol[j], hcol[j + 1]
+            den = np.sqrt(a_ * a_ + b_ * b_)
+            c, s = (a_ / den, b_ / den) if den > small else (t(1.0), t(0.0))
+            hcol[j] = c * a_ + s * b_
+            hcol[j + 1] = 0.0
+            gj = g[j]
+            g[j], g[j + 1] = c * gj, -s * gj
+            H[:, j] = hcol
+            cs[j], sn[j] = c, s
+            brk = happy or abs(g[j + 1]) / normr0 < tol
+            j += 1
+        if j:
+            y = torch.linalg.solve_triangular(
+                torch.from_numpy(H[:j, :j].copy()),
+                torch.from_numpy(g[:j].copy())[:, None], upper=True)[:, 0]
+            x = x + (y @ Z[:j] if flexible else M(y @ V[:j]))
+        it += j
+        r = b - A(x)
+        z = M(r) if precres else r
+        r_norm_old = r_norm
+        r_norm, absres, xx = (t(v.item()) for v in (
+            torch.sqrt(dot(r, r)), abs_residual(stop_type, r, z), dot(x, x)))
+        normu_new = max(small, np.sqrt(xx))
+        absres, relres = residual_norms(stop_type, absres, normr0, normu_new)
+        if adaptive:
+            cr = r_norm / max(r_norm_old, small)
+            shrunk = (cur - loops.RESTART_DEC
+                      if cur - loops.RESTART_DEC > loops.RESTART_MIN else R)
+            cur = (R if cr > loops.CR_MAX or cycles == 0
+                   else cur if cr < loops.CR_MIN else shrunk)
+        stag = stag + 1 if relres > loops.STAG_FACTOR * stag_best else 0
+        stag_best = min(stag_best, relres)
+        stalled = stag >= loops.MAX_STAG_CYCLES and relres > 4.0 * tol
+        done = bool(relres < tol) or j == 0 or stalled
+        status = -42 if stalled else 0
+        cycles += 1
+        if safe and relres < best_relres:
+            best_x, best_relres = x, relres
+    if safe and not bool(relres < tol) and best_relres < relres:
+        x = best_x
+    return x, it, status
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("method", GMRES)
+def test_gmres_tree_on_the_cpu_computes_as_the_host_loop(method, dt):
+    """On the CPU the loop tree gives the host loop's numbers bit for bit
+    (:func:`_host_loop_gmres`), plain and safe, under three stopping
+    criteria: an f32 solve at its floor turns on the last bit of each
+    sum, and the CPU is where the port is held to the JAX package."""
+    A, b = _problem("fe")
+    op = device_operator(A, dtype=DTYPES[dt])
+    M = tk.JacobiPrecond.from_csr(A, DTYPES[dt])
+    bt = torch.from_numpy(b).to(DTYPES[dt])
+    for stop, safe, tol in ((1, False, 1e-8), (2, True, 1e-6),
+                            (3, True, 1e-12)):
+        kw = dict(tol=tol, maxit=150, restart=12, stop_type=stop, safe=safe)
+        got = getattr(tk, method)(op, bt, M=M, **kw)
+        x, it, status = _host_loop_gmres(
+            op, bt, M, tol, 150, 12, stop, method != "gmres",
+            method == "vfgmres", safe)
+        assert (got.iters, got.status) == (it, status), (stop, safe)
+        assert torch.equal(got.x, x), (stop, safe)
+
+
+def test_twin_square_roots_are_correctly_rounded():
+    """``torch.sqrt`` on the CPU misrounds about 1% of its results in the
+    last bit (AVX-512 builds; sqrt(0.5) in f64 among them); the twins
+    take the correctly rounded root, as NumPy and the kernel's
+    ``sqrt_rn`` do."""
+    x = np.random.default_rng(3).uniform(0.0, 10.0, 2000)
+    for ndt, dt in ((np.float64, torch.float64), (np.float32, torch.float32)):
+        for v in [*x.astype(ndt), ndt(0.5), ndt(0.0)]:
+            assert loops._sqrt(torch.tensor(v, dtype=dt)).item() == np.sqrt(v)
