@@ -31,7 +31,7 @@
 //   GMRES family: two nested WHILEs, the restart cycles around the Arnoldi
 //     steps (faspsolver_tpu/krylov/gmres.py:175/:243): 0 init, 1 cycle,
 //     2 arnoldi (the Hessenberg column's Givens rotations), 3 solve (the
-//     window's back-substitution), 4 restart (see gmres_control).
+//     window's back-substitution), 4 restart (see gmres_entry).
 //
 // Rounding: the decisions must be those of the eager loop's scalar
 // arithmetic in b's dtype (the JAX package's traced scalars), so every
@@ -42,12 +42,21 @@
 //
 // The graph calls at the end go through the driver API (see there).
 //
-// What bounds it: nothing but the launch.  One thread reads a few dozen
-// scalars and writes as many; the time is the launch floor of a graph
-// kernel node, a few microseconds, once or twice per iteration.
-// GMRES's arnoldi phase does up to R rotations (R the restart window) and
-// its solve phase R^2 / 2 dependent multiply-adds on one thread: at R = 60
-// a few microseconds more, once per step and once per cycle.
+// What bounds it: the launch, and then the latency of what one thread
+// executes.  An empty graph kernel node takes 0.8 us (NVIDIA H100 80GB
+// HBM3, 700 W; chip_smoke.py phase 3); a control launch runs once per
+// iteration on whichever SM is free, which may not hold the kernel's code
+// yet, so the less code a launch runs the better (one kernel per phase
+// beat one kernel over all phases: tools/loop_control_ab.py).  So each
+// scalar phase is its own kernel (phase and entry point are template
+// arguments: no code of the other phases), on one thread, issuing the
+// loads of the fields and inputs it needs at its start (one round trip:
+// loads_issued), and setting the conditional last.  GMRES's arnoldi phase chains up to R - 1 rotations
+// (R the restart window) and its solve phase R dependent steps of a
+// back-substitution: both run from shared memory and registers on one
+// warp, unrolled for the window's 32-entry slots (a template argument),
+// so what bounds them is that chain's latency (chip_smoke.py phase 3
+// reads it from chain_probe).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -86,9 +95,38 @@ __device__ __forceinline__ void set_cond(unsigned long long h, bool v) {
     if (h) cudaGraphSetConditional(static_cast<cudaGraphConditionalHandle>(h), v ? 1u : 0u);
 }
 
+// Keeps the loads above it above it: the compiler would otherwise sink
+// each to its first use, after the divisions' slow-path branches, and the
+// thread would wait for them one at a time.
+__device__ __forceinline__ void loads_issued() { asm volatile("" ::: "memory"); }
+
+// A region's fields in registers: `load` reads them (those a phase never
+// reads are dropped by the compiler), the phase computes on the copy,
+// `store` writes them back (those it did not change are dropped: the
+// pointers are __restrict__).
+template <typename T>
+struct Fields {
+    T f[F_COUNT];
+    int i[I_COUNT];
+
+    __device__ __forceinline__ void load(const T* __restrict__ fp, const int* __restrict__ ip) {
+#pragma unroll
+        for (int k = 0; k < F_COUNT; ++k) f[k] = fp[k];
+#pragma unroll
+        for (int k = 0; k < I_COUNT; ++k) i[k] = ip[k];
+    }
+
+    __device__ __forceinline__ void store(T* __restrict__ fp, int* __restrict__ ip) const {
+#pragma unroll
+        for (int k = 0; k < F_COUNT; ++k) fp[k] = f[k];
+#pragma unroll
+        for (int k = 0; k < I_COUNT; ++k) ip[k] = i[k];
+    }
+};
+
 // initial norms (KryPcg.c:134-160) and the entry test
 template <typename T>
-__device__ void init_norms(T absres0, T xx, T* f, int* i, bool extra_done) {
+__device__ __forceinline__ void init_norms(T absres0, T xx, T* f, int* i, bool extra_done) {
     const T small = T(FASP_SMALLREAL);
     const bool mod = i[I_STOP] == FASP_MOD_REL_RES;
     f[F_MAXDIFF] = mul_rn(f[F_TOL], T(FASP_STAG_RATIO));
@@ -110,7 +148,7 @@ __device__ void init_norms(T absres0, T xx, T* f, int* i, bool extra_done) {
 
 // What the check leaves for the eager loop to read when nothing is
 // recomputed: decide() concludes the same then.
-__device__ void provisional(int* i, bool done, int status) {
+__device__ __forceinline__ void provisional(int* i, bool done, int status) {
     i[I_STATUS] = status;
     i[I_CONT] = !done && i[I_IT] < i[I_MAXIT];
 }
@@ -121,7 +159,7 @@ __device__ void provisional(int* i, bool done, int status) {
 // iterate.  BiCGstab has no zero-solution check (its flag stays 0), and
 // (stagnated && conv) || (claim && conv) is conv.
 template <typename T>
-__device__ void krylov_decide(T absres_true, T* f, int* i) {
+__device__ __forceinline__ void krylov_decide(T absres_true, T* f, int* i) {
     const bool mod = i[I_STOP] == FASP_MOD_REL_RES;
     const bool need = i[I_NEED], stagnated = i[I_STAGNATED], claim = i[I_CLAIM];
     const bool breakdown = i[I_BREAKDOWN], zero_sol = i[I_ZERO_SOL];
@@ -158,28 +196,26 @@ __device__ void krylov_decide(T absres_true, T* f, int* i) {
 //   check  in = {p.Ap, alpha, absres, max|x|, x.x, p.p}
 //   decide in = {true absres} (read only if the recompute ran)
 template <typename T>
-__global__ void pcg_control(int phase, const T* in, T* f, int* i, unsigned long long h) {
+__device__ __forceinline__ bool pcg_phase(int phase, const T* x, T* f, int* i) {
     const T small = T(FASP_SMALLREAL), small2 = T(FASP_SMALLREAL2), slow = T(0.9);
     if (phase == 0) {
-        init_norms(in[0], in[1], f, i, false);
-        set_cond(h, i[I_CONT]);
-        return;
+        init_norms(x[0], x[1], f, i, false);
+        return i[I_CONT];
     }
     if (phase == 2) {
-        krylov_decide(in[0], f, i);
-        set_cond(h, i[I_CONT]);
-        return;
+        krylov_decide(x[0], f, i);
+        return i[I_CONT];
     }
     const bool mod = i[I_STOP] == FASP_MOD_REL_RES;
     i[I_IT] += 1;
     i[I_NBODY] += 1;
-    const T absres = in[2];
+    const T absres = x[2];
     const T relres = div_rn(absres, mod ? f[F_NORMU] : f[F_NORMR0]);
-    const bool breakdown = fabs(in[0]) <= small2;
+    const bool breakdown = fabs(x[0]) <= small2;
     const T factor = div_rn(absres, f[F_ABSRES0]);
-    const bool zero_sol = factor > slow && in[3] <= small;
-    const T normu_new = pymax(small, sqrt_rn(in[4]));
-    const T reldiff = div_rn(mul_rn(fabs(in[1]), sqrt_rn(in[5])), normu_new);
+    const bool zero_sol = factor > slow && x[3] <= small;
+    const T normu_new = pymax(small, sqrt_rn(x[4]));
+    const T reldiff = div_rn(mul_rn(fabs(x[1]), sqrt_rn(x[5])), normu_new);
     const bool stagnated = factor > slow && !zero_sol && i[I_STAG] <= i[I_MAX_STAG]
                            && reldiff < f[F_MAXDIFF];
     const bool claim = relres < f[F_TOL] && !stagnated && !zero_sol;
@@ -195,7 +231,7 @@ __global__ void pcg_control(int phase, const T* in, T* f, int* i, unsigned long 
     i[I_NIF] += need;
     provisional(i, breakdown || zero_sol,
                 breakdown ? FASP_ERR_MISC : zero_sol ? FASP_ERR_SOLSTAG : 0);
-    set_cond(h, need);
+    return need;
 }
 
 // BiCGstab (faspsolver_tpu/krylov/bicgstab.py:56-141).
@@ -203,28 +239,26 @@ __global__ void pcg_control(int phase, const T* in, T* f, int* i, unsigned long 
 //   check  in = {rstar.v, t.t, absres, x.x, step.step}
 //   decide in = {true absres}
 template <typename T>
-__global__ void bicgstab_control(int phase, const T* in, T* f, int* i, unsigned long long h) {
+__device__ __forceinline__ bool bicgstab_phase(int phase, const T* x, T* f, int* i) {
     const T small = T(FASP_SMALLREAL), small2 = T(FASP_SMALLREAL2), slow = T(0.9);
     if (phase == 0) {
-        init_norms(in[0], in[1], f, i, false);
-        set_cond(h, i[I_CONT]);
-        return;
+        init_norms(x[0], x[1], f, i, false);
+        return i[I_CONT];
     }
     if (phase == 2) {
-        krylov_decide(in[0], f, i);
-        set_cond(h, i[I_CONT]);
-        return;
+        krylov_decide(x[0], f, i);
+        return i[I_CONT];
     }
     const bool mod = i[I_STOP] == FASP_MOD_REL_RES;
     i[I_IT] += 1;
     i[I_NBODY] += 1;
-    const T absres = in[2];
+    const T absres = x[2];
     const T relres = div_rn(absres, mod ? f[F_NORMU] : f[F_NORMR0]);
-    const bool breakdown = fabs(in[0]) <= small2 || in[1] <= small2;
+    const bool breakdown = fabs(x[0]) <= small2 || x[1] <= small2;
     const T factor = div_rn(absres, f[F_ABSRES0]);
-    const T normu_new = pymax(small, sqrt_rn(in[3]));
+    const T normu_new = pymax(small, sqrt_rn(x[3]));
     const bool stagnated = factor > slow && i[I_STAG] <= i[I_MAX_STAG]
-                           && div_rn(sqrt_rn(in[4]), normu_new) < f[F_MAXDIFF];
+                           && div_rn(sqrt_rn(x[4]), normu_new) < f[F_MAXDIFF];
     const bool claim = relres < f[F_TOL] && !stagnated;
     const bool need = stagnated || claim;
     f[F_ABSRES] = absres;
@@ -237,7 +271,7 @@ __global__ void bicgstab_control(int phase, const T* in, T* f, int* i, unsigned 
     i[I_NEED] = need;
     i[I_NIF] += need;
     provisional(i, breakdown, breakdown ? FASP_ERR_MISC : 0);
-    set_cond(h, need);
+    return need;
 }
 
 // MINRES (faspsolver_tpu/krylov/minres.py:56-111).
@@ -245,35 +279,33 @@ __global__ void bicgstab_control(int phase, const T* in, T* f, int* i, unsigned 
 //   check  in = {eta, beta_new}
 //   decide in = {true absres, x.x}
 template <typename T>
-__global__ void minres_control(int phase, const T* in, T* f, int* i, unsigned long long h) {
+__device__ __forceinline__ bool minres_phase(int phase, const T* x, T* f, int* i) {
     const T small = T(FASP_SMALLREAL);
     const bool mod = i[I_STOP] == FASP_MOD_REL_RES;
     if (phase == 0) {
-        init_norms(in[0], in[1], f, i, in[2] <= small);
+        init_norms(x[0], x[1], f, i, x[2] <= small);
         f[F_BEST] = f[F_RELRES];
-        set_cond(h, i[I_CONT]);
-        return;
+        return i[I_CONT];
     }
     if (phase == 1) {
         i[I_IT] += 1;
         i[I_NBODY] += 1;
-        const T relres = div_rn(fabs(in[0]), f[F_NORMR0]);
+        const T relres = div_rn(fabs(x[0]), f[F_NORMR0]);
         const bool claim = relres < f[F_TOL];
-        const bool breakdown = in[1] <= small;
+        const bool breakdown = x[1] <= small;
         f[F_RELRES] = relres;
         i[I_BREAKDOWN] = breakdown;
         i[I_CLAIM] = claim;
         i[I_NEED] = claim;
         i[I_NIF] += claim;
         provisional(i, breakdown, 0);
-        set_cond(h, claim);
-        return;
+        return claim;
     }
     T relres = f[F_RELRES];
     if (i[I_NEED]) {
-        f[F_NORMU_NEW] = pymax(small, sqrt_rn(in[1]));
-        f[F_ABSRES] = in[0];
-        relres = div_rn(in[0], mod ? f[F_NORMU_NEW] : f[F_NORMR0]);
+        f[F_NORMU_NEW] = pymax(small, sqrt_rn(x[1]));
+        f[F_ABSRES] = x[0];
+        relres = div_rn(x[0], mod ? f[F_NORMU_NEW] : f[F_NORMR0]);
     }
     const bool done = (i[I_CLAIM] && relres < f[F_TOL]) || i[I_BREAKDOWN];
     f[F_RELRES] = relres;
@@ -282,40 +314,77 @@ __global__ void minres_control(int phase, const T* in, T* f, int* i, unsigned lo
     i[I_BETTER] = better;
     i[I_STATUS] = 0;
     i[I_CONT] = !done && i[I_IT] < i[I_MAXIT];
-    set_cond(h, i[I_CONT]);
+    return i[I_CONT];
+}
+
+// The inputs phase PHASE (0, 1, 2) of Krylov entry point KIND (0 PCG,
+// 1 BiCGstab, 2 MINRES) reads.
+template <int KIND, int PHASE>
+__host__ __device__ constexpr int krylov_inputs() {
+    return KIND == 2 ? (PHASE == 0 ? 3 : 2)
+                     : PHASE == 0 ? 2 : PHASE == 2 ? 1 : KIND == 0 ? 6 : 5;
+}
+
+// One phase of a Krylov entry point, on one thread: its inputs and the
+// region read first, the phase, the region stored, the handle set last
+// (the IF handle at the check, else the WHILE one).
+template <typename T, int KIND, int PHASE>
+__global__ void krylov_control(const T* __restrict__ in, T* __restrict__ fp,
+                               int* __restrict__ ip, unsigned long long h) {
+    constexpr int N = krylov_inputs<KIND, PHASE>();
+    T x[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) x[k] = in[k];
+    Fields<T> r;
+    r.load(fp, ip);
+    loads_issued();
+    const bool cond = KIND == 0 ? pcg_phase(PHASE, x, r.f, r.i)
+                    : KIND == 1 ? bicgstab_phase(PHASE, x, r.f, r.i)
+                                : minres_phase(PHASE, x, r.f, r.i);
+    r.store(fp, ip);
+    set_cond(h, cond);
 }
 
 // The inner tolerance of a round (solvers/refine.py): the remaining
 // reduction times 0.3, between the floor and inner_tol, in f64, then
 // rounded to the inner solve's type.
 template <typename Tin>
-__device__ void inner_tol(const double* f, double relres, Tin* inner_f) {
+__device__ __forceinline__ Tin inner_tol(const double* f, double relres) {
     const double need = pymin(pymax(div_rn(mul_rn(0.3, f[F_TOL]), pymax(relres, 1e-300)),
                                     f[F_INNER_FLOOR]),
                               f[F_INNER_TOL]);
-    inner_f[F_TOL] = static_cast<Tin>(need);
+    return static_cast<Tin>(need);
 }
 
-// Refinement rounds (faspsolver_tpu/solvers/refine.py:219).
+// Refinement rounds (faspsolver_tpu/solvers/refine.py:219), one kernel
+// per phase.
 //   init   in unused: relres = 1, the entry test
 //   round  in = {f64 relative residual after the round}
-// i[I_IT] counts rounds, i[I_MAXIT] is max_rounds.
-template <typename Tin>
-__global__ void refine_control(int phase, const double* in, double* f, int* i,
-                               Tin* inner_f, unsigned long long h) {
-    double relres = 1.0;
-    if (phase == 0) {
+// i[I_IT] counts rounds, i[I_MAXIT] is max_rounds.  `in` may be the
+// region's own f at init (refine.py), where it is not read.
+template <typename Tin, int PHASE>
+__global__ void refine_control(const double* in, double* __restrict__ fp, int* __restrict__ ip,
+                               Tin* __restrict__ inner_f, unsigned long long h) {
+    const double relres = PHASE == 0 ? 1.0 : in[0];
+    Fields<double> r;
+    r.load(fp, ip);
+    loads_issued();
+    double* f = r.f;
+    int* i = r.i;
+    if (PHASE == 0) {
         i[I_IT] = 0;
         i[I_NINIT] += 1;
     } else {
-        relres = in[0];
         i[I_IT] += 1;
         i[I_NBODY] += 1;
     }
     f[F_RELRES] = relres;
-    i[I_CONT] = relres >= f[F_TOL] && i[I_IT] < i[I_MAXIT];
-    inner_tol(f, relres, inner_f);
-    set_cond(h, i[I_CONT]);
+    const bool cond = relres >= f[F_TOL] && i[I_IT] < i[I_MAXIT];
+    i[I_CONT] = cond;
+    const Tin tol = inner_tol<Tin>(f, relres);
+    r.store(fp, ip);
+    inner_f[F_TOL] = tol;
+    set_cond(h, cond);
 }
 
 // The GMRES family (faspsolver_tpu/krylov/gmres.py:85-250): the scalar
@@ -331,107 +400,50 @@ __global__ void refine_control(int phase, const double* in, double* f, int* i,
 //              on the column, the new one (den > SMALLREAL guard), column
 //              j of H, g[j], g[j+1], cs[j], sn[j]; happy breakdown and
 //              the least-squares residual's convergence; the inner CONT
-//   3 solve    in unused: y from the j x j upper-triangular H y = g, row
-//              j-1 first, each row's sum in increasing column; 0 past j
+//   3 solve    in unused: y from the j x j upper-triangular H y = g by
+//              columns (the reference BLAS dtrsm's order, without its
+//              test for a zero: y[k] = g[k] / H[k,k], then g[m] -=
+//              H[m,k] y[k] for every m < k, k from j-1 down); 0 past j
 //   4 restart  in = {|r|, absres, x.x} of the true residual: relres, the
 //              adaptive restart rule, stagnation against the best relres,
 //              the safe iterate's flag; the outer CONT
-// Phases 1 and 3 run on a block (the clear, the tile's load); the rest on
-// its thread 0.  Phase 3 solves from a shared tile of H's first R rows, g
-// and y: at R = 60 in f64 it takes 26.6 us where one thread reading H and
-// g where they lie takes 90.0 us (tools/gmres_solve_tile.py, H100).
+// One kernel per kind of work (gmres_entry launches them): phases 0 and 4
+// on one thread (gmres_scalar), the cycle's clear on a block
+// (gmres_cycle), the arnoldi phase on a warp (gmres_arnoldi), the solve
+// on a block that loads its tile and one warp that solves (gmres_solve);
+// the last two for the window's number of 32-entry slots.
+// The window is at most GMRES_MAX_WINDOW (the solve's registers) and its
+// tile, H's R x R upper triangle, g and the steps' diagonal and
+// superdiagonal entries, must fit the card's shared memory (R <= 237 in
+// f64 on an H100).
 __host__ __device__ constexpr int gmres_arrays(int R) { return (R + 1) * R + (R + 1) + 3 * R; }
 
+constexpr int GMRES_SLOTS = 8;                       // g entries a lane keeps
+constexpr int GMRES_MAX_WINDOW = 32 * GMRES_SLOTS;
+constexpr int GMRES_BLOCK = 256;
+constexpr int GMRES_BATCH = 16;                      // tile entries a thread loads at once
+
+// phases 0 (init) and 4 (restart), one kernel each on one thread
 template <typename T>
-__global__ void gmres_control(int phase, const T* in, T* f, int* i, int* ia, T* arr, int R,
-                              unsigned long long h) {
+__device__ __forceinline__ bool gmres_scalar_phase(int phase, const T* x, T* f, int* i, int R) {
     const T small = T(FASP_SMALLREAL);
-    T* H = arr;
-    T* g = H + (R + 1) * R;
-    T* cs = g + R + 1;
-    T* sn = cs + R;
-    T* y = sn + R;
-    if (phase == 1) {
-        for (int k = threadIdx.x; k < gmres_arrays(R); k += blockDim.x) arr[k] = T(0);
-        __syncthreads();
-        if (threadIdx.x) return;
-        const T r_norm = f[F_R_NORM];
-        g[0] = r_norm;
-        f[F_SCALE] = r_norm > small ? div_rn(T(1), r_norm) : T(0);
-        i[I_J] = 0;
-        ia[I_CONT] = 0 < i[I_CUR_RESTART] && i[I_IT] < i[I_MAXIT];
-        set_cond(h, ia[I_CONT]);
-        return;
-    }
-    if (phase == 3) {
-        extern __shared__ __align__(16) unsigned char gmres_smem[];
-        const int j = i[I_J];
-        T* Hs = reinterpret_cast<T*>(gmres_smem);
-        T* gs = Hs + R * R;
-        T* ys = gs + R;
-        for (int k = threadIdx.x; k < R * R; k += blockDim.x) Hs[k] = H[k];
-        for (int k = threadIdx.x; k < R; k += blockDim.x) gs[k] = g[k];
-        __syncthreads();
-        for (int k = j + threadIdx.x; k < R; k += blockDim.x) y[k] = T(0);
-        if (threadIdx.x) return;
-        for (int k = j - 1; k >= 0; --k) {
-            T acc = T(0);
-            for (int m = k + 1; m < j; ++m) acc = add_rn(acc, mul_rn(Hs[k * R + m], ys[m]));
-            ys[k] = div_rn(sub_rn(gs[k], acc), Hs[k * R + k]);
-        }
-        for (int k = 0; k < j; ++k) y[k] = ys[k];
-        return;
-    }
-    if (threadIdx.x) return;
     const bool mod = i[I_STOP] == FASP_MOD_REL_RES;
     if (phase == 0) {
-        init_norms(in[0], in[1], f, i, false);
+        init_norms(x[0], x[1], f, i, false);
         f[F_BEST] = f[F_RELRES];
         f[F_STAG_BEST] = f[F_RELRES];
-        f[F_R_NORM] = in[2];
-        f[F_R_NORM_OLD] = in[2];
+        f[F_R_NORM] = x[2];
+        f[F_R_NORM_OLD] = x[2];
         i[I_STAG] = 0;
         i[I_CYCLES] = 0;
         i[I_CUR_RESTART] = R;
         i[I_J] = 0;
-        set_cond(h, i[I_CONT]);
-        return;
+        return i[I_CONT];
     }
-    if (phase == 2) {
-        const int j = i[I_J];
-        const T hn = in[R + 1];
-        for (int k = 0; k <= R; ++k) H[k * R + j] = in[k];
-        H[(j + 1) * R + j] = hn;
-        for (int k = 0; k < j; ++k) {
-            const T hk = H[k * R + j], hk1 = H[(k + 1) * R + j];
-            H[k * R + j] = add_rn(mul_rn(cs[k], hk), mul_rn(sn[k], hk1));
-            H[(k + 1) * R + j] = add_rn(mul_rn(-sn[k], hk), mul_rn(cs[k], hk1));
-        }
-        const T a = H[j * R + j], b = H[(j + 1) * R + j];
-        const T den = sqrt_rn(add_rn(mul_rn(a, a), mul_rn(b, b)));
-        const bool den_ok = den > small;
-        const T c = den_ok ? div_rn(a, den) : T(1);
-        const T s = den_ok ? div_rn(b, den) : T(0);
-        H[j * R + j] = add_rn(mul_rn(c, a), mul_rn(s, b));
-        H[(j + 1) * R + j] = T(0);
-        const T gj = g[j];
-        g[j] = mul_rn(c, gj);
-        g[j + 1] = mul_rn(-s, gj);
-        cs[j] = c;
-        sn[j] = s;
-        const bool happy = hn <= T(FASP_HAPPY);
-        const bool conv = div_rn(fabs(g[j + 1]), f[F_NORMR0]) < f[F_TOL];
-        i[I_J] = j + 1;
-        ia[I_NBODY] += 1;
-        ia[I_CONT] = j + 1 < i[I_CUR_RESTART] && i[I_IT] + j + 1 < i[I_MAXIT] && !happy && !conv;
-        set_cond(h, ia[I_CONT]);
-        return;
-    }
-    // phase 4
     const int j = i[I_J];
     i[I_IT] += j;
-    const T r_norm = in[0], absres = in[1];
-    const T normu = pymax(small, sqrt_rn(in[2]));
+    const T r_norm = x[0], absres = x[1];
+    const T normu = pymax(small, sqrt_rn(x[2]));
     const T relres = div_rn(absres, mod ? normu : f[F_NORMR0]);
     int cur = i[I_CUR_RESTART];
     if (i[I_ADAPTIVE]) {
@@ -458,18 +470,245 @@ __global__ void gmres_control(int phase, const T* in, T* f, int* i, int* ia, T* 
     i[I_STATUS] = stalled ? FASP_ERR_STAG : 0;
     i[I_NBODY] += 1;
     i[I_CONT] = !done && i[I_IT] < i[I_MAXIT];
-    set_cond(h, i[I_CONT]);
+    return i[I_CONT];
 }
 
-// The launch of GMRES's control; `R` is the window.  The cycle and solve
-// phases take a block of 256 threads, the solve a shared tile of (R + 2) R
-// values: above 48 KB the kernel's limit is raised to it first, and a tile
-// past the card's opt-in limit (R > 168 in f64 on an H100) is refused.
+template <typename T, int PHASE>
+__global__ void gmres_scalar(const T* __restrict__ in, T* __restrict__ fp, int* __restrict__ ip,
+                             int R, unsigned long long h) {
+    const T x[3] = {in[0], in[1], in[2]};
+    Fields<T> r;
+    r.load(fp, ip);
+    loads_issued();
+    const bool cond = gmres_scalar_phase(PHASE, x, r.f, r.i, R);
+    r.store(fp, ip);
+    set_cond(h, cond);
+}
+
+// phase 1 (cycle): the block clears the arrays, thread 0 the rest
 template <typename T>
-int gmres_entry(int phase, const T* in, T* f, int* i, int* ia, T* arr, int R,
-                unsigned long long h, void* stream) {
-    const int threads = phase == 1 || phase == 3 ? 256 : 1;
-    const size_t smem = phase == 3 ? static_cast<size_t>(R + 2) * R * sizeof(T) : 0;
+__global__ void gmres_cycle(T* __restrict__ fp, int* __restrict__ ip, int* __restrict__ ia,
+                            T* __restrict__ arr, int R, unsigned long long h) {
+    const T r_norm = fp[F_R_NORM];
+    const int cur = ip[I_CUR_RESTART], it = ip[I_IT], maxit = ip[I_MAXIT];
+    loads_issued();
+    for (int k = threadIdx.x; k < gmres_arrays(R); k += blockDim.x) arr[k] = T(0);
+    __syncthreads();
+    if (threadIdx.x) return;
+    const T small = T(FASP_SMALLREAL);
+    arr[(R + 1) * R] = r_norm;                                     // g[0]
+    fp[F_SCALE] = r_norm > small ? div_rn(T(1), r_norm) : T(0);
+    ip[I_J] = 0;
+    const bool cont = 0 < cur && it < maxit;
+    ia[I_CONT] = cont;
+    set_cond(h, cont);
+}
+
+// phase 2 (arnoldi), on one warp, S = ceil((R + 1) / 32) slots: lane l
+// loads entries l, l + 32, ... of the column, g, cs and sn into
+// registers, all before any is used (one round trip), and puts them in
+// shared memory; the lanes write the column's entries past j + 1 back as
+// they came, and lane 0 runs the rotation chain (the value carried from
+// rotation k - 1 in a register; only -sn[k] * hk and the add are on the
+// chain; its shared-memory loads have no store to wait behind) and the
+// new rotation, storing each rotated entry straight to H.  Each element
+// takes the same operations in the same order as the twin's ARNOLDI.
+template <typename T, int S>
+__global__ void gmres_arnoldi(const T* __restrict__ in, T* __restrict__ fp, int* __restrict__ ip,
+                              int* __restrict__ ia, T* __restrict__ arr, int R,
+                              unsigned long long h) {
+    extern __shared__ __align__(16) unsigned char gmres_smem[];
+    T* col = reinterpret_cast<T*>(gmres_smem);      // R + 1: the column of H
+    T* gs = col + R + 1;                            // R + 1
+    T* css = gs + R + 1;                            // R
+    T* sns = css + R;                               // R
+    T* H = arr;
+    T* g = H + (R + 1) * R;
+    T* cs = g + R + 1;
+    T* sn = cs + R;
+    const int lane = threadIdx.x;
+    T vi[S], vg[S], vc[S], vs[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        const int k = 32 * s + lane;
+        vi[s] = k <= R ? in[k] : T(0);
+        vg[s] = k <= R ? g[k] : T(0);
+        vc[s] = k < R ? cs[k] : T(0);
+        vs[s] = k < R ? sn[k] : T(0);
+    }
+    const int j = ip[I_J];
+    const T hn = in[R + 1];
+    const T normr0 = fp[F_NORMR0], tol = fp[F_TOL];
+    const int cur = ip[I_CUR_RESTART], it = ip[I_IT], maxit = ip[I_MAXIT];
+    const int nbody = ia[I_NBODY];
+    loads_issued();
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        const int k = 32 * s + lane;
+        if (k <= R) {
+            col[k] = vi[s];
+            gs[k] = vg[s];
+        }
+        if (k < R) {
+            css[k] = vc[s];
+            sns[k] = vs[s];
+        }
+        if (k > j + 1 && k <= R) H[k * R + j] = vi[s];
+    }
+    __syncwarp();
+    if (lane) return;
+    const T small = T(FASP_SMALLREAL);
+    T hk = col[0];
+#pragma unroll 8
+    for (int k = 0; k < j; ++k) {
+        const T c = css[k], s = sns[k], hk1 = col[k + 1];
+        H[k * R + j] = add_rn(mul_rn(c, hk), mul_rn(s, hk1));
+        hk = add_rn(mul_rn(-s, hk), mul_rn(c, hk1));
+    }
+    const T a = hk, b = hn;
+    const T den = sqrt_rn(add_rn(mul_rn(a, a), mul_rn(b, b)));
+    const bool den_ok = den > small;
+    const T c = den_ok ? div_rn(a, den) : T(1);
+    const T s = den_ok ? div_rn(b, den) : T(0);
+    H[j * R + j] = add_rn(mul_rn(c, a), mul_rn(s, b));
+    H[(j + 1) * R + j] = T(0);
+    const T gj = gs[j];
+    const T gj1 = mul_rn(-s, gj);
+    g[j] = mul_rn(c, gj);
+    g[j + 1] = gj1;
+    cs[j] = c;
+    sn[j] = s;
+    const bool happy = hn <= T(FASP_HAPPY);
+    const bool conv = div_rn(fabs(gj1), normr0) < tol;
+    ip[I_J] = j + 1;
+    ia[I_NBODY] = nbody + 1;
+    const bool cont = j + 1 < cur && it + j + 1 < maxit && !happy && !conv;
+    ia[I_CONT] = cont;
+    set_cond(h, cont);
+}
+
+// phase 3 (solve).  The block loads H's R x R upper triangle into shared
+// memory, packed by columns (column k's rows 0..k at k (k + 1) / 2), and g
+// after it: each thread reads GMRES_BATCH entries of H's first R rows
+// (coalesced) before it stores any, so R <= 64 takes one round trip; y
+// past j is zeroed.  Warp 0 lays out what each step reads by step: H[k,k]
+// and H[k,k+1].
+// Then warp 0 solves, lane l keeping g[32 s + l] in register gr[s], s <
+// S = ceil(R / 32).
+// Step k (from j - 1 down) finishes g[k] with its last term, g[k] -
+// H[k,k+1] y[k+1], on every lane (the lanes hold g[k] less its earlier
+// terms, broadcast by a shuffle during step k + 1), divides by H[k,k]
+// (the owner lane keeps y[k] to store at the end), takes y[k+1] off the
+// lane's g[m], m <= k, and broadcasts g[k-1] for the next step.  The
+// chain per step is a multiply, a subtract and a division; the shuffle,
+// the updates and the next step's reads run beside it.  Every g[m] takes
+// its terms in the twin's order (y[j-1] first).
+template <typename T, int S>
+__global__ void gmres_solve(const int* __restrict__ ip, T* __restrict__ arr, int R) {
+    constexpr unsigned FULL = 0xffffffffu;
+    extern __shared__ __align__(16) unsigned char gmres_smem[];
+    T* tri = reinterpret_cast<T*>(gmres_smem);
+    T* gsh = tri + R * (R + 1) / 2;                 // g
+    T* dsh = gsh + R;                               // H[k,k]
+    T* ush = dsh + R;                               // H[k,k+1]
+    const T* H = arr;
+    const T* g = H + (R + 1) * R;
+    T* y = arr + gmres_arrays(R) - R;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int j = ip[I_J];
+    T gr[S];
+    if (warp == 0) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+            const int m = 32 * s + lane;
+            gr[s] = m < R ? g[m] : T(0);
+            if (m < R) gsh[m] = gr[s];
+        }
+    }
+    // entry q of H's first R rows is (m, k) = (q / R, q % R); the quotient
+    // from a float product, exact here: (q + 1/2) / R is at least 1/(2 R)
+    // from an integer, the product's error under 1e-5
+    const int n = R * R;
+    const float inv = 1.0f / static_cast<float>(R > 0 ? R : 1);
+    for (int q0 = threadIdx.x; q0 < n; q0 += GMRES_BATCH * GMRES_BLOCK) {
+        T v[GMRES_BATCH];
+#pragma unroll
+        for (int u = 0; u < GMRES_BATCH; ++u) {
+            const int q = q0 + u * GMRES_BLOCK;
+            v[u] = q < n ? H[q] : T(0);
+        }
+        loads_issued();
+#pragma unroll
+        for (int u = 0; u < GMRES_BATCH; ++u) {
+            const int q = q0 + u * GMRES_BLOCK;
+            const int m = static_cast<int>((static_cast<float>(q) + 0.5f) * inv), k = q - m * R;
+            if (q < n && m <= k) tri[k * (k + 1) / 2 + m] = v[u];
+        }
+    }
+    for (int k = j + threadIdx.x; k < R; k += GMRES_BLOCK) y[k] = T(0);
+    __syncthreads();
+    if (warp) return;
+    // what each step reads of H, laid out by step before the chain starts
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        const int k = 32 * s + lane;
+        if (k < j) {
+            const T d = tri[k * (k + 1) / 2 + k];
+            dsh[k] = d;
+            ush[k] = k + 1 < j ? tri[(k + 1) * (k + 2) / 2 + k] : T(0);
+        }
+    }
+    __syncwarp();
+    // step j - 1's values; y stays in the owner lane's yr until the end
+    const int top = j > 0 ? j - 1 : 0;
+    T gp = gsh[top], dn = dsh[top], un = ush[top];
+    T ynext = T(0), yr[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) yr[s] = T(0);
+#pragma unroll
+    for (int s = S - 1; s >= 0; --s) {
+        if (32 * s >= j) continue;
+#pragma unroll 1
+        for (int l = min(31, j - 1 - 32 * s); l >= 0; --l) {
+            // the step's values were read during the one before; the
+            // next step's are read now, beside the chain
+            const int k = 32 * s + l;
+            const T d = dn, u = un;
+            const int kn = k > 0 ? k - 1 : 0;
+            dn = dsh[kn];
+            un = ush[kn];
+            const bool more = k + 1 < j;                 // y[k+1] exists
+            const T* colk1 = tri + (more ? (k + 1) * (k + 2) / 2 : 0);
+            const T gk = more ? sub_rn(gp, mul_rn(u, ynext)) : gp;
+#pragma unroll
+            for (int t = 0; t <= s; ++t) {
+                const int m = 32 * t + lane;
+                const bool take = more && m <= k;
+                const T upd = sub_rn(gr[t], mul_rn(take ? colk1[m] : T(0), ynext));
+                gr[t] = take ? upd : gr[t];
+            }
+            gp = __shfl_sync(FULL, l > 0 ? gr[s] : gr[s > 0 ? s - 1 : 0], (l + 31) & 31);
+            const T yk = div_rn(gk, d);
+            yr[s] = lane == l ? yk : yr[s];
+            ynext = yk;
+        }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+        if (32 * s + lane < j) y[32 * s + lane] = yr[s];
+}
+
+// The launches of the two phases unrolled for S slots (see gmres_entry).
+template <typename T, int S>
+int launch_arnoldi(const T* in, T* f, int* i, int* ia, T* arr, int R, unsigned long long h,
+                   cudaStream_t st) {
+    gmres_arnoldi<T, S><<<1, 32, (4 * R + 2) * sizeof(T), st>>>(in, f, i, ia, arr, R, h);
+    return 0;
+}
+
+template <typename T, int S>
+int launch_solve(const int* i, T* arr, int R, cudaStream_t st) {
+    const size_t smem = (static_cast<size_t>(R) * (R + 1) / 2 + 3 * R) * sizeof(T);
     if (smem > 48 * 1024) {
         int dev = 0, most = 0;
         cudaError_t e = cudaGetDevice(&dev);
@@ -477,13 +716,66 @@ int gmres_entry(int phase, const T* in, T* f, int* i, int* ia, T* arr, int R,
             e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
         if (e == cudaSuccess && smem > static_cast<size_t>(most)) e = cudaErrorInvalidValue;
         if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(gmres_control<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            e = cudaFuncSetAttribute(gmres_solve<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    gmres_control<T><<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        phase, in, f, i, ia, arr, R, h);
-    return static_cast<int>(cudaGetLastError());
+    gmres_solve<T, S><<<1, GMRES_BLOCK, smem, st>>>(i, arr, R);
+    return 0;
+}
+
+// The launch of GMRES's control; `R` is the window.  The arnoldi and solve
+// kernels are unrolled for the window's slots: ceil((R + 1) / 32) and
+// ceil(R / 32).  The solve's tile, R (R + 1) / 2 + 3 R values, raises the
+// kernel's shared-memory limit above 48 KB first; a window past
+// GMRES_MAX_WINDOW or a tile past the card's opt-in limit is refused.
+template <typename T>
+int gmres_entry(int phase, const T* in, T* f, int* i, int* ia, T* arr, int R,
+                unsigned long long h, void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (R < 0 || R > GMRES_MAX_WINDOW) return static_cast<int>(cudaErrorInvalidValue);
+    int e = 0;
+    switch (phase) {
+        case 0: gmres_scalar<T, 0><<<1, 1, 0, st>>>(in, f, i, R, h); break;
+        case 1: gmres_cycle<T><<<1, GMRES_BLOCK, 0, st>>>(f, i, ia, arr, R, h); break;
+        case 2:
+            switch (R / 32 + 1) {
+#define FASP_ARNOLDI(n) case n: e = launch_arnoldi<T, n>(in, f, i, ia, arr, R, h, st); break;
+                FASP_ARNOLDI(1) FASP_ARNOLDI(2) FASP_ARNOLDI(3) FASP_ARNOLDI(4) FASP_ARNOLDI(5)
+                FASP_ARNOLDI(6) FASP_ARNOLDI(7) FASP_ARNOLDI(8) FASP_ARNOLDI(9)
+#undef FASP_ARNOLDI
+                default: e = cudaErrorInvalidValue;
+            }
+            break;
+        case 3:
+            switch (R > 0 ? (R + 31) / 32 : 1) {
+#define FASP_SOLVE(n) case n: e = launch_solve<T, n>(i, arr, R, st); break;
+                FASP_SOLVE(1) FASP_SOLVE(2) FASP_SOLVE(3) FASP_SOLVE(4)
+                FASP_SOLVE(5) FASP_SOLVE(6) FASP_SOLVE(7) FASP_SOLVE(8)
+#undef FASP_SOLVE
+                default: e = cudaErrorInvalidValue;
+            }
+            break;
+        case 4: gmres_scalar<T, 4><<<1, 1, 0, st>>>(in, f, i, R, h); break;
+        default: e = cudaErrorInvalidValue;
+    }
+    return e ? e : static_cast<int>(cudaGetLastError());
+}
+
+// A measurement aid (not counted): one warp runs `n` links of a dependent
+// chain, each link what one step of a GMRES phase has on its critical
+// path: kind 0 the arnoldi phase's rotation (a multiply and an add),
+// kind 1 the solve's f64 step (a multiply, a subtract and a division).
+// Timed against n = 0 it gives the card's latency per link.
+__global__ void chain_probe(int kind, int n, double* v) {
+    double x = v[0];
+    const double c = v[1], s = v[2], d = v[3];
+    if (kind == 0) {
+        for (int k = 0; k < n; ++k) x = add_rn(mul_rn(-s, x), c);
+    } else {
+        for (int k = 0; k < n; ++k) x = div_rn(sub_rn(c, mul_rn(s, x)), d);
+    }
+    if (threadIdx.x == 0) v[4] = x;
 }
 
 __global__ void empty_control() {}
@@ -537,41 +829,59 @@ const Driver& driver() {
     return d;
 }
 
+// phase 0, 1 or 2 of Krylov entry point KIND on one thread
+template <typename T, int KIND>
+int krylov_entry(int phase, const T* in, T* f, int* i, unsigned long long h, void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (phase == 0) krylov_control<T, KIND, 0><<<1, 1, 0, st>>>(in, f, i, h);
+    else if (phase == 1) krylov_control<T, KIND, 1><<<1, 1, 0, st>>>(in, f, i, h);
+    else if (phase == 2) krylov_control<T, KIND, 2><<<1, 1, 0, st>>>(in, f, i, h);
+    else return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// the refinement's phase 0 or 1; Tin is the inner solve's type
+template <typename Tin>
+int refine_entry(int phase, const double* in, double* f, int* i, Tin* inner_f,
+                 unsigned long long h, void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (phase == 0) refine_control<Tin, 0><<<1, 1, 0, st>>>(in, f, i, inner_f, h);
+    else if (phase == 1) refine_control<Tin, 1><<<1, 1, 0, st>>>(in, f, i, inner_f, h);
+    else return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// ---- the control kernels: one thread each, on `stream`; `h` is the
-// conditional handle to set (0: none).  Each returns a cudaError_t value.
+// ---- the control kernels, on `stream`; `h` is the conditional handle to
+// set (0: none).  Each returns a cudaError_t value.
 
-#define FASP_KRYLOV_ENTRY(name, kernel, T)                                          \
+#define FASP_KRYLOV_ENTRY(name, KIND, T)                                            \
     int name(int phase, const T* in, T* f, int* i, unsigned long long h,            \
              void* stream) {                                                        \
-        kernel<T><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(phase, in, f, i, h); \
-        return static_cast<int>(cudaGetLastError());                                \
+        return krylov_entry<T, KIND>(phase, in, f, i, h, stream);                   \
     }
 
-FASP_KRYLOV_ENTRY(fasp_loop_pcg_f32, pcg_control, float)
-FASP_KRYLOV_ENTRY(fasp_loop_pcg_f64, pcg_control, double)
-FASP_KRYLOV_ENTRY(fasp_loop_bicgstab_f32, bicgstab_control, float)
-FASP_KRYLOV_ENTRY(fasp_loop_bicgstab_f64, bicgstab_control, double)
-FASP_KRYLOV_ENTRY(fasp_loop_minres_f32, minres_control, float)
-FASP_KRYLOV_ENTRY(fasp_loop_minres_f64, minres_control, double)
+FASP_KRYLOV_ENTRY(fasp_loop_pcg_f32, 0, float)
+FASP_KRYLOV_ENTRY(fasp_loop_pcg_f64, 0, double)
+FASP_KRYLOV_ENTRY(fasp_loop_bicgstab_f32, 1, float)
+FASP_KRYLOV_ENTRY(fasp_loop_bicgstab_f64, 1, double)
+FASP_KRYLOV_ENTRY(fasp_loop_minres_f32, 2, float)
+FASP_KRYLOV_ENTRY(fasp_loop_minres_f64, 2, double)
 
 // the refinement's control; the suffix is the inner solve's type
 int fasp_loop_refine_f32(int phase, const double* in, double* f, int* i, float* inner_f,
                          unsigned long long h, void* stream) {
-    refine_control<float><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-        phase, in, f, i, inner_f, h);
-    return static_cast<int>(cudaGetLastError());
+    return refine_entry(phase, in, f, i, inner_f, h, stream);
 }
 
 int fasp_loop_refine_f64(int phase, const double* in, double* f, int* i, double* inner_f,
                          unsigned long long h, void* stream) {
-    refine_control<double><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-        phase, in, f, i, inner_f, h);
-    return static_cast<int>(cudaGetLastError());
+    return refine_entry(phase, in, f, i, inner_f, h, stream);
 }
+
 
 // GMRES's control (gmres_entry); R is the window
 int fasp_loop_gmres_f32(int phase, const float* in, float* f, int* i, int* ia, float* arr,
@@ -588,6 +898,13 @@ int fasp_loop_gmres_f64(int phase, const double* in, double* f, int* i, int* ia,
 // (a measurement aid, not counted).
 int fasp_loop_empty(void* stream) {
     empty_control<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+    return static_cast<int>(cudaGetLastError());
+}
+
+// chain_probe on one warp (a measurement aid, not counted): v holds {x,
+// c, s, d} and receives the chain's end in v[4]
+int fasp_loop_chain_probe(int kind, int n, double* v, void* stream) {
+    chain_probe<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(kind, n, v);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -289,7 +289,7 @@ def _krylov_decide(absres_true, f, i):
 
 def pcg_plain(phase: int, inp: torch.Tensor, reg: Region) -> None:
     """PCG's control on a CPU region (``csrc/loop_control.cu``,
-    ``pcg_control``)."""
+    ``pcg_phase``)."""
     f, i = reg.f, reg.i
     dt = f.dtype
     if phase == INIT:
@@ -326,7 +326,7 @@ def pcg_plain(phase: int, inp: torch.Tensor, reg: Region) -> None:
 
 
 def bicgstab_plain(phase: int, inp: torch.Tensor, reg: Region) -> None:
-    """BiCGstab's control on a CPU region (``bicgstab_control``)."""
+    """BiCGstab's control on a CPU region (``bicgstab_phase``)."""
     f, i = reg.f, reg.i
     dt = f.dtype
     if phase == INIT:
@@ -359,7 +359,7 @@ def bicgstab_plain(phase: int, inp: torch.Tensor, reg: Region) -> None:
 
 
 def minres_plain(phase: int, inp: torch.Tensor, reg: Region) -> None:
-    """MINRES's control on a CPU region (``minres_control``)."""
+    """MINRES's control on a CPU region (``minres_phase``)."""
     f, i = reg.f, reg.i
     small = _c(SMALLREAL, f.dtype)
     mod = int(i[I.STOP]) == StopType.MOD_REL_RES
@@ -420,9 +420,22 @@ PLAIN = {"pcg": pcg_plain, "bicgstab": bicgstab_plain,
          "minres": minres_plain}
 
 
+def solve_columns(H, g, y, j: int) -> None:
+    """y (length R) from the j x j upper-triangular system H[:j, :j] y =
+    g[:j] by columns, the control's order (the reference BLAS dtrsm's,
+    without its test for a zero): y[k] = g[k] / H[k, k], then g[m] -=
+    H[m, k] y[k] for every m < k, k from j - 1 down; each product and
+    difference rounded to H's dtype; y zero past j, g left as it was."""
+    y.zero_()
+    gw = g[:j].clone()
+    for k in range(j - 1, -1, -1):
+        y[k] = gw[k] / H[k, k]
+        gw[:k] = gw[:k] - H[:k, k] * y[k]
+
+
 def gmres_plain(phase: int, inp: torch.Tensor, reg: Region, inner: Region,
                 arr: torch.Tensor, R: int) -> None:
-    """GMRES's control on CPU regions (``gmres_control``): ``reg`` the
+    """GMRES's control on CPU regions (``gmres_entry``): ``reg`` the
     restart cycles', ``inner`` the Arnoldi steps', ``arr`` the window's
     arrays (:func:`gmres_arrays`), R the window."""
     f, i = reg.f, reg.i
@@ -438,13 +451,7 @@ def gmres_plain(phase: int, inp: torch.Tensor, reg: Region, inner: Region,
         inner.i[I.CONT] = (0 < i[I.CUR_RESTART]) & (i[I.IT] < i[I.MAXIT])
         return
     if phase == SOLVE:
-        j = int(i[I.J])
-        y.zero_()
-        for k in range(j - 1, -1, -1):
-            acc = _c(0.0, dt)
-            for m in range(k + 1, j):
-                acc = acc + H[k, m] * y[m]
-            y[k] = (g[k] - acc) / H[k, k]
+        solve_columns(H, g, y, int(i[I.J]))
         return
     mod = int(i[I.STOP]) == StopType.MOD_REL_RES
     if phase == INIT:
@@ -548,37 +555,44 @@ def _nvcc(sources, out):
             "-shared", "-Xcompiler", "-fPIC", "-o", out, *sources, "-ldl"]
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry points' signatures on a loaded loop-control
+    library."""
+    p, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+    for kind in ("pcg", "bicgstab", "minres"):
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"fasp_loop_{kind}_{dt}")
+            fn.restype, fn.argtypes = i32, [i32, p, p, p, u64, p]
+    for dt in ("f32", "f64"):
+        fn = getattr(lib, f"fasp_loop_refine_{dt}")
+        fn.restype, fn.argtypes = i32, [i32, p, p, p, p, u64, p]
+        fn = getattr(lib, f"fasp_loop_gmres_{dt}")
+        fn.restype, fn.argtypes = i32, [i32, p, p, p, p, p, i32, u64, p]
+    sig = {"fasp_loop_empty": [p],
+           "fasp_graph_create": [p], "fasp_graph_destroy": [p],
+           "fasp_graph_handle": [p, p],
+           "fasp_graph_add_conditional": [p, p, u64, i32, p, p],
+           "fasp_graph_add_child": [p, p, p, p],
+           "fasp_graph_node_kinds": [p, p, p],
+           "fasp_graph_instantiate": [p, p, p, p],
+           "fasp_graph_launch": [p, p],
+           "fasp_graph_exec_destroy": [p],
+           "fasp_loop_chain_probe": [i32, i32, p, p]}
+    for name, args in sig.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = i32, args
+    for name in ("fasp_loop_error_string", "fasp_graph_error_string"):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_char_p, [i32]
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """Build (first use) and load the loop-control library."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build_shared("loop_control", [SOURCE], _nvcc))
-        p, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
-        for kind in ("pcg", "bicgstab", "minres"):
-            for dt in ("f32", "f64"):
-                fn = getattr(lib, f"fasp_loop_{kind}_{dt}")
-                fn.restype, fn.argtypes = i32, [i32, p, p, p, u64, p]
-        for dt in ("f32", "f64"):
-            fn = getattr(lib, f"fasp_loop_refine_{dt}")
-            fn.restype, fn.argtypes = i32, [i32, p, p, p, p, u64, p]
-            fn = getattr(lib, f"fasp_loop_gmres_{dt}")
-            fn.restype, fn.argtypes = i32, [i32, p, p, p, p, p, i32, u64, p]
-        sig = {"fasp_loop_empty": [p],
-               "fasp_graph_create": [p], "fasp_graph_destroy": [p],
-               "fasp_graph_handle": [p, p],
-               "fasp_graph_add_conditional": [p, p, u64, i32, p, p],
-               "fasp_graph_add_child": [p, p, p, p],
-               "fasp_graph_node_kinds": [p, p, p],
-               "fasp_graph_instantiate": [p, p, p, p],
-               "fasp_graph_launch": [p, p],
-               "fasp_graph_exec_destroy": [p]}
-        for name, args in sig.items():
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = i32, args
-        for name in ("fasp_loop_error_string", "fasp_graph_error_string"):
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = ctypes.c_char_p, [i32]
-        _lib = lib
+        _lib = bind(ctypes.CDLL(build_shared("loop_control", [SOURCE],
+                                             _nvcc)))
     return _lib
 
 
@@ -697,3 +711,16 @@ def launch_empty(device) -> None:
     launch sits on (a measurement aid, not counted)."""
     check(library().fasp_loop_empty(
         torch.cuda.current_stream(device).cuda_stream), "empty launch")
+
+
+def chain_probe(kind: int, n: int, v: torch.Tensor) -> None:
+    """One launch of the kernel source's ``chain_probe`` on a warp: ``n``
+    dependent links of the arnoldi phase's rotation chain (kind 0) or of
+    the solve's step (kind 1) on v = {x, c, s, d, out} (five float64 on
+    the card).  A measurement aid, not counted: its time against n = 0
+    is the card's latency per link."""
+    if v.device.type != "cuda" or v.dtype != torch.float64 or v.numel() < 5:
+        raise ValueError("chain_probe takes five float64 on the card")
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    check(library().fasp_loop_chain_probe(kind, n, v.data_ptr(), stream),
+          "chain probe launch")

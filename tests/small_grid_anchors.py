@@ -16,6 +16,8 @@ anchors the port is held to on the card).
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f64
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f32
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness corpus f64
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py fallbacks
+    python tests/small_grid_anchors.py fallbacks port 2
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py regression core
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py regression mm
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py regression bsr
@@ -42,7 +44,11 @@ at nx^2, BSR on ``bsr_problem()``).  ``matfree <tol>`` prints
 ``MATFREE_GRID``'s counts at ``tol`` through both packages on the CPU,
 ``matfree <tol> cuda`` the port's on the CUDA device without JAX.
 ``harness gen|corpus f64|f32`` runs the JAX package's benchmark harness
-(phase 11's anchors) and imports nothing of the port.
+(phase 11's anchors) and imports nothing of the port.  ``fallbacks``
+runs the JAX package's f32 refined mode on ``chip_smoke.FALLBACK_CASES``
+(phase 11f's ``FALLBACK_ANCHORS``, with each stage's rounds and inner
+solves); ``fallbacks port [threads]`` the port's on the CPU, without
+JAX, in the CPU's GMRES arithmetic and in the card's.
 ``regression core|mm|bsr|matfree`` runs the JAX package's regression
 runner (``run_matrix``) over ``chip_smoke.regression_problems`` and
 prints every row as phase 12's ``REGRESSION_ANCHORS`` holds it;
@@ -403,6 +409,77 @@ def _harness(kind: str, precision: str):
     print("reference anomalies:", chip_smoke.reference_anomalies(table))
 
 
+def _fallbacks():
+    """The JAX package's f32 refined mode (x64 off) on each of
+    ``chip_smoke.FALLBACK_CASES``: the banner it prints, its total inner
+    iterations and its stages (``chip_smoke.refined_stages``), then phase
+    11f's ``FALLBACK_ANCHORS``."""
+    import contextlib
+    import io
+
+    import jax
+    jax.config.update("jax_enable_x64", False)
+    import faspsolver_tpu.krylov as krylov
+    import faspsolver_tpu.solvers as solvers
+    from faspsolver_tpu.benchmark.harness import _solver_factory
+    from faspsolver_tpu_torch.testgen import jump_2d
+    table = {}
+    for name, (n, contrast, banner) in chip_smoke.FALLBACK_CASES.items():
+        A = jump_2d(n, contrast)
+        b = A.matvec(np.ones(A.nrow))
+        buf = io.StringIO()
+        with chip_smoke.refined_stages(krylov, solvers) as stages, \
+                contextlib.redirect_stdout(buf):
+            res = _solver_factory("amg")(_to_jax(A), b)
+        x = np.asarray(res.x, dtype=np.float64)
+        relres = np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b)
+        print(f"{name}: jump_2d({n}, {contrast:g}) iters={int(res.iters)} "
+              f"converged={bool(res.converged)} relres={relres:.3e} "
+              f"said {buf.getvalue().strip()!r} (banner {banner!r} "
+              f"{'found' if banner in buf.getvalue() else 'MISSING'})")
+        chip_smoke.print_stages(stages)
+        table[name] = (int(res.iters), [(s["rounds"], s["inner_iters"])
+                                        for s in stages])
+    print(f"FALLBACK_ANCHORS = {table!r}")
+
+
+def _fallbacks_port(threads):
+    """The port's f32 refined mode on the CPU (no JAX) on each of
+    ``chip_smoke.FALLBACK_CASES``, in the CPU's GMRES arithmetic and in
+    the card's (``krylov.gmres._on_host`` false: masked full-window
+    products, the control's back-substitution), with ``threads`` torch
+    threads (None: torch's default): the banner, the total inner
+    iterations and the stages, as phase 11f prints them on the card."""
+    import contextlib
+    import io
+    import unittest.mock
+
+    import torch
+    import faspsolver_tpu_torch.krylov as krylov
+    import faspsolver_tpu_torch.solvers as solvers
+    from faspsolver_tpu_torch.benchmark import harness
+    from faspsolver_tpu_torch.testgen import jump_2d
+    if threads:
+        torch.set_num_threads(threads)
+    gmres = sys.modules["faspsolver_tpu_torch.krylov.gmres"]
+    for arithmetic in ("cpu", "card"):
+        patch = (unittest.mock.patch.object(gmres, "_on_host", lambda b: False)
+                 if arithmetic == "card" else contextlib.nullcontext())
+        for name, (n, contrast, banner) in chip_smoke.FALLBACK_CASES.items():
+            A = jump_2d(n, contrast)
+            b = A.matvec(np.ones(A.nrow))
+            buf = io.StringIO()
+            with patch, chip_smoke.refined_stages(krylov, solvers) as stages, \
+                    contextlib.redirect_stdout(buf):
+                res = harness._refined_factory("amg", torch.float32,
+                                               "cpu")(A, b)
+            print(f"{arithmetic} arithmetic, {torch.get_num_threads()} "
+                  f"threads, {name}: {res.iters} inner iterations (JAX "
+                  f"{chip_smoke.FALLBACK_ANCHORS[name][0]}), converged "
+                  f"{res.converged}, said {buf.getvalue().strip()!r}")
+            chip_smoke.print_stages(stages)
+
+
 def jax_regression_problems(keys):
     """chip_smoke.regression_problems with the JAX package's containers."""
     return [(name, _to_jax(A), b, sol)
@@ -575,6 +652,12 @@ def _main(argv):
         return
     if argv[:1] == ["harness"]:
         _harness(argv[1], argv[2])              # the JAX package alone
+        return
+    if argv[:2] == ["fallbacks", "port"]:
+        _fallbacks_port(int(argv[2]) if argv[2:] else None)   # no JAX
+        return
+    if argv[:1] == ["fallbacks"]:
+        _fallbacks()
         return
     import jax
     jax.config.update("jax_enable_x64", True)

@@ -700,15 +700,17 @@ def test_gmres_control_kernel_is_bit_equal_to_its_twin():
 
 @pytest.mark.cuda
 def test_gmres_control_solves_past_the_default_shared_limit():
-    """A full window of R = 100 in f64 (an 81.6 KB tile, past the default
-    48 KB a block may take) bit-equal to the twin; R = 200 (past the
-    card's opt-in limit) refused at its solve."""
+    """Full windows of R = 100 and R = 168 in f64 (the solve's tile of H's
+    upper triangle and four vectors 43.6 KB and 118.9 KB, the second past
+    the default 48 KB a block may take) bit-equal to the twin; R = 241 (a
+    tile past the card's opt-in limit) refused at its solve, R = 257 (past
+    the solve's registers) at its first launch."""
     _need_cuda()
     import chip_smoke
     from faspsolver_tpu_torch.utils import loops
-    for R, fits in ((100, True), (200, False)):
+    for R, fits in ((100, True), (168, True), (241, False), (257, False)):
         out = []
-        for device in ("cuda", "cpu"):
+        for device in ("cuda", "cpu") if fits else ("cuda",):
             blk = loops.Block(device, [("gmres", torch.float64),
                                        ("arnoldi", torch.float64)])
             blk.upload({"gmres": loops.gmres_values(
@@ -719,7 +721,7 @@ def test_gmres_control_solves_past_the_default_shared_limit():
             for phase, vals in chip_smoke._window(R, R)[:R + 3]:
                 inp = torch.tensor(vals or [0.0], dtype=torch.float64,
                                    device=device)
-                if phase == loops.SOLVE and device == "cuda" and not fits:
+                if not fits and (phase == loops.SOLVE or R > 256):
                     with pytest.raises(RuntimeError):
                         call(phase, inp, blk["gmres"], blk["arnoldi"], arr,
                              R)
@@ -728,6 +730,33 @@ def test_gmres_control_solves_past_the_default_shared_limit():
             out.append(arr.cpu())
         if fits:
             assert chip_smoke._same_bits(torch, out[0], out[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rescue", "escalation"])
+def test_refined_fallbacks_on_the_card_are_reached_as_in_jax(case, capsys):
+    """The harness's f32 refined mode on the card over the two jump_2d
+    cases of tests/test_torch_harness.py (chip_smoke.FALLBACK_CASES): the
+    banner the JAX package prints there, convergence, verified f64 relres
+    < 1e-6, and the inner iterations within max(2, 5%) of the JAX
+    package's CPU count (chip_smoke.FALLBACK_ANCHORS, printed by
+    tests/small_grid_anchors.py fallbacks)."""
+    _need_cuda()
+    import chip_smoke
+    from faspsolver_tpu_torch.benchmark import harness
+    from faspsolver_tpu_torch.testgen import jump_2d
+    n, contrast, banner = chip_smoke.FALLBACK_CASES[case]
+    ref = chip_smoke.FALLBACK_ANCHORS[case][0]
+    A = jump_2d(n, contrast)
+    b = A.matvec(np.ones(A.nrow))
+    res = harness._refined_factory("amg", torch.float32, "cuda")(A, b)
+    said = capsys.readouterr().out
+    x = np.asarray(res.x.cpu() if isinstance(res.x, torch.Tensor) else res.x,
+                   dtype=np.float64)
+    relres = np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b)
+    assert banner in said, said
+    assert res.converged and relres < 1e-6
+    assert abs(res.iters - ref) <= max(2, int(0.05 * ref)), (res.iters, ref)
 
 
 def _gmres_problem():

@@ -441,8 +441,9 @@ def _numpy_gmres(phase, inp, f, i, ia, arr, R):
     arrays, updated in place: the eager host loop's arithmetic as it
     stood before the control existed (its Arnoldi step's rotations and
     its per-cycle restart rules, copied), and the back-substitution in
-    the order the control states (row j - 1 first, each row's sum in
-    increasing column), which replaced its LAPACK solve."""
+    the order the control states (by columns, column j - 1 first: y[k] =
+    g[k] / H[k, k], then g[m] -= H[m, k] y[k] for m < k), which replaced
+    its LAPACK solve."""
     t = f.dtype.type
     small, happy_tol = t(1e-20), t(1e-20 * 1e-8)
     H = arr[:(R + 1) * R].reshape(R + 1, R)
@@ -505,14 +506,7 @@ def _numpy_gmres(phase, inp, f, i, ia, arr, R):
                       and not brk)
         return
     if phase == loops.SOLVE:
-        j = int(i[I.J])
-        y[:] = 0
-        with np.errstate(divide="ignore", invalid="ignore"):  # den guard
-            for k in range(j - 1, -1, -1):
-                acc = t(0.0)
-                for m in range(k + 1, j):
-                    acc = acc + H[k, m] * y[m]
-                y[k] = (g[k] - acc) / H[k, k]
+        y[:] = _numpy_solve_columns(H, g, int(i[I.J]), len(y))
         return
     j = int(i[I.J])
     i[I.IT] += j
@@ -543,6 +537,20 @@ def _numpy_gmres(phase, inp, f, i, ia, arr, R):
     i[I.STATUS] = -42 if stalled else 0
     i[I.NBODY] += 1
     i[I.CONT] = not done and i[I.IT] < i[I.MAXIT]
+
+
+def _numpy_solve_columns(H, g, j, R):
+    """y (length R) from H[:j, :j] y = g[:j] by columns, one NumPy scalar
+    operation at a time: y[k] = g[k] / H[k, k], then g[m] -= H[m, k] y[k]
+    for m < k, k from j - 1 down (the reference BLAS dtrsm's order)."""
+    y = np.zeros(R, dtype=H.dtype)
+    gw = g[:j].copy()
+    with np.errstate(divide="ignore", invalid="ignore"):  # den guard
+        for k in range(j - 1, -1, -1):
+            y[k] = gw[k] / H[k, k]
+            for m in range(k):
+                gw[m] = gw[m] - H[m, k] * y[k]
+    return y
 
 
 def _numpy_gmres_blocks(name, dtype):
@@ -629,6 +637,102 @@ def test_the_gmres_cases_take_their_branches():
         y = s[-2][1][-R:]
         # the back-substitution solves the triangular system
         assert np.allclose(np.triu(H) @ y, g, rtol=0, atol=1e-10)
+
+
+def _hessenberg_arrays(R, seed, dtype):
+    """The window's arrays after R seeded Arnoldi columns through the
+    twin (``chip_smoke._window``): H's R x R upper triangle rotated, g."""
+    blk = loops.Block("cpu", [("gmres", dtype), ("arnoldi", dtype)])
+    blk.upload({"gmres": loops.gmres_values(1e-30, 1e-18, 10 ** 6, 1, False,
+                                            False)})
+    arr = torch.zeros(loops.gmres_arrays(R), dtype=dtype)
+    for phase, vals in chip_smoke._window(R, seed)[:R + 2]:
+        loops.gmres_plain(phase, torch.tensor(vals or [0.0], dtype=dtype),
+                          blk["gmres"], blk["arnoldi"], arr, R)
+    return blk, arr
+
+
+@pytest.mark.parametrize("j", [1, 2, 31, 32, 33, 60, 168])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gmres_solve_is_the_column_order_back_substitution(dt, j):
+    """The twin's SOLVE over the first j columns of a window of R = 168
+    (the lanes' slot edges at 32): y bit for bit the NumPy column-order
+    back-substitution's, zero past j, g untouched; and within a few ulp
+    of scipy's solve_triangular (LAPACK) on the same j x j system."""
+    import scipy.linalg
+    R = 168
+    blk, arr = _hessenberg_arrays(R, 7, DTYPES[dt])
+    blk["gmres"].i[I.J] = j
+    before = arr.clone()
+    loops.gmres_plain(loops.SOLVE, arr[:1], blk["gmres"], blk["arnoldi"],
+                      arr, R)
+    H, g, _, _, y = (t.numpy() for t in loops.gmres_views(arr, R))
+    want = _numpy_solve_columns(H, g, j, R)
+    assert np.array_equal(_bits(y), _bits(want))
+    assert np.array_equal(_bits(arr[:-R].numpy()), _bits(before[:-R].numpy()))
+    ref = scipy.linalg.solve_triangular(H[:j, :j], g[:j])
+    eps = np.finfo(H.dtype).eps
+    assert np.abs(y[:j] - ref).max() <= 8 * eps * np.abs(ref).max()
+
+
+def _arnoldi_as_it_stood(inp, f, i, ia, arr, R):
+    """The twin's ARNOLDI phase as the control first had it (a copy): the
+    column written into H, the earlier rotations read back from H, the
+    new rotation, g, cs, sn and the step's flags."""
+    dt = f.dtype
+    H, g, cs, sn, _ = loops.gmres_views(arr, R)
+    small = torch.tensor(loops.SMALLREAL, dtype=dt)
+    j = int(i[I.J])
+    hn = inp[R + 1]
+    H[:, j] = inp[:R + 1]
+    H[j + 1, j] = hn
+    for k in range(j):
+        hk, hk1 = H[k, j].clone(), H[k + 1, j].clone()
+        H[k, j] = cs[k] * hk + sn[k] * hk1
+        H[k + 1, j] = -sn[k] * hk + cs[k] * hk1
+    a, b = H[j, j].clone(), H[j + 1, j].clone()
+    den = loops._sqrt(a * a + b * b)
+    den_ok = den > small
+    c = torch.where(den_ok, a / den, torch.tensor(1.0, dtype=dt))
+    s = torch.where(den_ok, b / den, torch.tensor(0.0, dtype=dt))
+    H[j, j] = c * a + s * b
+    H[j + 1, j] = 0
+    gj = g[j].clone()
+    g[j] = c * gj
+    g[j + 1] = -s * gj
+    cs[j] = c
+    sn[j] = s
+    happy = hn <= torch.tensor(loops.HAPPY, dtype=dt)
+    conv = g[j + 1].abs() / f[F.NORMR0] < f[F.TOL]
+    i[I.J] = j + 1
+    ia[I.NBODY] += 1
+    ia[I.CONT] = ((j + 1 < i[I.CUR_RESTART]) & (i[I.IT] + j + 1 < i[I.MAXIT])
+                  & ~happy & ~conv)
+
+
+@pytest.mark.parametrize("R", [30, 60])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gmres_arnoldi_twin_is_unchanged(dt, R):
+    """The twin's ARNOLDI phase over a full seeded window bit for bit the
+    rendering it had before the kernel chained its rotations in
+    registers (the arithmetic did not change, only the kernel's memory
+    traffic)."""
+    steps = chip_smoke._window(R, R)[:R + 2]
+    got = _hessenberg_arrays(R, R, DTYPES[dt])
+    blk = loops.Block("cpu", [("gmres", DTYPES[dt]),
+                              ("arnoldi", DTYPES[dt])])
+    blk.upload({"gmres": loops.gmres_values(1e-30, 1e-18, 10 ** 6, 1, False,
+                                            False)})
+    arr = torch.zeros(loops.gmres_arrays(R), dtype=DTYPES[dt])
+    reg, inner = blk["gmres"], blk["arnoldi"]
+    for phase, vals in steps:
+        inp = torch.tensor(vals or [0.0], dtype=DTYPES[dt])
+        if phase == loops.ARNOLDI:
+            _arnoldi_as_it_stood(inp, reg.f, reg.i, inner.i, arr, R)
+        else:
+            loops.gmres_plain(phase, inp, reg, inner, arr, R)
+    assert torch.equal(got[0].bytes, blk.bytes)
+    assert np.array_equal(_bits(got[1].numpy()), _bits(arr.numpy()))
 
 
 # ---------------------------------------------------------------------------
