@@ -30,7 +30,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    GMRES_CASES the same way (block and window arrays bit-equal), the
    latency per link of the two dependent chains, and the times of one Arnoldi step's rotations at
    j = R - 1 and one window's back-substitution at j = R, for R = 30 and
-   60 in f64, each beside the launch floor plus its chain;
+   60 in f64, each beside the launch floor plus its chain; then its
+   multigrid entry point (``mg``) over MG_CASES (both forms of the test,
+   NaN included) the same way, and one check launch's time in f32 and
+   f64 beside the empty kernel;
 4. the headline at full size: poisson_2d(1023) (1,046,529 dof), the
    structured SA-AMG setup in f32 with the f64 fine operator, moved to the
    card, then f64 refinement around f32 AMG-PCG (tol 1e-6, 4 rounds, 40
@@ -83,7 +86,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the block preconditioner in its four modes, and poisson_3d(96) in 12
    z-slabs (884,736 dof) under the sweeping preconditioner; (c) matrix-
    free geometric multigrid at n = 1024 (2-D) and 128 (3-D), held to the
-   O(h^2) error too; (d) a MatFreeOperator over the f64 1023^2 stencil
+   O(h^2) error too, each row cold, warm and as the eager loop; (d) a MatFreeOperator over the f64 1023^2 stencil
    operator (it must launch the f64 kernel) and through the six matfree
    Krylov methods, maxeig on the host and on the card, and the four C
    API functions.  Each count is held to its JAX count, and one apply of
@@ -160,7 +163,11 @@ cycles around a WHILE over Arnoldi steps), launched once per solve and
 read once at its end.  Phases 8, 9, 11, 12 and 14 record every
 GMRES-family solve (:func:`gmres_solves`): each resident one must be one
 program launch and one host read, one must have run, and the phase's
-first is held to its own eager loop.  Phases 4, 6 and 7 run each solve twice: cold (the
+first is held to its own eager loop.  So do the multigrid solve loops
+(AMG as a solver and FAMG, GMG's V-cycles and GMG-CG, resident on the
+card as one graph each) in phases 10, 12 and 14 (:func:`mg_solves`): the
+first resident solve of each kind also runs warm and as the eager loop,
+and ``capi.dcsr_amg`` must have run its loop resident.  Phases 4, 6 and 7 run each solve twice: cold (the
 capture included) and warm, the timed one, each with the kernel launch
 counts and the graph counters set to 0 just before it and read just
 after: its seconds, program launches and nodes, captures, capture
@@ -184,8 +191,9 @@ each solve, phase 14 those of each tutorial and each of its driver calls;
 fast_path must have launched the f32 kernel, CG + ILU the f64 one; phase
 15 reads the launches of bench_torch.py's three timed solves from its
 JSON line.  The loop-control kernel's GMRES entry point is counted apart
-("gmres") from its other entry points ("loop_control") and has its own
-row in the kernels' JSON line.  Each phase's banner gives the seconds
+("gmres") from its other entry points ("loop_control", the multigrid
+loops' ``mg`` among them) and has its own row in the kernels' JSON
+line.  Each phase's banner gives the seconds
 since the start and those of the phase before.  It prints a JSON line of
 the kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  It needs nothing but this
@@ -1133,13 +1141,16 @@ def sync(torch, device):
 def launch_counts():
     """The stencil wrapper's launch counts since they were last set to 0,
     by element type, the loop-control kernel's GMRES entry point's
-    ("gmres") and its other entry points' ("loop_control")."""
+    ("gmres") and its other entry points' ("loop_control"), and of those
+    the multigrid loops' entry point's ("mg", counted in "loop_control"
+    too)."""
     from faspsolver_tpu_torch.ops import stencil2d
     from faspsolver_tpu_torch.utils import loops
     out = {str(k).replace("torch.", ""): v
            for k, v in stencil2d.launches.items()}
     out["gmres"] = loops.launches["gmres"]
     out["loop_control"] = sum(loops.launches.values()) - out["gmres"]
+    out["mg"] = loops.launches["mg"]
     return out
 
 
@@ -1783,6 +1794,227 @@ def chain_links(torch, device, n=20000):
     return out
 
 
+# phase 3, fourth part: the multigrid loops' control (``mg_control`` in
+# csrc/loop_control.cu) against its twin, bit for bit.  A case is (form,
+# parameters, steps) over MG_PARAMS, a step (phase, [relres]): 0 init, 1
+# check.  Together the cases take every branch of both forms: converged
+# at entry, maxit 0 and 1, a relres exactly at tol (both forms go on),
+# NaN (AMG's form runs to maxit, GMG's stops, at entry too), convergence
+# and a run to maxit.
+MG_PARAMS = dict(tol=1e-6, maxit=20)
+_NAN = float("nan")
+MG_CASES = {
+    "amg converged at entry": ("amg", {}, [(0, [1e-7])]),
+    "gmg converged at entry": ("gmg", {}, [(0, [1e-7])]),
+    "amg maxit 0": ("amg", {"maxit": 0}, [(0, [0.5])]),
+    "gmg maxit 0": ("gmg", {"maxit": 0}, [(0, [0.5])]),
+    "amg maxit 1": ("amg", {"maxit": 1}, [(0, [0.5]), (1, [0.2])]),
+    "gmg maxit 1": ("gmg", {"maxit": 1}, [(0, [0.5]), (1, [0.2])]),
+    "amg relres exactly tol": ("amg", {}, [(0, [1.0]), (1, [1e-6]),
+                                           (1, [5e-7])]),
+    "gmg relres exactly tol": ("gmg", {}, [(0, [1.0]), (1, [1e-6]),
+                                           (1, [5e-7])]),
+    "amg NaN runs to maxit": ("amg", {"maxit": 3}, [
+        (0, [_NAN]), (1, [_NAN]), (1, [_NAN]), (1, [_NAN])]),
+    "gmg NaN stops": ("gmg", {}, [(0, [1.0]), (1, [_NAN])]),
+    "gmg NaN at entry": ("gmg", {}, [(0, [_NAN])]),
+    "amg converges": ("amg", {}, [(0, [1.0]), (1, [1e-3]), (1, [1e-7])]),
+    "gmg converges": ("gmg", {}, [(0, [1.0]), (1, [1e-3]), (1, [1e-7])]),
+    "amg runs to maxit": ("amg", {"maxit": 4}, [
+        (0, [1.0]), (1, [0.5]), (1, [0.25]), (1, [0.125]), (1, [0.0625])]),
+}
+
+
+def mg_case_blocks(torch, name, dtype, device, plain):
+    """Case ``name`` of MG_CASES in ``dtype`` on ``device``, through the
+    twin (``plain``) or the wrapper (the kernel on the card): the state
+    block's bytes after every step."""
+    from faspsolver_tpu_torch.utils import loops
+    form, params, steps = MG_CASES[name]
+    blk = loops.Block(device, [("mg", dtype)])
+    blk.upload({"mg": loops.mg_values(form=form,
+                                      **{**MG_PARAMS, **params})})
+    call = (loops.mg_plain if plain
+            else lambda ph, x, reg: loops.control("mg", ph, x, reg))
+    out = []
+    for phase, vals in steps:
+        call(phase, torch.tensor(vals, dtype=dtype, device=device),
+             blk["mg"])
+        out.append(blk.bytes.cpu().clone())
+    return out
+
+
+def check_mg_control(torch, device, smi):
+    """Every case of MG_CASES in f32 and f64: the ``mg`` entry point's
+    block after each step bit-equal to the twin's on the CPU (and to the
+    twin's run on the card); then the time of one check launch replayed
+    from a CUDA graph and eagerly, beside an empty one-thread kernel.
+    Returns the readings, which the loop-control row of the kernels' JSON
+    line carries (its launches are counted under ``loop_control``)."""
+    from faspsolver_tpu_torch.ops.stencil2d import HBM_BYTES_PER_S
+    from faspsolver_tpu_torch.utils import loops
+    steps = 0
+    for name in MG_CASES:
+        for dt in (torch.float32, torch.float64):
+            got = mg_case_blocks(torch, name, dt, device, plain=False)
+            want = mg_case_blocks(torch, name, dt, "cpu", plain=True)
+            on_card = mg_case_blocks(torch, name, dt, device, plain=True)
+            same = all(torch.equal(g, w) and torch.equal(c, w)
+                       for g, w, c in zip(got, want, on_card))
+            steps += len(got)
+            if not same:
+                bad = next(k for k, (g, w) in enumerate(zip(got, want))
+                           if not torch.equal(g, w))
+                print(f"  mg {name} {dt}: step {bad} differs: kernel "
+                      f"{got[bad].tolist()} twin {want[bad].tolist()}")
+            check(same, f"mg {name} {dt}: kernel bit-equal to its twin")
+    print(f"  loop_control mg: {len(MG_CASES)} cases x f32/f64, {steps} "
+          f"steps, every block bit-equal to the twin's (CPU and card)")
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        blk = loops.Block(device, [("mg", dt)])
+        blk.upload({"mg": loops.mg_values(1e-6, 10 ** 9, "gmg")})
+        reg = blk["mg"]
+        inp = torch.tensor([0.5], dtype=dt, device=device)
+        saved = dict(loops.launches)
+        ctl = lambda x: loops.control("mg", loops.CHECK, x, reg)  # noqa: E731
+        ms = time_ms(torch, ctl, inp, graph=True)
+        eager_ms = time_ms(torch, ctl, inp)
+        empty = lambda x: loops.launch_empty(device)  # noqa: E731
+        floor_ms = time_ms(torch, empty, inp, graph=True)
+        plain = lambda x: loops.mg_plain(loops.CHECK, x, reg)  # noqa: E731
+        plain_ms = time_ms(torch, plain, inp, reps=20, tries=3)
+        loops.launches.update(saved)    # the timing's launches: no path's
+        # the least work of a check: its input and the fields it reads
+        # and writes, once; a handful of scalar operations
+        nbytes = inp.element_size() * 3 + 4 * 7
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, 4 / 67e12) * 1e3
+        tag = "f32" if dt == torch.float32 else "f64"
+        print(f"  loop_control mg check ({tag}): {ms * 1e3:.3f} us per "
+              f"launch in a graph ({eager_ms * 1e3:.3f} us eager), empty "
+              f"one-thread kernel {floor_ms * 1e3:.3f} us, plain twin on "
+              f"the card {plain_ms * 1e3:.1f} us; roofline bound "
+              f"{bound_ms * 1e3:.6f} us ({nbytes} bytes); {smi}")
+        out[tag] = {"ms": ms, "eager_ms": eager_ms, "launch_floor_ms":
+                    floor_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+    return {"mg_cases": len(MG_CASES), "mg_steps": steps, "mg": out}
+
+
+# the solve loops of the multigrid entry points, each recorded by
+# :func:`mg_solves`: (module, function) by kind
+MG_LOOPS = {"amg": ("faspsolver_tpu_torch.precond.amg.solve", "_solve"),
+            "gmg": ("faspsolver_tpu_torch.precond.gmg", "_gmg_solve"),
+            "gmgcg": ("faspsolver_tpu_torch.precond.gmg", "_gmgcg")}
+
+
+@contextlib.contextmanager
+def mg_solves(torch):
+    """While the block runs, every multigrid solve loop (AMG as a solver
+    and FAMG, GMG's V-cycles, GMG-CG; :data:`MG_LOOPS`, whatever entry
+    point called it) is recorded: its kind, whether it ran resident, its
+    host reads, program launches, iterations and seconds.  The first
+    resident solve of each kind runs twice more, warm and as the eager
+    loop (``graphs.eager()``): their launches and graph counters are
+    taken back off (checks, not the path), their seconds recorded, the
+    warm and eager counts and x held to the resident
+    (:func:`check_mg_resident`)."""
+    import importlib
+    from faspsolver_tpu_torch.ops import stencil2d
+    from faspsolver_tpu_torch.utils import graphs, loops
+    seen, real = [], {}
+
+    def spy(kind, fn):
+        def run(*args, **kw):
+            def timed():
+                before = graphs.stats["replays"]
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                out.x.cpu()
+                return out, time.perf_counter() - t0, \
+                    graphs.stats["replays"] - before
+            out, s, launches = timed()
+            b = args[1] if kind == "amg" else args[0]
+            rec = {"kind": kind, "resident": out.resident, "syncs": out.syncs,
+                   "launches": launches, "iters": out.iters, "s": s,
+                   "n": int(b.numel()),
+                   "dtype": str(b.dtype).replace("torch.", "")}
+            if out.resident and not any(r["kind"] == kind and "eager_iters"
+                                        in r for r in seen):
+                saved = [dict(stencil2d.launches), dict(loops.launches),
+                         dict(graphs.stats)]
+                warm, warm_s, warm_launches = timed()
+                with graphs.eager():
+                    e, eager_s, _ = timed()
+                for counter, was in zip((stencil2d.launches, loops.launches,
+                                         graphs.stats), saved):
+                    counter.update(was)
+                rec.update(warm_s=warm_s, warm_syncs=warm.syncs,
+                           warm_launches=warm_launches,
+                           warm_bit_equal=torch.equal(warm.x, out.x),
+                           warm_x_diff=float((warm.x - out.x).norm()
+                                             / max(float(out.x.norm()),
+                                                   1e-300)),
+                           eager_s=eager_s, eager_iters=e.iters,
+                           eager_syncs=e.syncs,
+                           bit_equal=torch.equal(out.x, e.x),
+                           x_diff=float((out.x - e.x).norm()
+                                        / max(float(e.x.norm()), 1e-300)))
+            seen.append(rec)
+            return out
+        return run
+
+    for kind, (mod, name) in MG_LOOPS.items():
+        m = importlib.import_module(mod)
+        real[kind] = (m, name, getattr(m, name))
+        setattr(m, name, spy(kind, real[kind][2]))
+    try:
+        yield seen
+    finally:
+        for m, name, fn in real.values():
+            setattr(m, name, fn)
+
+
+def check_mg_resident(torch, device, phase, seen):
+    """On the card every resident multigrid solve of the phase is one
+    program launch and one host read, at least one ran, and the first of
+    each kind agrees with its warm rerun and its eager loop
+    (:func:`mg_solves`): the same count, x bit-equal for GMG, and for AMG
+    bit-equal or, where the hierarchy's transfers or operators add with
+    atomics (RS, SA, UA), within X_DIFF_LIMIT of |x|."""
+    res = [r for r in seen if r["resident"]]
+    twins = [r for r in res if "eager_iters" in r]
+    print(f"  phase {phase}: {len(seen)} multigrid solves "
+          f"({', '.join(sorted({r['kind'] for r in seen}))}), {len(res)} "
+          f"resident (host reads {sorted({r['syncs'] for r in res})}, "
+          f"program launches {sorted({r['launches'] for r in res})}), "
+          f"{sum(r['iters'] for r in res)} iterations")
+    for r in twins:
+        print(f"    first resident {r['kind']} solve, n={r['n']} "
+              f"{r['dtype']}: {r['iters']} iterations; cold {r['s']:.4f} "
+              f"s, warm {r['warm_s']:.4f} s (reads {r['warm_syncs']}, "
+              f"launches {r['warm_launches']}, x bit-equal "
+              f"{r['warm_bit_equal']}); eager loop "
+              f"{r['eager_s']:.4f} s, {r['eager_iters']} iterations, "
+              f"{r['eager_syncs']} reads; x bit-equal {r['bit_equal']} "
+              f"(|x - x_eager| / |x| {r['x_diff']:.2e})")
+    if torch.device(device).type != "cuda":
+        return
+    check(res, f"phase {phase}: a resident multigrid solve ran")
+    bad = [r for r in res if (r["syncs"], r["launches"]) != (1, 1)]
+    check(not bad, f"phase {phase}: every resident multigrid solve is one "
+                   f"program launch and one host read: {bad[:3]}")
+    for r in twins:
+        def close(bits, diff):
+            return bits or (r["kind"] == "amg" and diff <= X_DIFF_LIMIT)
+        check((r["warm_syncs"], r["warm_launches"]) == (1, 1)
+              and close(r["warm_bit_equal"], r["warm_x_diff"])
+              and r["eager_syncs"] == r["eager_iters"] + 1
+              and r["iters"] == r["eager_iters"]
+              and close(r["bit_equal"], r["x_diff"]),
+              f"phase {phase}: a resident {r['kind']} solve, its warm "
+              f"rerun and its eager loop agree: {r}")
+
+
 @contextlib.contextmanager
 def gmres_solves(torch):
     """While the block runs, every GMRES-family solve (``krylov/gmres.py``
@@ -2161,7 +2393,7 @@ def profile_solve(torch, hier, b64, refine=HEADLINE_REFINE):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         counted = sum(v for k, v in launch_counts().items()
-                      if k not in ("loop_control", "gmres"))
+                      if k not in ("loop_control", "gmres", "mg"))
         rows = prof.key_averages()
         dev = sum(r.self_device_time_total for r in rows
                   if getattr(r, "device_type", None) == DeviceType.CUDA)
@@ -2316,7 +2548,7 @@ def drivers_path(torch, device):
     warn = messages.warn
     messages.warn = lambda m: (warned.append(m), warn(m))
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0}
+              "gmres": 0, "mg": 0}
     readings = {}
     try:
         A, b, _ = poisson_2d_manufactured(NX)
@@ -2630,7 +2862,7 @@ def block_path(torch, device, smi):
     from faspsolver_tpu_torch.testgen import poisson_fe_manufactured
     from faspsolver_tpu_torch.utils import params
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0}
+              "gmres": 0, "mg": 0}
     readings = {}
     gen = torch.Generator(device=device).manual_seed(SEED)
     on_card = torch.device(device).type == "cuda"
@@ -2836,11 +3068,18 @@ def surface_blc(torch, device, add):
     return readings
 
 
-def surface_gmg(torch, device, smi):
+def surface_gmg(torch, device, smi, add):
     """10c: matrix-free geometric multigrid, held to the JAX counts and
     to the O(h^2) discretisation error.  The solves take f as a NumPy
-    array and no device argument, as a user calls them."""
+    array and no device argument, as a user calls them.  Each row runs
+    cold (its loop's capture included), warm (the row held to its
+    anchor) and as the eager loop (``graphs.eager()``; its launches are
+    not the path's): seconds, host reads, program launches and nodes,
+    captures, capture seconds and graph MB of each; the resident solves
+    are one launch and one read each, and the eager loop's count and x
+    equal theirs."""
     from faspsolver_tpu_torch.precond import gmg
+    from faspsolver_tpu_torch.utils import graphs
     readings = {}
     n2, n3 = GMG_N2, GMG_N3
     print(f"  10c. GMG on the unit square (n={n2}) and cube (n={n3})")
@@ -2861,26 +3100,56 @@ def surface_gmg(torch, device, smi):
               f"1e-13)")
         check(err <= 1e-13, f"{dim}-D V-cycle agrees with the CPU: {err}")
         readings[f"{dim}-D V-cycle ms"] = ms
+    cuda = torch.device(device).type == "cuda"
     for name, fn, dim, kw, anchor, bound in GMG_GRID:
         n = n3 if dim == 3 else n2
         f, u = gmg_problem(n, dim)
-        sync(torch, device)
-        t0 = time.perf_counter()
-        res = getattr(gmg, fn)(f, n, **kw)
-        x = res.x.cpu().numpy()
-        wall = time.perf_counter() - t0
+        solve = lambda: getattr(gmg, fn)(f, n, **kw)  # noqa: E731
+        runs = {}
+        for tag in ("cold", "warm", "eager"):
+            with graphs.eager() if tag == "eager" else \
+                    contextlib.nullcontext():
+                res, x, r = timed_solve(torch, device, solve)
+            r.update(iters=res.iters, syncs=res.syncs, relres=res.relres,
+                     resident=res.resident)
+            runs[tag] = (res, x, r)
+            if tag != "eager":
+                add(r)
+        res, x, r = runs["warm"]
         err = float(abs(x - u).max())
+        eager, xe, re = runs["eager"]
         print(f"  {name:36s} n={n:5d} {res.iters:3d} iterations (JAX "
               f"{anchor} +- {bound}), relres {res.relres:.3e}, max |u - "
-              f"exact| {err:.3e} (h^2 {1 / n ** 2:.3e}), solve "
-              f"{wall:.3f} s, host reads {res.syncs}")
-        check(res.x.device.type == "cuda" and res.converged and abs(res.iters - anchor) <= bound
-              and err <= 1.0 / n ** 2,
+              f"exact| {err:.3e} (h^2 {1 / n ** 2:.3e}); {smi}")
+        for tag, (_, _, rr) in runs.items():
+            print(f"    {tag:5s} {rr['s']:.4f} s, {rr['iters']} iterations, "
+                  f"host reads {rr['syncs']}, program launches "
+                  f"{rr['replays']} ({rr['nodes_replayed']} nodes), "
+                  f"captures {rr['captures']} ({rr['nodes_captured']} "
+                  f"nodes, {rr['capture_s']:.3f} s, {rr['graph_mb']} MB), "
+                  f"launches {rr['launches']}")
+        check(res.x.device.type == "cuda" and res.converged
+              and abs(res.iters - anchor) <= bound and err <= 1.0 / n ** 2,
               f"{name}: {res.iters} iterations, relres {res.relres}, "
               f"error {err}")
+        if cuda and dim > 1:
+            for tag in ("cold", "warm"):
+                rr = runs[tag][2]
+                check(rr["resident"] and rr["syncs"] == 1
+                      and rr["replays"] == 1,
+                      f"{name} {tag}: resident, one host read and one "
+                      f"program launch: {rr}")
+            check(runs["cold"][2]["iters"] == res.iters == eager.iters
+                  and re["syncs"] == eager.iters + 1
+                  and (x == runs["cold"][1]).all() and (x == xe).all(),
+                  f"{name}: cold, warm and eager solves agree bit for bit")
         readings[name] = {"iters": res.iters, "relres": res.relres,
-                          "max_err": err, "solve_s": wall,
-                          "syncs": res.syncs}
+                          "max_err": err, "solve_s": r["s"],
+                          "syncs": res.syncs, "cold_s": runs["cold"][2]["s"],
+                          "eager_s": re["s"], "eager_syncs": re["syncs"],
+                          "nodes": r["nodes_replayed"],
+                          "capture_s": runs["cold"][2]["capture_s"],
+                          "graph_mb": runs["cold"][2]["graph_mb"]}
     return readings
 
 
@@ -2963,8 +3232,10 @@ def surface_leftovers(torch, add):
                           "host_s": t1 - t0, "device_s": t3 - t2}
 
     Ab, bb = bsr_problem()
+    from faspsolver_tpu_torch.utils import graphs
     for fn, kw, anchor, bound in CAPI_GRID:
         reset_counts()
+        graphs.reset_stats()
         t0 = time.perf_counter()
         if fn == "dbsr_krylov_amg":
             xc, it, rr = capi.dbsr_krylov_amg(
@@ -2980,7 +3251,16 @@ def surface_leftovers(torch, add):
              "setup_s": 0.0, "solve_s": wall, "syncs": None,
              "launches": launch_counts()}
         check(isinstance(xc, np.ndarray), f"capi.{fn} returns NumPy")
+        r.update(graph_stats())
         report(f"capi.{fn} (setup + solve)", r, kw["tol"], anchor, bound)
+        if fn == "dcsr_amg":
+            # AMG as a solver: its loop is one program (the setup
+            # launches none)
+            print(f"  capi.dcsr_amg: program launches {r['replays']}, "
+                  f"captures {r['captures']} ({r['capture_s']:.3f} s, "
+                  f"{r['graph_mb']} MB)")
+            check(place.type != "cuda" or r["replays"] == 1,
+                  f"capi.dcsr_amg ran its AMG loop resident: {r}")
         add(r)
         readings[f"capi.{fn}"] = r
     return readings
@@ -2990,7 +3270,7 @@ def surface_path(torch, device, smi):
     """Phase 10.  Returns the stencil launches of its solves and the
     readings."""
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0}
+              "gmres": 0, "mg": 0}
 
     def add(r):
         for k in counts:
@@ -2999,7 +3279,7 @@ def surface_path(torch, device, smi):
     t0 = time.perf_counter()
     readings = {"str": surface_str(torch, device, smi, add),
                 "blc": surface_blc(torch, device, add),
-                "gmg": surface_gmg(torch, device, smi),
+                "gmg": surface_gmg(torch, device, smi, add),
                 "leftovers": surface_leftovers(torch, add)}
     readings["phase_s"] = time.perf_counter() - t0
     print(f"  phase 10 took {readings['phase_s']:.1f} s; stencil launches "
@@ -3049,7 +3329,7 @@ def harness_generated(torch, device, dtype, anchors):
     check([n for n, _, _ in rows] == list(anchors),
           f"the generated rows are the anchored ones: {list(anchors)}")
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0}
+              "gmres": 0, "mg": 0}
     readings = {"lmvu": lmvu}
     for name, A, b in rows:
         reset_counts()
@@ -3400,7 +3680,7 @@ def harness_path(torch, device, corpus_rows=None):
     import shutil
     import tempfile
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0}
+              "gmres": 0, "mg": 0}
 
     def add(c):
         for k in counts:
@@ -3450,7 +3730,7 @@ def regression_path(torch, device, sets=("core", "bsr", "matfree", "mm")):
     from faspsolver_tpu_torch.ops import stencil2d
     from faspsolver_tpu_torch.regression import runner
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0}
+              "gmres": 0, "mg": 0}
     readings = {}
     t0 = time.perf_counter()
     for kind in sets:
@@ -3759,7 +4039,7 @@ def tutorials_path(torch, device, tmp):
     import re
     t0 = time.perf_counter()
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0}
+              "gmres": 0, "mg": 0}
     readings, got = {}, {}
     readings["write_s"] = write_tutorial_data(tmp)
     print(f"  FE and SPE01 files written in {readings['write_s']:.1f} s")
@@ -4111,6 +4391,7 @@ def main(argv) -> int:
     banner("3. kernels against their plain versions")
     worst = check_kernel(torch, device)
     loop_row = check_loop_control(torch, device, smi)
+    loop_row.update(check_mg_control(torch, device, smi))
     gmres_row = check_gmres_control(torch, device, smi)
     if "--kernel-only" in argv:
         print("stopped after phase 3 (--kernel-only)")
@@ -4124,7 +4405,9 @@ def main(argv) -> int:
         return 0
     if "--surface-only" in argv:
         banner("10. main path: the solver surface")
-        surface_path(torch, device, smi)
+        with mg_solves(torch) as mg_seen:
+            surface_path(torch, device, smi)
+        check_mg_resident(torch, device, 10, mg_seen)
         print("stopped after phase 10 (--surface-only)")
         return 0
     if "--harness-only" in argv:
@@ -4137,9 +4420,10 @@ def main(argv) -> int:
         return 0
     if "--regression-only" in argv:
         banner("12. main path: the regression runner")
-        with gmres_solves(torch) as seen:
+        with gmres_solves(torch) as seen, mg_solves(torch) as mg_seen:
             regression_path(torch, device)
         check_gmres_resident(torch, device, 12, seen)
+        check_mg_resident(torch, device, 12, mg_seen)
         print("stopped after phase 12 (--regression-only)")
         return 0
     if "--parallel-only" in argv:
@@ -4150,9 +4434,10 @@ def main(argv) -> int:
     if "--tutorials-only" in argv:
         banner("14. main path: the tutorials")
         with tempfile.TemporaryDirectory() as tmp:
-            with gmres_solves(torch) as seen:
+            with gmres_solves(torch) as seen, mg_solves(torch) as mg_seen:
                 tutorials_path(torch, device, tmp)
             check_gmres_resident(torch, device, 14, seen)
+            check_mg_resident(torch, device, 14, mg_seen)
         print("stopped after phase 14 (--tutorials-only)")
         return 0
     if "--bench-only" in argv:
@@ -4203,8 +4488,10 @@ def main(argv) -> int:
             res["block_and_factorization"] = block_path(torch, device, smi)
     check_gmres_resident(torch, device, 9, seen)
     banner("10. main path: the solver surface")
-    counts["solver_surface"], res["solver_surface"] = surface_path(
-        torch, device, smi)
+    with mg_solves(torch) as mg_seen:
+        counts["solver_surface"], res["solver_surface"] = surface_path(
+            torch, device, smi)
+    check_mg_resident(torch, device, 10, mg_seen)
     banner("11. main path: the benchmark harness, checkpoint and "
           "profiling")
     # the whole run keeps to its time budget with ten corpus rows;
@@ -4214,19 +4501,21 @@ def main(argv) -> int:
                                                          corpus_rows=10)
     check_gmres_resident(torch, device, 11, seen)
     banner("12. main path: the regression runner")
-    with gmres_solves(torch) as seen:
+    with gmres_solves(torch) as seen, mg_solves(torch) as mg_seen:
         counts["regression"], res["regression"] = regression_path(torch,
                                                                   device)
     check_gmres_resident(torch, device, 12, seen)
+    check_mg_resident(torch, device, 12, mg_seen)
     banner("13. main path: the distribution layer")
     counts["distribution"], res["distribution"] = parallel_path(torch,
                                                                 device)
     with tempfile.TemporaryDirectory() as tmp:
         banner("14. main path: the tutorials")
-        with gmres_solves(torch) as seen:
+        with gmres_solves(torch) as seen, mg_solves(torch) as mg_seen:
             counts["tutorials"], res["tutorials"] = tutorials_path(
                 torch, device, tmp)
         check_gmres_resident(torch, device, 14, seen)
+        check_mg_resident(torch, device, 14, mg_seen)
         banner("15. main path: the headline benchmark (bench_torch.py)")
         counts["bench"], res["bench"] = bench_path(torch, device, tmp)
 
@@ -4255,8 +4544,11 @@ def main(argv) -> int:
             "shapes": {label: row for label, row in times.items()
                        if f" {dt} " in label}})
     by_path = {path: c.get("loop_control", 0) for path, c in counts.items()}
+    mg_by_path = {path: c.get("mg", 0) for path, c in counts.items()}
     kernels.append({**loop_row, "launches": sum(by_path.values()),
-                    "launches_by_path": by_path})
+                    "launches_by_path": by_path,
+                    "mg_launches": sum(mg_by_path.values()),
+                    "mg_launches_by_path": mg_by_path})
     by_path = {path: c.get("gmres", 0) for path, c in counts.items()}
     kernels.append({**gmres_row, "launches": sum(by_path.values()),
                     "launches_by_path": by_path})

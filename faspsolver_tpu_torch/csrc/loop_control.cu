@@ -32,6 +32,10 @@
 //     steps (faspsolver_tpu/krylov/gmres.py:175/:243): 0 init, 1 cycle,
 //     2 arnoldi (the Hessenberg column's Givens rotations), 3 solve (the
 //     window's back-substitution), 4 restart (see gmres_entry).
+//   multigrid solve loops (AMG as a solver and FAMG,
+//     faspsolver_tpu/precond/amg/solve.py:56; GMG's V-cycles and
+//     GMG-preconditioned CG, precond/gmg.py:202/:305): 0 init, 1 check
+//     (after a cycle or CG step's residual); both set the WHILE handle.
 //
 // Rounding: the decisions must be those of the eager loop's scalar
 // arithmetic in b's dtype (the JAX package's traced scalars), so every
@@ -64,7 +68,7 @@
 
 // Field layouts of a loop's state region (utils/loops.py reads these two
 // enums from this file: keep each a single "enum Name { ... };").
-enum LoopI { I_IT, I_MAXIT, I_STOP, I_SAFE, I_MAX_STAG, I_MAX_RESTART, I_STAG, I_MORE, I_STATUS, I_BREAKDOWN, I_ZERO_SOL, I_STAGNATED, I_CLAIM, I_NEED, I_CONV, I_RESTART, I_BETTER, I_CONT, I_NINIT, I_NBODY, I_NIF, I_J, I_CUR_RESTART, I_CYCLES, I_ADAPTIVE, I_COUNT };
+enum LoopI { I_IT, I_MAXIT, I_STOP, I_SAFE, I_MAX_STAG, I_MAX_RESTART, I_STAG, I_MORE, I_STATUS, I_BREAKDOWN, I_ZERO_SOL, I_STAGNATED, I_CLAIM, I_NEED, I_CONV, I_RESTART, I_BETTER, I_CONT, I_NINIT, I_NBODY, I_NIF, I_J, I_CUR_RESTART, I_CYCLES, I_ADAPTIVE, I_FORM, I_COUNT };
 enum LoopF { F_TOL, F_ABSTOL, F_MAXDIFF, F_ABSRES0, F_NORMR0, F_NORMU, F_NORMU_NEW, F_ABSRES, F_RELRES, F_BEST, F_INNER_TOL, F_INNER_FLOOR, F_R_NORM, F_R_NORM_OLD, F_STAG_BEST, F_SCALE, F_COUNT };
 
 // constants of faspsolver_tpu_torch/constants.py and krylov/common.py,
@@ -385,6 +389,31 @@ __global__ void refine_control(const double* in, double* __restrict__ fp, int* _
     r.store(fp, ip);
     inner_f[F_TOL] = tol;
     set_cond(h, cond);
+}
+
+// The multigrid solve loops: the stopping test on the relative residual
+// the loop body computed, and the count.  i[I_FORM] picks the JAX form
+// of the test, which differ on a NaN relres: 0 (AMG, amg/solve.py:45-48)
+// continues while !(relres < tol), so a NaN runs on to maxit; 1 (GMG,
+// gmg.py:197-199, :300-302) while relres >= tol, so a NaN stops.
+//   init   in = {relres0}: it = 0, the entry test
+//   check  in = {relres after the body}: it + 1, the test
+template <typename T, int PHASE>
+__global__ void mg_control(const T* __restrict__ in, T* __restrict__ fp, int* __restrict__ ip,
+                           unsigned long long h) {
+    const T relres = in[0];
+    const T tol = fp[F_TOL];
+    const int it = ip[I_IT], maxit = ip[I_MAXIT], form = ip[I_FORM];
+    const int runs = ip[PHASE == 0 ? I_NINIT : I_NBODY];
+    loads_issued();
+    const int it_new = PHASE == 0 ? 0 : it + 1;
+    const bool more = form ? relres >= tol : !(relres < tol);
+    const bool cont = more && it_new < maxit;
+    fp[F_RELRES] = relres;
+    ip[I_IT] = it_new;
+    ip[PHASE == 0 ? I_NINIT : I_NBODY] = runs + 1;
+    ip[I_CONT] = cont;
+    set_cond(h, cont);
 }
 
 // The GMRES family (faspsolver_tpu/krylov/gmres.py:85-250): the scalar
@@ -851,6 +880,16 @@ int refine_entry(int phase, const double* in, double* f, int* i, Tin* inner_f,
     return static_cast<int>(cudaGetLastError());
 }
 
+// the multigrid loops' phase 0 or 1
+template <typename T>
+int mg_entry(int phase, const T* in, T* f, int* i, unsigned long long h, void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (phase == 0) mg_control<T, 0><<<1, 1, 0, st>>>(in, f, i, h);
+    else if (phase == 1) mg_control<T, 1><<<1, 1, 0, st>>>(in, f, i, h);
+    else return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -882,6 +921,16 @@ int fasp_loop_refine_f64(int phase, const double* in, double* f, int* i, double*
     return refine_entry(phase, in, f, i, inner_f, h, stream);
 }
 
+// the multigrid solve loops' control (mg_control)
+int fasp_loop_mg_f32(int phase, const float* in, float* f, int* i, unsigned long long h,
+                     void* stream) {
+    return mg_entry(phase, in, f, i, h, stream);
+}
+
+int fasp_loop_mg_f64(int phase, const double* in, double* f, int* i, unsigned long long h,
+                     void* stream) {
+    return mg_entry(phase, in, f, i, h, stream);
+}
 
 // GMRES's control (gmres_entry); R is the window
 int fasp_loop_gmres_f32(int phase, const float* in, float* f, int* i, int* ia, float* arr,

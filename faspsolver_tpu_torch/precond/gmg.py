@@ -9,12 +9,23 @@ stencils of base/src/PreGMG.inl (residual :34-:180, restriction2d5pt
 Grids are dense (n+1)^d tensors that carry the zero Dirichlet boundary;
 the stencils are shift-adds of slices and ``torch.roll``; red-black
 Gauss-Seidel uses checkerboard masks, built once per grid shape and
-device (not once per sweep).  The V-cycle recursion runs eagerly; the
-solve loops (``lax.while_loop`` in the JAX package) are Python loops that
-read their stopping test to the host once per iteration through
-:class:`~..krylov.common.HostReads`, as the Krylov loops do
-(``SolveResult.syncs`` counts the reads).  Plain PyTorch: the JAX
-package computes these outside any Pallas kernel.
+device (not once per sweep).  Plain PyTorch: the JAX package computes
+these outside any Pallas kernel.
+
+The two solve loops (``lax.while_loop`` in the JAX package) are trees
+of ``utils.graphs``: a start piece (the full-multigrid first sweep, or
+CG's first residual, preconditioned residual and direction; the initial
+relres; the control's ``INIT``), then a While over one V-cycle or CG
+step, its relres and the control's ``CHECK`` (``utils.loops``, entry
+point ``mg`` in GMG's form: a NaN relres stops, as ``relres >= tol``
+does in JAX).  CG's breakdown guards stay ``torch.where`` on the device.
+On a CUDA grid with graphs active each loop is captured at its first
+solve as one CUDA graph, kept in a module-level cache per (loop, n,
+dimension, full-MG start, dtype, device) (:func:`clear_programs` empties
+it), and a solve is one launch and ONE host read (``SolveResult.syncs``
+= 1, ``resident``).  Elsewhere — the CPU, ``utils.graphs.eager()`` — the
+same tree runs as the eager loop, reading the control's block once at
+entry and once per iteration (``syncs`` = iterations + 1).
 
 Every entry point takes ``device``: ``None`` keeps a tensor ``f`` where
 it lies and puts a host array on the CUDA device (raising where there is
@@ -32,8 +43,16 @@ import torch
 from .. import default_device
 from ..krylov.common import HostReads
 from ..krylov.result import SolveResult
+from ..utils import graphs, loops
+from ..utils.loops import CHECK, INIT, F, I
 
 _MASKS = {}
+_PROGRAMS = {}      # the resident loops' states, by (loop, n, dim, ...)
+
+
+def clear_programs() -> None:
+    """Drop every kept resident GMG loop (its graph and tensors)."""
+    _PROGRAMS.clear()
 
 
 def _masks(shape, device):
@@ -188,15 +207,62 @@ def _norm(v):
     return torch.sqrt(torch.sum(v * v))
 
 
-def _gmg_solve(f, n, dim, tol, maxit, full_first: bool) -> SolveResult:
-    """Shared solve loop (reference: fasp_poisson_gmg2d,
-    SolGMGPoisson.c:172; full-MG first sweep per fgmg*, :442-650)."""
-    h2 = 1.0 / (n * n)
-    res, _, restr, prol = _OPS[dim]
+class _State(graphs.LoopState):
+    """The tensors of one GMG loop, updated in place: f, u, the clamped
+    |f|, the control's block, CG's r, p and r.z; and the checkerboard
+    masks of every level's grid, which a captured loop reads (kept here,
+    so :data:`_MASKS` may be cleared)."""
+
+    def __init__(self, f, n: int, dim: int, cg: bool):
+        self.f, self.u = torch.zeros_like(f), torch.zeros_like(f)
+        self.normb = f.new_zeros(())
+        if cg:
+            self.r, self.p = torch.zeros_like(f), torch.zeros_like(f)
+            self.rz = f.new_zeros(())
+        k, self.masks = n, []
+        while True:
+            self.masks.append(_masks((k + 1,) * dim, f.device))
+            if k <= 4:
+                break
+            k //= 2
+        self.block = loops.Block(f.device, [("mg", f.dtype)])
+        self.reg = self.block["mg"]
+
+
+def _control(st: _State, phase: int, norm) -> None:
+    loops.control("mg", phase, (norm / st.normb).reshape(1), st.reg)
+
+
+def _run(kind: str, f, n, dim, tol, maxit, tree, static=()) -> SolveResult:
+    """Loop ``kind`` ("vcycles" or "cg") over f: its kept state and
+    program where f is a CUDA grid with graphs active, else a fresh state
+    run eagerly; ``tree(st)`` builds its loop tree."""
+    resident = graphs.active(f)
+    make = lambda: _State(f, n, dim, kind == "cg")  # noqa: E731
+    if resident:
+        key = (kind, n, dim) + static + (f.dtype, f.device)
+        st = _PROGRAMS.get(key)
+        if st is None:
+            st = _PROGRAMS[key] = make()
+    else:
+        st = make()
+    st.f.copy_(f)
+    st.block.upload({"mg": loops.mg_values(tol, maxit, "gmg")})
     host = HostReads(f.dtype)
-    u = torch.zeros_like(f)
+    vals = graphs.run_loop(st, lambda: tree(st), host, resident)["mg"]
+    fv, iv = vals.f, vals.i
+    return SolveResult(x=st.u.clone() if resident else st.u,
+                       iters=int(iv[I.IT]), relres=float(fv[F.RELRES]),
+                       converged=bool(fv[F.RELRES] < fv[F.TOL]), status=0,
+                       syncs=host.count, resident=resident)
+
+
+def _vstart(st: _State, n, dim, full_first: bool) -> None:
+    """u0 (zero, or the full-multigrid sweep: restrict f down, solve
+    upward), |f| and the initial relres."""
+    res, _, restr, prol = _OPS[dim]
+    f = st.f
     if full_first:
-        # full multigrid initial guess: restrict f down, solve upward
         fs = [f]
         nn_ = n
         while nn_ > 4:
@@ -207,18 +273,26 @@ def _gmg_solve(f, n, dim, tol, maxit, full_first: bool) -> SolveResult:
             if lvl < len(fs) - 1:
                 u = prol(u, fs[lvl].shape)
             u = _vcycle(u, fs[lvl], n >> lvl, dim)
+        st.u.copy_(u)
+    else:
+        st.u.zero_()
+    st.normb.copy_(torch.clamp(_norm(f), min=1e-30))
+    _control(st, INIT, _norm(res(st.u, f, 1.0 / (n * n))))
 
-    normb = torch.clamp(_norm(f), min=1e-30)
-    tol = host.t(tol)
-    it = 0
-    relres, = host(_norm(res(u, f, h2)) / normb)
-    while relres >= tol and it < maxit:
-        u = _vcycle(u, f, n, dim)
-        relres, = host(_norm(res(u, f, h2)) / normb)
-        it += 1
-    return SolveResult(x=u, iters=it, relres=float(relres),
-                       converged=bool(relres < tol), status=0,
-                       syncs=host.count)
+
+def _vstep(st: _State, n, dim) -> None:
+    st.u.copy_(_vcycle(st.u, st.f, n, dim))
+    _control(st, CHECK, _norm(_OPS[dim][0](st.u, st.f, 1.0 / (n * n))))
+
+
+def _gmg_solve(f, n, dim, tol, maxit, full_first: bool) -> SolveResult:
+    """Shared solve loop (reference: fasp_poisson_gmg2d,
+    SolGMGPoisson.c:172; full-MG first sweep per fgmg*, :442-650)."""
+    def tree(st):
+        return [graphs.Piece(lambda: _vstart(st, n, dim, full_first)),
+                graphs.While(st.reg, (
+                    graphs.Piece(lambda: _vstep(st, n, dim)),))]
+    return _run("vcycles", f, n, dim, tol, maxit, tree, (bool(full_first),))
 
 
 def poisson_gmg_2d(f, n: int, *, tol: float = 1e-8, maxit: int = 50,
@@ -267,45 +341,51 @@ def poisson_gmg_1d(f, n: int, *, tol: float = 1e-8, maxit: int = 50,
 # CG-accelerated GMG (reference: gmgcg1/2/3d, SolGMGPoisson.c:754-959)
 # ---------------------------------------------------------------------------
 
+def _cg_ops(n, dim):
+    """(A, M): the full-grid operator (-Δu on the interior, 0 on the
+    boundary ring) and one V-cycle from zero."""
+    h2 = 1.0 / (n * n)
+    res = _OPS[dim][0]
+    return (lambda u: -res(u, torch.zeros_like(u), h2),
+            lambda r: _vcycle(torch.zeros_like(r), r, n, dim))
+
+
+def _cgstart(st: _State, n, dim) -> None:
+    Aop, Mop = _cg_ops(n, dim)
+    st.normb.copy_(torch.clamp(_norm(st.f), min=1e-30))
+    st.u.zero_()
+    st.r.copy_(st.f - Aop(st.u))
+    z = Mop(st.r)
+    st.p.copy_(z)
+    st.rz.copy_(torch.sum(st.r * z))
+    _control(st, INIT, _norm(st.r))
+
+
+def _cgstep(st: _State, n, dim) -> None:
+    """One CG step; the guards of p.Ap and r.z stay on the device."""
+    Aop, Mop = _cg_ops(n, dim)
+    u, r, p, rz = st.u, st.r, st.p, st.rz
+    Ap = Aop(p)
+    denom = torch.sum(p * Ap)
+    alpha = rz / torch.where(torch.abs(denom) > 1e-30, denom, 1.0)
+    u.copy_(u + alpha * p)
+    r.copy_(r - alpha * Ap)
+    z = Mop(r)
+    rz_new = torch.sum(r * z)
+    beta = rz_new / torch.where(torch.abs(rz) > 1e-30, rz, 1.0)
+    p.copy_(z + beta * p)
+    rz.copy_(rz_new)
+    _control(st, CHECK, _norm(r))
+
+
 def _gmgcg(f, n, dim, tol, maxit) -> SolveResult:
     """CG on the grid-function Laplacian, preconditioned by one GMG
     V-cycle per iteration."""
-    h2 = 1.0 / (n * n)
-    res = _OPS[dim][0]
-    host = HostReads(f.dtype)
-
-    def Aop(u):
-        # full-grid operator: -Δu on the interior, 0 on the boundary ring
-        return -res(u, torch.zeros_like(u), h2)
-
-    def Mop(r):
-        return _vcycle(torch.zeros_like(r), r, n, dim)
-
-    normb = torch.clamp(_norm(f), min=1e-30)
-    u = torch.zeros_like(f)
-    r = f - Aop(u)
-    z = Mop(r)
-    p = z
-    rz = torch.sum(r * z)
-    tol = host.t(tol)
-    it = 0
-    relres, = host(_norm(r) / normb)
-    while relres >= tol and it < maxit:
-        Ap = Aop(p)
-        denom = torch.sum(p * Ap)
-        alpha = rz / torch.where(torch.abs(denom) > 1e-30, denom, 1.0)
-        u = u + alpha * p
-        r = r - alpha * Ap
-        z = Mop(r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.where(torch.abs(rz) > 1e-30, rz, 1.0)
-        p = z + beta * p
-        rz = rz_new
-        relres, = host(_norm(r) / normb)
-        it += 1
-    return SolveResult(x=u, iters=it, relres=float(relres),
-                       converged=bool(relres < tol), status=0,
-                       syncs=host.count)
+    def tree(st):
+        return [graphs.Piece(lambda: _cgstart(st, n, dim)),
+                graphs.While(st.reg, (
+                    graphs.Piece(lambda: _cgstep(st, n, dim)),))]
+    return _run("cg", f, n, dim, tol, maxit, tree)
 
 
 def poisson_gmgcg_2d(f, n: int, *, tol: float = 1e-8, maxit: int = 100,

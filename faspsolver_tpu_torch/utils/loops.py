@@ -9,9 +9,11 @@ body and an IF node around the true-residual recompute
 between the body's vector work: from the reductions the body computed
 it decides the safeguards, updates the scalar state and sets the
 conditional handles.  One entry point per loop — :func:`pcg`,
-:func:`bicgstab`, :func:`minres`, :func:`refine` — each with phases
-(``INIT``, ``CHECK``, ``DECIDE``; the refinement's ``INIT`` and
-``ROUND``).
+:func:`bicgstab`, :func:`minres`, :func:`refine`, :func:`gmres` and
+``mg`` (the multigrid solve loops: AMG as a solver, FAMG, GMG's
+V-cycles and GMG-preconditioned CG) — each with phases (``INIT``,
+``CHECK``, ``DECIDE``; the refinement's ``INIT`` and ``ROUND``; ``mg``'s
+``INIT`` and ``CHECK``).
 
 The state lives in a :class:`Block`: one byte tensor per loop program,
 holding a :class:`Region` per loop (the refiner's and its inner PCG's),
@@ -67,6 +69,10 @@ STAG_FACTOR = 0.995
 MAX_STAG_CYCLES = 4
 HAPPY = SMALLREAL * 1e-8          # an Arnoldi step's happy breakdown
 
+# the multigrid loops' forms of the stopping test (``I.FORM``): AMG's
+# ~(relres < tol), GMG's relres >= tol
+MG_FORMS = {"amg": 0, "gmg": 1}
+
 
 def _fields(name: str) -> SimpleNamespace:
     """The names of enum ``name`` of the kernel source, by position, with
@@ -83,7 +89,7 @@ I = _fields("LoopI")
 # kernel launches per entry point; incremented only where a launch is
 # issued (a resident solve adds its device-counted executions)
 launches = {"pcg": 0, "bicgstab": 0, "minres": 0, "refine": 0,
-            "gmres": 0}
+            "gmres": 0, "mg": 0}
 
 
 def reset_launches() -> None:
@@ -181,6 +187,15 @@ def gmres_values(tol, abstol, maxit, stop_type, safe, adaptive) -> dict:
             ("i", I.MAXIT): maxit, ("i", I.STOP): int(stop_type),
             ("i", I.SAFE): int(bool(safe)),
             ("i", I.ADAPTIVE): int(bool(adaptive))}
+
+
+def mg_values(tol, maxit, form: str) -> dict:
+    """A multigrid loop's parameters for :meth:`Block.upload`: ``tol``
+    (rounded to the region's dtype, as the JAX package's
+    ``jnp.asarray(tol, b.dtype)``), ``maxit`` and the test's ``form``
+    (a key of :data:`MG_FORMS`)."""
+    return {("f", F.TOL): tol, ("i", I.MAXIT): maxit,
+            ("i", I.FORM): MG_FORMS[form]}
 
 
 def gmres_arrays(R: int) -> int:
@@ -416,8 +431,26 @@ def refine_plain(phase: int, inp: torch.Tensor, reg: Region,
     inner.f[F.TOL] = need.to(inner.dtype)
 
 
+def mg_plain(phase: int, inp: torch.Tensor, reg: Region) -> None:
+    """The multigrid loops' control on a CPU region (``mg_control``):
+    the relres ``inp[0]`` stored, the count, and the continue test in
+    the region's form."""
+    f, i = reg.f, reg.i
+    relres = inp[0]
+    if phase == INIT:
+        i[I.IT] = 0
+        i[I.NINIT] += 1
+    else:
+        i[I.IT] += 1
+        i[I.NBODY] += 1
+    more = (relres >= f[F.TOL] if int(i[I.FORM]) == MG_FORMS["gmg"]
+            else ~(relres < f[F.TOL]))
+    f[F.RELRES] = relres
+    i[I.CONT] = more & (i[I.IT] < i[I.MAXIT])
+
+
 PLAIN = {"pcg": pcg_plain, "bicgstab": bicgstab_plain,
-         "minres": minres_plain}
+         "minres": minres_plain, "mg": mg_plain}
 
 
 def solve_columns(H, g, y, j: int) -> None:
@@ -559,7 +592,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the entry points' signatures on a loaded loop-control
     library."""
     p, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
-    for kind in ("pcg", "bicgstab", "minres"):
+    for kind in ("pcg", "bicgstab", "minres", "mg"):
         for dt in ("f32", "f64"):
             fn = getattr(lib, f"fasp_loop_{kind}_{dt}")
             fn.restype, fn.argtypes = i32, [i32, p, p, p, u64, p]
@@ -641,15 +674,15 @@ def _launch(kind: str, phase: int, inp: torch.Tensor, reg: Region,
 
 
 def control(kind: str, phase: int, inp: torch.Tensor, reg: Region) -> None:
-    """Krylov loop ``kind`` ("pcg", "bicgstab", "minres"), phase
+    """Loop ``kind`` ("pcg", "bicgstab", "minres", "mg"), phase
     ``phase`` on ``reg`` with the body's scalars ``inp`` (1-d, the
     region's dtype): the twin on the CPU, else the kernel, setting the
-    IF handle at ``CHECK`` and the WHILE handle otherwise."""
+    IF handle at a Krylov ``CHECK`` and the WHILE handle otherwise."""
     inp = _device_args(inp, reg)
     if reg.f.device.type == "cpu":
         return PLAIN[kind](phase, inp, reg)
     _launch(kind, phase, inp, reg, reg.h_if if phase == CHECK
-            else reg.h_while)
+            and kind != "mg" else reg.h_while)
 
 
 def refine(phase: int, inp: torch.Tensor, reg: Region,

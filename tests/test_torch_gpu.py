@@ -845,3 +845,138 @@ def test_resident_gmres_raises_when_its_capture_fails():
     op64, _, b64, _, _ = _gmres_problem()
     with pytest.raises(RuntimeError):
         gmres(op64, b64, M=HostReading(), tol=1e-8, maxit=50, restart=10)
+
+
+@pytest.mark.cuda
+def test_mg_control_kernel_is_bit_equal_to_its_twin():
+    """The ``mg`` entry point of csrc/loop_control.cu over chip_smoke's
+    MG_CASES (both forms of the test, NaN included), f32 and f64: the
+    state block after each step bit-equal to the plain twin's on the
+    CPU."""
+    _need_cuda()
+    import chip_smoke
+    for name in chip_smoke.MG_CASES:
+        for dt in (torch.float32, torch.float64):
+            got = chip_smoke.mg_case_blocks(torch, name, dt, "cuda",
+                                            plain=False)
+            want = chip_smoke.mg_case_blocks(torch, name, dt, "cpu",
+                                             plain=True)
+            for k, (g, w) in enumerate(zip(got, want)):
+                assert torch.equal(g, w), (name, dt, k)
+
+
+def _mg_hierarchies():
+    """poisson_2d(63) on the card in f64: the structured SA hierarchy
+    (banded transfers, deterministic sums) and a classical RS one (its
+    transfers' remainders add with atomics), each in V and nonlinear-AMLI
+    cycles, and a seeded right-hand side."""
+    from faspsolver_tpu_torch.constants import CycleType
+    from faspsolver_tpu_torch.precond.amg import setup_rs, setup_structured
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    from faspsolver_tpu_torch.utils.params import AMGParam
+    A = poisson_2d(63)
+    b = torch.as_tensor(np.random.default_rng(5).standard_normal(A.nrow),
+                        device="cuda")
+    hiers = {}
+    for name, setup in (("SA", setup_structured), ("RS", setup_rs)):
+        for cyc in ("V", "NL_AMLI"):
+            hiers[f"{name} {cyc}"] = setup(A, AMGParam(
+                coarse_dof=60, cycle_type=int(getattr(CycleType, cyc))),
+                dtype=torch.float64).to("cuda")
+    return hiers, b
+
+
+@pytest.mark.cuda
+def test_resident_amg_solve_reads_once_and_equals_the_eager_loop():
+    """AMG as a solver over the structured SA and a classical RS
+    hierarchy, V and NL-AMLI cycles, and FAMG: one program launch and one
+    host read per solve, cold and warm, equal iterations and x equal to
+    the eager loop's (bit for bit over the structured hierarchy; the RS
+    transfers add with atomics: within 1e-10 of |x|), the eager loop's
+    reads iterations + 1, and the warm solve's launches equal the eager
+    loop's."""
+    _need_cuda()
+    from faspsolver_tpu_torch.precond.amg import amg_solve, famg_solve
+    hiers, b = _mg_hierarchies()
+    for name, hier in hiers.items():
+        assert hier.capturable, name
+        for fn in (amg_solve, famg_solve):
+            solve = lambda: fn(hier, b, tol=1e-10, maxit=40)  # noqa: E731
+            (cold, _, r_cold), (warm, n_warm, r_warm), (eager, n_e, r_e) = \
+                _graphed_and_eager(solve)
+            what = (name, fn.__name__)
+            assert (r_cold, r_warm, r_e) == (1, 1, 0), what
+            for got in (cold, warm):
+                assert got.resident and not eager.resident, what
+                assert (got.iters, got.syncs) == (eager.iters, 1), what
+                if name.startswith("SA"):
+                    assert torch.equal(got.x, eager.x), what
+                else:
+                    diff = float((got.x - eager.x).norm())
+                    assert diff <= 1e-10 * float(eager.x.norm()), (what, diff)
+            famg = fn is famg_solve
+            assert eager.syncs == eager.iters + (0 if famg else 1), what
+            assert n_warm == n_e and n_e["mg"] > 0, (what, n_warm, n_e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,dim,n,kw", [
+    ("poisson_gmg_2d", 2, 128, {}),
+    ("poisson_gmg_2d", 2, 128, {"full_first": True}),
+    ("poisson_gmg_3d", 3, 32, {}),
+    ("poisson_gmg_3d", 3, 32, {"full_first": True}),
+    ("poisson_gmgcg_2d", 2, 128, {}),
+    ("poisson_gmgcg_3d", 3, 32, {})])
+def test_resident_gmg_reads_once_and_equals_the_eager_loop(fn, dim, n, kw):
+    """GMG's V-cycle and CG loops on the card: one program launch and one
+    host read per solve, cold and warm, x bit-equal to the eager loop's
+    with equal iterations, the eager loop's reads iterations + 1, the
+    warm solve's launches equal the eager loop's; a second grid size
+    keeps its own program."""
+    _need_cuda()
+    import chip_smoke
+    from faspsolver_tpu_torch.precond import gmg
+    from faspsolver_tpu_torch.utils import graphs
+    gmg.clear_programs()
+    for size in (n, n // 2):
+        f, _ = chip_smoke.gmg_problem(size, dim)
+        solve = lambda: getattr(gmg, fn)(f, size, **kw)  # noqa: E731
+        graphs.reset_stats()
+        (cold, _, r_cold), (warm, n_warm, r_warm), (eager, n_e, r_e) = \
+            _graphed_and_eager(solve)
+        assert (r_cold, r_warm, r_e) == (1, 1, 0)
+        for got in (cold, warm):
+            assert got.resident and not eager.resident and got.converged
+            assert torch.equal(got.x, eager.x)
+            assert (got.iters, got.syncs) == (eager.iters, 1)
+        assert eager.syncs == eager.iters + 1
+        assert n_warm == n_e and n_e["mg"] == eager.iters + 1
+    assert len(gmg._PROGRAMS) == 2
+    gmg.clear_programs()
+    assert not gmg._PROGRAMS
+
+
+@pytest.mark.cuda
+def test_resident_mg_raises_when_its_capture_fails():
+    """A hierarchy part that declares itself capturable but reads the
+    host in its apply: the resident AMG solve raises at its capture and
+    does not run the eager loop instead."""
+    _need_cuda()
+    from faspsolver_tpu_torch.precond.amg import amg_solve
+
+    class HostReading(torch.nn.Module):
+        capturable = True
+
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, x):
+            return self.inner(x) * float(x.abs().max() >= 0)
+
+    hiers, b = _mg_hierarchies()
+    hier = hiers["SA V"]
+    hier.coarse = HostReading(hier.coarse)
+    assert hier.capturable
+    with pytest.raises(RuntimeError):
+        amg_solve(hier, b, tol=1e-10, maxit=40)

@@ -11,7 +11,10 @@ solves, copied out of the static tensors, one read per solve — is driven
 here too, with a stand-in for ``graphs.Resident`` that runs the loop
 tree as the device runs its graph (each If and While decided by its
 region's flag, read without a host read), and held equal to the eager
-path bit for bit.  The graphs themselves run on the card:
+path bit for bit; so are AMG as a solver and FAMG (their state kept
+with the hierarchy) and GMG's two loops (kept in the module's cache by
+loop, size, dimension, full-MG start, dtype and device).  The graphs
+themselves run on the card:
 ``tests/test_torch_gpu.py``."""
 import copy
 import importlib
@@ -390,3 +393,74 @@ def test_cpu_tensors_and_the_eager_switch_never_replay():
     pcg(op, torch.from_numpy(_rhs(1)), tol=1e-8)
     assert graphs.peek(op, ("pcg", int(StopType.REL_RES), False)) is None
     assert graphs.stats["replays"] == 0
+
+
+def test_graphed_amg_solve_control_flow_is_the_eager_loop(graphed_on_cpu):
+    """AMG as a solver and FAMG run as the device runs their graph: the
+    state kept with the hierarchy per cycle type and FAMG flag (a second
+    solve makes no new program; a new b only uploads), x bit for bit the
+    eager loop's with equal counts, one host read per resident solve
+    against the eager loop's iterations + 1, the returned x a copy."""
+    from faspsolver_tpu_torch.precond.amg import amg_solve, famg_solve
+    hier = _structured()
+    n = hier.levels[0].A.shape[0]
+    bs = [torch.from_numpy(np.random.default_rng(s).standard_normal(n))
+          for s in (7, 8)]
+    for fn, famg in ((amg_solve, False), (famg_solve, True)):
+        with graphs.eager():
+            want = [fn(hier, b, tol=1e-10, maxit=30) for b in bs]
+        made = len(graphed_on_cpu)
+        got = [fn(hier, b, tol=1e-10, maxit=30) for b in bs]
+        assert len(graphed_on_cpu) == made + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.x, w.x)
+            assert (g.iters, g.relres, g.converged) == (w.iters, w.relres,
+                                                        w.converged)
+            assert g.syncs == 1 and g.resident and not w.resident
+            assert w.syncs == w.iters + (0 if famg else 1)
+        st = graphs.peek(hier, ("amg_solve", hier.cycle_type, famg))
+        assert st is not None and st.x.data_ptr() != got[1].x.data_ptr()
+        assert not torch.equal(got[0].x, got[1].x)
+
+
+def test_graphed_gmg_loops_are_kept_per_key_and_are_the_eager_loop(
+        graphed_on_cpu):
+    """GMG's V-cycle and CG loops run as the device runs their graphs,
+    each kept in the module's cache under (loop, n, dimension, full-MG
+    start, dtype, device): a second solve of a key makes no new program,
+    every solve is x bit for bit the eager loop's with one host read; the
+    kept programs hold their levels' masks, so clearing the mask cache
+    changes nothing; ``clear_programs`` empties the cache."""
+    import chip_smoke
+    from faspsolver_tpu_torch.precond import gmg
+    gmg.clear_programs()
+    runs = [("poisson_gmg_2d", 16, 2, {}), ("poisson_gmg_2d", 16, 2,
+                                            {"full_first": True}),
+            ("poisson_gmgcg_2d", 16, 2, {}), ("poisson_gmg_3d", 8, 3, {}),
+            ("poisson_gmgcg_3d", 8, 3, {})]
+    for dt in (torch.float64, torch.float32):
+        for fn, n, dim, kw in runs:
+            f = torch.from_numpy(chip_smoke.gmg_problem(n, dim)[0]).to(dt)
+            with graphs.eager():
+                want = getattr(gmg, fn)(f, n, **kw)
+            made = len(graphed_on_cpu)
+            got = [getattr(gmg, fn)(f, n, **kw) for _ in range(2)]
+            assert len(graphed_on_cpu) == made + 1
+            for g in got:
+                assert torch.equal(g.x, want.x) and g.iters == want.iters
+                assert g.syncs == 1 and want.syncs == want.iters + 1
+            gmg._MASKS.clear()
+            again = getattr(gmg, fn)(f, n, **kw)
+            assert torch.equal(again.x, want.x)
+    cpu = torch.device("cpu")
+    assert set(gmg._PROGRAMS) == {
+        (loop, n, dim) + ff + (dt, cpu)
+        for dt in (torch.float64, torch.float32)
+        for loop, n, dim, ff in (("vcycles", 16, 2, (False,)),
+                                 ("vcycles", 16, 2, (True,)),
+                                 ("cg", 16, 2, ()), ("vcycles", 8, 3, (False,)),
+                                 ("cg", 8, 3, ()))}
+    st = gmg._PROGRAMS["vcycles", 16, 2, False, torch.float64, cpu]
+    assert [m[0].shape for m in st.masks] == [(17, 17), (9, 9), (5, 5)]
+    gmg.clear_programs()
+    assert not gmg._PROGRAMS

@@ -28,6 +28,15 @@ it, on the CPU.
 4. The twins' square roots are correctly rounded, as the kernel's are
    (``torch.sqrt`` on the CPU is not, in the last bit, for about 1% of
    its inputs).
+5. The multigrid loops' control (``loops.mg_plain``) against the host
+   loops' tests as they stood (AMG's ``not relres < tol``, GMG's
+   ``relres >= tol``) over chip_smoke.MG_CASES; the AMG tree (RS, SA, UA
+   hierarchies; V, W, AMLI, NL-AMLI; FAMG) and the GMG V-cycle and CG
+   trees (2-D, 3-D, full-MG start) against copies of the host loops they
+   replaced, bit for bit with reads = iterations + 1; and each tree
+   against the JAX function on the same hierarchy or grid (x within
+   atol 1e-10, equal counts; a NaN relres runs AMG to maxit and stops
+   GMG, in both packages).
 The kernel itself runs only on the card: ``tests/test_torch_gpu.py`` and
 chip_smoke.py's phase 3 hold it bit-equal to the twin."""
 import importlib
@@ -948,3 +957,323 @@ def test_twin_square_roots_are_correctly_rounded():
     for ndt, dt in ((np.float64, torch.float64), (np.float32, torch.float32)):
         for v in [*x.astype(ndt), ndt(0.5), ndt(0.0)]:
             assert loops._sqrt(torch.tensor(v, dtype=dt)).item() == np.sqrt(v)
+
+
+# ---------------------------------------------------------------------------
+# the multigrid solve loops: AMG as a solver, FAMG, GMG's V-cycles, GMG-CG
+# ---------------------------------------------------------------------------
+
+def _numpy_mg_blocks(name, dtype):
+    """chip_smoke.MG_CASES[name] through the host loops' tests as they
+    stood (NumPy scalars of b's dtype): AMG's ``not relres < tol and it <
+    maxit``, GMG's ``relres >= tol and it < maxit``; the block's bytes
+    after every step."""
+    form, params, steps = chip_smoke.MG_CASES[name]
+    p = {**chip_smoke.MG_PARAMS, **params}
+    blk = loops.Block("cpu", [("mg", dtype)])
+    blk.upload({"mg": loops.mg_values(form=form, **p)})
+    raw = blk.bytes.numpy()
+    f, i = blk.decode(raw)["mg"].f, blk.decode(raw)["mg"].i
+    t = f.dtype.type
+    tol, out = t(p["tol"]), []
+    for phase, (relres,) in steps:
+        relres = t(relres)
+        if phase == loops.INIT:
+            i[I.IT] = 0
+            i[I.NINIT] += 1
+        else:
+            i[I.IT] += 1
+            i[I.NBODY] += 1
+        more = relres >= tol if form == "gmg" else not relres < tol
+        f[F.RELRES] = relres
+        i[I.CONT] = bool(more and i[I.IT] < p["maxit"])
+        out.append(torch.from_numpy(raw.copy()))
+    return out
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(chip_smoke.MG_CASES))
+def test_mg_twin_decides_as_the_host_loops_on_the_edge_cases(name, dt):
+    want = _numpy_mg_blocks(name, DTYPES[dt])
+    got = chip_smoke.mg_case_blocks(torch, name, DTYPES[dt], "cpu",
+                                    plain=True)
+    assert len(got) == len(want)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), (name, dt, k)
+
+
+def test_the_mg_cases_take_their_branches():
+    """What the cases are there for, read from the twin's blocks: both
+    forms go on at relres == tol; on a NaN AMG's runs to maxit and GMG's
+    stops; maxit 0 and 1; convergence at entry."""
+    def last(name, dt=torch.float32):
+        blk = loops.Block("cpu", [("mg", dt)])
+        out = chip_smoke.mg_case_blocks(torch, name, dt, "cpu", plain=True)
+        return [blk.decode(o.numpy())["mg"] for o in out]
+
+    def run(name):
+        return [(int(s.i[I.IT]), int(s.i[I.CONT])) for s in last(name)]
+
+    for form in ("amg", "gmg"):
+        assert run(f"{form} converged at entry") == [(0, 0)]
+        assert run(f"{form} maxit 0") == [(0, 0)]
+        assert run(f"{form} maxit 1") == [(0, 1), (1, 0)]
+        assert run(f"{form} relres exactly tol") == [(0, 1), (1, 1), (2, 0)]
+        assert run(f"{form} converges") == [(0, 1), (1, 1), (2, 0)]
+    assert run("amg NaN runs to maxit") == [(0, 1), (1, 1), (2, 1), (3, 0)]
+    assert run("gmg NaN stops") == [(0, 1), (1, 0)]
+    assert run("gmg NaN at entry") == [(0, 0)]
+    assert run("amg runs to maxit")[-1] == (4, 0)
+    steps = last("amg runs to maxit", torch.float64)
+    assert [int(s.i[I.NINIT]) for s in steps] == [1] * 5
+    assert [int(s.i[I.NBODY]) for s in steps] == [0, 1, 2, 3, 4]
+
+
+def _host_loop_amg(hier, b, x0, tol, maxit):
+    """AMG as a solver as it stood before its loop tree (a copy): one
+    host read of the relres per cycle.  Returns (x, iterations, relres,
+    reads)."""
+    from faspsolver_tpu_torch.krylov.common import HostReads
+    from faspsolver_tpu_torch.precond.amg.cycles import cycle_fn
+    A = hier.levels[0].A
+    cycle = cycle_fn(hier.cycle_type)
+    host = HostReads(b.dtype)
+    tol = host.t(tol)
+    x = torch.zeros_like(b) if x0 is None else x0
+    normb = torch.clamp_min(torch.sqrt(torch.dot(b, b)), 1e-20)
+
+    def relres_of(x):
+        r = b - A(x)
+        return host(torch.sqrt(torch.dot(r, r)) / normb)[0]
+
+    relres = relres_of(x)
+    it = 0
+    while not relres < tol and it < maxit:
+        x = cycle(hier, b, x)
+        relres = relres_of(x)
+        it += 1
+    return x, it, relres, host.count
+
+
+def _host_loop_gmg(f, n, dim, tol, maxit, full_first):
+    """GMG's V-cycle loop as it stood (a copy of ``_gmg_solve``'s):
+    (u, iterations, relres, reads)."""
+    from faspsolver_tpu_torch.krylov.common import HostReads
+    from faspsolver_tpu_torch.precond import gmg
+    h2 = 1.0 / (n * n)
+    res, _, restr, prol = gmg._OPS[dim]
+    host = HostReads(f.dtype)
+    u = torch.zeros_like(f)
+    if full_first:
+        fs = [f]
+        nn_ = n
+        while nn_ > 4:
+            fs.append(restr(fs[-1]))
+            nn_ //= 2
+        u = torch.zeros_like(fs[-1])
+        for lvl in range(len(fs) - 1, -1, -1):
+            if lvl < len(fs) - 1:
+                u = prol(u, fs[lvl].shape)
+            u = gmg._vcycle(u, fs[lvl], n >> lvl, dim)
+    normb = torch.clamp(gmg._norm(f), min=1e-30)
+    tol = host.t(tol)
+    it = 0
+    relres, = host(gmg._norm(res(u, f, h2)) / normb)
+    while relres >= tol and it < maxit:
+        u = gmg._vcycle(u, f, n, dim)
+        relres, = host(gmg._norm(res(u, f, h2)) / normb)
+        it += 1
+    return u, it, relres, host.count
+
+
+def _host_loop_gmgcg(f, n, dim, tol, maxit):
+    """GMG-CG as it stood (a copy of ``_gmgcg``'s): (u, iterations,
+    relres, reads)."""
+    from faspsolver_tpu_torch.krylov.common import HostReads
+    from faspsolver_tpu_torch.precond import gmg
+    h2 = 1.0 / (n * n)
+    res = gmg._OPS[dim][0]
+    host = HostReads(f.dtype)
+
+    def Aop(u):
+        return -res(u, torch.zeros_like(u), h2)
+
+    def Mop(r):
+        return gmg._vcycle(torch.zeros_like(r), r, n, dim)
+
+    normb = torch.clamp(gmg._norm(f), min=1e-30)
+    u = torch.zeros_like(f)
+    r = f - Aop(u)
+    z = Mop(r)
+    p = z
+    rz = torch.sum(r * z)
+    tol = host.t(tol)
+    it = 0
+    relres, = host(gmg._norm(r) / normb)
+    while relres >= tol and it < maxit:
+        Ap = Aop(p)
+        denom = torch.sum(p * Ap)
+        alpha = rz / torch.where(torch.abs(denom) > 1e-30, denom, 1.0)
+        u = u + alpha * p
+        r = r - alpha * Ap
+        z = Mop(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.where(torch.abs(rz) > 1e-30, rz, 1.0)
+        p = z + beta * p
+        rz = rz_new
+        relres, = host(gmg._norm(r) / normb)
+        it += 1
+    return u, it, relres, host.count
+
+
+MG_CYCLES = {"V": 1, "W": 2, "AMLI": 3, "NL_AMLI": 4}
+
+
+def _mg_setups():
+    from faspsolver_tpu_torch.constants import AMGType
+    from faspsolver_tpu_torch.precond.amg import setup_rs, setup_sa, setup_ua
+    return {"RS": (setup_rs, {}),
+            "SA": (setup_sa, dict(AMG_type=int(AMGType.SA))),
+            "UA": (setup_ua, dict(AMG_type=int(AMGType.UA)))}
+
+
+@pytest.mark.parametrize("cycle", sorted(MG_CYCLES))
+@pytest.mark.parametrize("kind", ["RS", "SA", "UA"])
+def test_amg_tree_on_the_cpu_computes_as_the_host_loop(kind, cycle):
+    """On the CPU ``amg_solve`` and ``famg_solve`` give the host loop's
+    numbers bit for bit (:func:`_host_loop_amg`): x, iterations, relres;
+    the reads are iterations + 1 (FAMG: its sweep counts as an iteration
+    and is not a read); in f64 and f32, from zero and from an x0, to
+    convergence and to maxit."""
+    from faspsolver_tpu_torch.precond.amg import amg_solve, famg_solve
+    from faspsolver_tpu_torch.precond.amg.cycles import fmg_cycle
+    from faspsolver_tpu_torch.utils.params import AMGParam
+    setup, base = _mg_setups()[kind]
+    A = poisson_2d(31)
+    rng = np.random.default_rng(11)
+    b, x0 = rng.standard_normal(A.nrow), rng.standard_normal(A.nrow)
+    for dt, tol in ((torch.float64, 1e-10), (torch.float32, 1e-5)):
+        hier = setup(A, AMGParam(coarse_dof=60, amli_degree=2,
+                                 cycle_type=MG_CYCLES[cycle], **base),
+                     dtype=dt)
+        bt, xt = torch.from_numpy(b).to(dt), torch.from_numpy(x0).to(dt)
+        for maxit, start in ((40, None), (40, xt), (3, None)):
+            got = amg_solve(hier, bt, start, tol=tol, maxit=maxit)
+            x, it, relres, reads = _host_loop_amg(hier, bt, start, tol,
+                                                  maxit)
+            assert torch.equal(got.x, x), (dt, maxit)
+            assert (got.iters, got.relres, got.syncs) == (
+                it, float(relres), reads), (dt, maxit)
+            assert got.syncs == got.iters + 1 and not got.resident
+            assert got.converged == bool(relres < np.dtype(
+                relres.dtype).type(tol))
+            got = famg_solve(hier, bt, tol=tol, maxit=maxit)
+            x, it, relres, reads = _host_loop_amg(
+                hier, bt, fmg_cycle(hier, bt), tol, max(maxit - 1, 1))
+            assert torch.equal(got.x, x), (dt, maxit)
+            assert (got.iters, got.relres, got.syncs) == (
+                it + 1, float(relres), reads), (dt, maxit)
+
+
+GMG_TREES = [("vcycles", 2, 32, False), ("vcycles", 2, 32, True),
+             ("vcycles", 3, 16, False), ("vcycles", 3, 8, True),
+             ("cg", 2, 32, False), ("cg", 3, 16, False)]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("loop,dim,n,full_first", GMG_TREES)
+def test_gmg_tree_on_the_cpu_computes_as_the_host_loop(loop, dim, n,
+                                                       full_first, dt):
+    """On the CPU GMG's V-cycle and CG trees give the host loops' numbers
+    bit for bit (:func:`_host_loop_gmg`, :func:`_host_loop_gmgcg`): u,
+    iterations, relres, and reads iterations + 1; to convergence and to
+    maxit."""
+    from faspsolver_tpu_torch.precond import gmg
+    f, _ = chip_smoke.gmg_problem(n, dim)
+    ft = torch.from_numpy(f).to(DTYPES[dt])
+    tol = 1e-9 if dt == "f64" else 1e-5
+    for maxit in (50, 1):
+        if loop == "cg":
+            got = gmg._gmgcg(ft, n, dim, tol, maxit)
+            want = _host_loop_gmgcg(ft, n, dim, tol, maxit)
+        else:
+            got = gmg._gmg_solve(ft, n, dim, tol, maxit, full_first)
+            want = _host_loop_gmg(ft, n, dim, tol, maxit, full_first)
+        u, it, relres, reads = want
+        assert torch.equal(got.x, u), maxit
+        assert (got.iters, got.relres, got.syncs) == (it, float(relres),
+                                                      reads), maxit
+        assert got.syncs == got.iters + 1 and not got.resident
+        assert got.converged == (maxit == 50) == (it < maxit)
+
+
+@pytest.fixture(scope="module")
+def mg_pairs():
+    """poisson_2d(31): hierarchies the JAX package built (f64), carried
+    across with ``from_jax``, by (setup, cycle), and a seeded b."""
+    import faspsolver_tpu.precond.amg as jamg
+    from faspsolver_tpu.utils.params import AMGParam as JaxParam
+    A = poisson_2d(31)
+    Aj = JaxCSRMatrix(A.indptr, A.indices, A.data, A.shape)
+    out = {}
+    for kind, cycle in (("RS", "V"), ("SA", "W"), ("UA", "NL_AMLI"),
+                        ("RS", "AMLI")):
+        base = _mg_setups()[kind][1]
+        jh = getattr(jamg, f"setup_{kind.lower()}")(Aj, JaxParam(
+            coarse_dof=60, cycle_type=MG_CYCLES[cycle], **base),
+            dtype=jnp.float64)
+        out[kind, cycle] = (jh, from_jax(jh))
+    return out, np.random.default_rng(12).standard_normal(A.nrow)
+
+
+MG_JAX = [("RS", "V", False), ("SA", "W", False), ("UA", "NL_AMLI", False),
+          ("RS", "AMLI", False), ("RS", "V", True), ("SA", "W", True)]
+
+
+@pytest.mark.parametrize("kind,cycle,famg", MG_JAX)
+def test_amg_tree_matches_jax(mg_pairs, kind, cycle, famg):
+    """``amg_solve`` / ``famg_solve`` through the tree against the JAX
+    functions on the same hierarchy and b (f64): equal iterations and
+    convergence, x within atol 1e-10, relres within 1e-6 relative; to
+    convergence and to maxit."""
+    import faspsolver_tpu.precond.amg as jamg
+    from faspsolver_tpu_torch.precond.amg import amg_solve, famg_solve
+    pairs, b = mg_pairs
+    jh, th = pairs[kind, cycle]
+    for maxit in (40, 3):
+        got = (famg_solve if famg else amg_solve)(
+            th, torch.from_numpy(b), tol=1e-10, maxit=maxit)
+        ref = (jamg.famg_solve if famg else jamg.amg_solve)(
+            jh, jnp.asarray(b), tol=1e-10, maxit=maxit)
+        assert (got.iters, got.converged) == (int(ref.iters),
+                                              bool(ref.converged)), maxit
+        np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x),
+                                   rtol=0, atol=1e-10)
+        assert abs(got.relres - float(ref.relres)) \
+            <= 1e-6 * float(ref.relres) + 1e-300
+
+
+def test_mg_trees_on_a_nan_right_hand_side_stop_as_in_jax(mg_pairs):
+    """A NaN relres: AMG's loop runs on to maxit, GMG's (V-cycles and
+    CG) stops at entry, in both packages."""
+    import jax
+    import faspsolver_tpu.precond.amg as jamg
+    from faspsolver_tpu.precond import gmg as jax_gmg
+    from faspsolver_tpu_torch.precond import gmg
+    from faspsolver_tpu_torch.precond.amg import amg_solve
+    pairs, b = mg_pairs
+    jh, th = pairs["RS", "V"]
+    b = b.copy()
+    b[7] = np.nan
+    got = amg_solve(th, torch.from_numpy(b), tol=1e-10, maxit=4)
+    ref = jamg.amg_solve(jh, jnp.asarray(b), tol=1e-10, maxit=4)
+    assert got.iters == int(ref.iters) == 4 and got.syncs == 5
+    assert np.isnan(got.relres) and np.isnan(float(ref.relres))
+    f, _ = chip_smoke.gmg_problem(16, 2)
+    f[3, 4] = np.nan
+    for fn in ("poisson_gmg_2d", "poisson_gmgcg_2d"):
+        got = getattr(gmg, fn)(torch.from_numpy(f), 16)
+        with jax.disable_jit():
+            ref = getattr(jax_gmg, fn)(jnp.asarray(f), 16)
+        assert got.iters == int(ref.iters) == 0 and got.syncs == 1, fn
+        assert not got.converged and not bool(ref.converged)
