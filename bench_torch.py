@@ -49,7 +49,11 @@ not ported) plus the port's counters: ``cold_solve_s``, ``host_syncs``
 ``graph_nodes_replayed``, ``stencil_launches`` (per dtype) and
 ``loop_control_launches`` (the loop-control kernel's, counted on the
 device) for the headline and, prefixed, for the general and fe_auto
-solves; ``chain_launches_per_rep``;
+solves; for the SPE01 stanza's timed run ``spe01_inner_solves`` (its
+refinement rounds' vFGMRES solves), ``spe01_host_syncs`` (the
+refinement's: one per round plus the inner solves'; 2 per round when
+each inner solve is resident) and ``spe01_graph_replays`` (program
+launches: one per resident inner solve); ``chain_launches_per_rep``;
 ``device_name``, ``power_limit_w``.
 """
 from __future__ import annotations
@@ -480,12 +484,16 @@ def main(device=None, *, nx: int = NX, nh: int = NH, reps: int = REPS,
                         aggregation_type=int(AggregationType.VMB),
                         strong_coupled=0.08)
 
+        from faspsolver_tpu_torch.utils import graphs
+        solves = [0]
+
         def spe_run():
             h = setup_ua_bsr(Aspe, pspe, dtype=torch.float32, device=device)
             op32 = device_operator(Aspe, dtype=torch.float32).to(device)
             Ms = AMGPrecond(h)
 
             def inner(r, tl):
+                solves[0] += 1
                 return vfgmres(op32, r, M=Ms, tol=tl, maxit=100,
                                restart=30)
             return solve_refined(Aspe, bspe, inner, tol=1e-6,
@@ -493,6 +501,8 @@ def main(device=None, *, nx: int = NX, nh: int = NH, reps: int = REPS,
                                  device=device)
 
         spe_run()                      # warm-up (excluded)
+        solves[0] = 0
+        replays = graphs.stats["replays"]
         t0 = time.perf_counter()
         res_spe = spe_run()
         spe01 = {
@@ -500,6 +510,9 @@ def main(device=None, *, nx: int = NX, nh: int = NH, reps: int = REPS,
             "spe01_inner_iters": res_spe.inner_iters,
             "spe01_relres": res_spe.relres,
             "spe01_converged": bool(res_spe.converged),
+            "spe01_inner_solves": solves[0],
+            "spe01_host_syncs": res_spe.syncs,
+            "spe01_graph_replays": graphs.stats["replays"] - replays,
         }
     except Exception as e:  # noqa: BLE001 -- detail metric, never fatal
         spe01 = {"spe01_error": str(e)[:120]}

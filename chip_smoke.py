@@ -33,7 +33,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    60 in f64, each beside the launch floor plus its chain; then its
    multigrid entry point (``mg``) over MG_CASES (both forms of the test,
    NaN included) the same way, and one check launch's time in f32 and
-   f64 beside the empty kernel;
+   f64 beside the empty kernel; then GCG / GCR's entry point (``gcr``)
+   over GCR_CASES the same way (NaN fields compared as NaN), and one step
+   launch's time in f32 and f64 beside the empty kernel;
 4. the headline at full size: poisson_2d(1023) (1,046,529 dof), the
    structured SA-AMG setup in f32 with the f64 fine operator, moved to the
    card, then f64 refinement around f32 AMG-PCG (tol 1e-6, 4 rounds, 40
@@ -61,13 +63,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    count and verified relres < 1e-6, then timed again as setup and solve;
    ``input.dat`` once more through the CLI with no device argument, which
    must run on the card; then one float64 solve per new Krylov method, cycle, smoother and
-   setup on poisson_fe_manufactured(64), each held to its JAX anchor;
+   setup on poisson_fe_manufactured(64), each held to its JAX anchor
+   (the Krylov rows resident: one launch, one read, and their eager
+   loop's result), and one resident GCG descent step timed at each
+   window GCG / GCR take (GCG_STEP_WINDOWS);
 9. block and factorization preconditioners, every solve through the
    port's drivers or CLI with no device argument, in float64 unless it
    refines: (a) block_poisson_3d(64, nb=3) (786,432 dof, BSR) under
    vFGMRES + UA-BSR AMG with ini/bsr.dat's parameters, bench.py's
    reservoir stanza (f32 UA-BSR, and SA-BSR, inside solve_refined),
-   near-kernel AMG, true block ILU(0) and block Jacobi; (b) ILUk(0) and
+   near-kernel AMG, true block ILU(0) and block Jacobi, every Krylov
+   loop of each row resident (one launch, one read) and its first solve
+   rerun warm and as the eager loop from the same state, timed, with
+   the same count and x (bit-equal, or within X_DIFF_LIMITS where the
+   UA-BSR restriction adds with atomics); (b) ILUk(0) and
    ILUt under CG through the CLI on poisson_2d(1023), each apply timed as
    the eager loop over its levels and as the replay of its CUDA graph;
    (c) forward (GMRES) and symmetric (CG) Schwarz through the CLI on
@@ -231,7 +240,8 @@ REPLACES = {"k1": "faspsolver_tpu/ops/pallas_kernels.py:149",
             "k2": "faspsolver_tpu/ops/pallas_kernels.py:36",
             # no Pallas kernel: XLA's while / cond around the loop bodies
             "loop": "faspsolver_tpu/krylov/pcg.py:173",
-            "gmres": "faspsolver_tpu/krylov/gmres.py:243"}
+            "gmres": "faspsolver_tpu/krylov/gmres.py:243",
+            "gcr": "faspsolver_tpu/krylov/gcg_gcr.py:124"}
 
 # phase 8, the user entry point: the JAX CLI's iteration counts on the
 # same runs (python -m faspsolver_tpu -ini ini/<f>.dat -problem poisson2d
@@ -264,7 +274,7 @@ _GMRES_FAMILY = (_GMRES, _VGMRES, _VFGMRES)
 # the small-grid solves whose loop is resident on the card
 RESIDENT_SMALL_GRID = tuple(f"{name} + {pre}" for pre in ("diag", "AMG")
                             for name in ("BiCGstab", "MinRes", "GMRES",
-                                         "vGMRES", "vFGMRES"))
+                                         "vGMRES", "vFGMRES", "GCR", "GCG"))
 SMALL_GRID = [
     *[(f"{name} + diag", "krylov_diag", dict(itsolver_type=t, **_DIAG_ITS),
        None, n_diag, 3 if t == _BICG else 2 if t in _GMRES_FAMILY else 1)
@@ -1143,13 +1153,15 @@ def launch_counts():
     by element type, the loop-control kernel's GMRES entry point's
     ("gmres") and its other entry points' ("loop_control"), and of those
     the multigrid loops' entry point's ("mg", counted in "loop_control"
-    too)."""
+    too), and GCG / GCR's ("gcr", not in "loop_control")."""
     from faspsolver_tpu_torch.ops import stencil2d
     from faspsolver_tpu_torch.utils import loops
     out = {str(k).replace("torch.", ""): v
            for k, v in stencil2d.launches.items()}
     out["gmres"] = loops.launches["gmres"]
-    out["loop_control"] = sum(loops.launches.values()) - out["gmres"]
+    out["gcr"] = loops.launches["gcr"]
+    out["loop_control"] = (sum(loops.launches.values()) - out["gmres"]
+                           - out["gcr"])
     out["mg"] = loops.launches["mg"]
     return out
 
@@ -1900,6 +1912,219 @@ def check_mg_control(torch, device, smi):
     return {"mg_cases": len(MG_CASES), "mg_steps": steps, "mg": out}
 
 
+# phase 3, fifth part: GCG / GCR's control (``gcr_control`` in
+# csrc/loop_control.cu) against its twin, bit for bit.  A case is
+# (parameters, steps) over GCR_PARAMS (R the window), a step (phase,
+# inputs): 0 init {absres0, x0.x0}; 1 cycle; 2 step {qn, |r|}; 3 end the
+# true residual's {absres, x.x}.  Together the cases take every branch:
+# the entry test met, maxit 0, a breakdown at step 0, tol met mid-window
+# and a residual exactly at tol, a false claim of the step's residual
+# that the true one refutes, a full window and its restart, maxit
+# inside a window, an empty window (j == 0 ends the outer loop), NaN
+# (no test stops it: it runs to maxit), and the three stop types.
+GCR_PARAMS = dict(tol=1e-6, abstol=1e-18, maxit=50, stop_type=1, R=4)
+_R_INIT = (0, [1.0, 0.0])
+GCR_CASES = {
+    "gcr done at entry": ({}, [(0, [1e-19, 1.0])]),
+    "gcr maxit 0": ({"maxit": 0}, [_R_INIT]),
+    "gcr breakdown at step 0": ({}, [
+        _R_INIT, (1, []), (2, [1e-21, 1.0]), (3, [1.0, 1.0]), (1, []),
+        (2, [0.5, 0.3]), (2, [0.5, 5e-7]), (3, [5e-7, 1.0])]),
+    "gcr tol met mid-window": ({}, [
+        _R_INIT, (1, []), (2, [0.8, 0.3]), (2, [0.6, 4e-7]),
+        (3, [4e-7, 1.0])]),
+    "gcr relres exactly tol": ({}, [
+        _R_INIT, (1, []), (2, [0.8, 1e-6]), (2, [0.6, 5e-7]),
+        (3, [1e-6, 1.0]), (1, []), (2, [0.7, 3e-7]), (3, [3e-7, 1.0])]),
+    "gcr false claim restarts": ({}, [
+        _R_INIT, (1, []), (2, [0.8, 5e-7]), (3, [2e-6, 1.0]), (1, []),
+        (2, [0.7, 3e-7]), (3, [3e-7, 1.0])]),
+    "gcr full window restarts": ({"R": 3}, [
+        _R_INIT, (1, []), (2, [0.9, 0.5]), (2, [0.9, 0.3]),
+        (2, [0.9, 0.1]), (3, [0.1, 1.0]), (1, []), (2, [0.9, 5e-7]),
+        (3, [5e-7, 1.0])]),
+    "gcr maxit inside a window": ({"maxit": 6}, [
+        _R_INIT, (1, []), (2, [0.9, 0.5]), (2, [0.9, 0.4]),
+        (2, [0.9, 0.3]), (2, [0.9, 0.1]), (3, [0.1, 1.0]), (1, []),
+        (2, [0.9, 0.05]), (2, [0.9, 0.04]), (3, [0.04, 1.0])]),
+    "gcr empty window ends": ({"R": 0}, [_R_INIT, (1, []),
+                                         (3, [1.0, 1.0])]),
+    "gcr NaN runs to maxit": ({"maxit": 3}, [
+        _R_INIT, (1, []), (2, [_NAN, _NAN]), (2, [_NAN, _NAN]),
+        (2, [_NAN, _NAN]), (3, [_NAN, 1.0])]),
+    "gcr MOD_REL_RES": ({"stop_type": 3}, [
+        (0, [1.0, 4.0]), (1, []), (2, [0.8, 0.3]), (3, [0.3, 9.0]),
+        (1, []), (2, [0.8, 1e-7]), (3, [1e-6, 16.0])]),
+    "gcr REL_PRECRES": ({"stop_type": 2}, [
+        (0, [2.0, 1.0]), (1, []), (2, [0.8, 0.3]), (2, [0.8, 1e-7]),
+        (3, [1e-6, 1.0])]),
+}
+
+
+def gcr_case_state(torch, name, dtype, device):
+    """Case ``name`` of GCR_CASES set up on ``device``: (block, its two
+    regions, R)."""
+    from faspsolver_tpu_torch.utils import loops
+    params, _ = GCR_CASES[name]
+    p = {**GCR_PARAMS, **params}
+    R = p.pop("R")
+    blk = loops.Block(device, [("gcr", dtype), ("descent", dtype)])
+    blk.upload({"gcr": loops.gcr_values(**p)})
+    return blk, blk["gcr"], blk["descent"], R
+
+
+def gcr_case_blocks(torch, name, dtype, device, plain):
+    """Case ``name`` of GCR_CASES in ``dtype`` on ``device`` through the
+    twin (``plain``) or the wrapper (the kernel on the card): the
+    block's bytes after every step, each NaN field written as the CPU's
+    NaN (a NaN's payload is the device's own: an arithmetic NaN on the
+    card is 0x7fffffff in f32, where the CPU keeps its operand's
+    0x7fc00000; the decisions see only that it is a NaN)."""
+    from faspsolver_tpu_torch.utils import loops
+    blk, reg, inner, R = gcr_case_state(torch, name, dtype, device)
+    call = loops.gcr_plain if plain else loops.gcr
+    out = []
+    for phase, vals in GCR_CASES[name][1]:
+        call(phase, torch.tensor(vals or [0.0], dtype=dtype, device=device),
+             reg, inner, R)
+        raw = blk.bytes.cpu().clone()
+        for r in blk.regions.values():
+            f = raw[r.offsets[0]:r.offsets[0] + r.f.numel()
+                    * r.f.element_size()].view(r.dtype)
+            f[torch.isnan(f)] = float("nan")
+        out.append(raw)
+    return out
+
+
+def check_gcr_control(torch, device, smi):
+    """Every case of GCR_CASES in f32 and f64: the ``gcr`` entry point's
+    block after each step bit-equal to the twin's on the CPU and on the
+    card; then the time of one step launch (the one a descent step
+    runs) replayed from a CUDA graph and eagerly, beside an empty
+    one-thread kernel, and the twin's on the card.  Returns the kernel's
+    JSON row (launches filled in by the caller)."""
+    from faspsolver_tpu_torch.ops.stencil2d import HBM_BYTES_PER_S
+    from faspsolver_tpu_torch.utils import loops
+    steps = 0
+    for name in GCR_CASES:
+        for dt in (torch.float32, torch.float64):
+            got = gcr_case_blocks(torch, name, dt, device, plain=False)
+            want = gcr_case_blocks(torch, name, dt, "cpu", plain=True)
+            on_card = gcr_case_blocks(torch, name, dt, device, plain=True)
+            same = all(torch.equal(g, w) and torch.equal(c, w)
+                       for g, w, c in zip(got, want, on_card))
+            steps += len(got)
+            if not same:
+                bad = next(k for k, (g, w) in enumerate(zip(got, want))
+                           if not torch.equal(g, w))
+                print(f"  gcr {name} {dt}: step {bad} differs: kernel "
+                      f"{got[bad].tolist()} twin {want[bad].tolist()}")
+            check(same, f"gcr {name} {dt}: kernel bit-equal to its twin")
+    print(f"  loop_control gcr: {len(GCR_CASES)} cases x f32/f64, {steps} "
+          f"steps, every block bit-equal to the twin's (CPU and card)")
+    saved = dict(loops.launches)
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        blk = loops.Block(device, [("gcr", dt), ("descent", dt)])
+        blk.upload({"gcr": loops.gcr_values(1e-6, 1e-18, 2 ** 30, 1)})
+        reg, inner = blk["gcr"], blk["descent"]
+        loops.gcr(loops.INIT, torch.tensor([1.0, 0.0], dtype=dt,
+                                           device=device), reg, inner, 1)
+        inp = torch.tensor([0.5, 0.5], dtype=dt, device=device)
+        ctl = lambda x: loops.gcr(loops.STEP, x, reg, inner,  # noqa: E731
+                                  2 ** 30)
+        ms = time_ms(torch, ctl, inp, graph=True)
+        eager_ms = time_ms(torch, ctl, inp)
+        empty = lambda x: loops.launch_empty(device)  # noqa: E731
+        floor_ms = time_ms(torch, empty, inp, graph=True)
+        plain = lambda x: loops.gcr_plain(  # noqa: E731
+            loops.STEP, x, reg, inner, 2 ** 30)
+        plain_ms = time_ms(torch, plain, inp, reps=20, tries=3)
+        # the least work of a step: its two inputs, the four fields it
+        # reads and the three it writes, once; a division and a handful
+        # of comparisons
+        nbytes = inp.element_size() * 4 + 4 * 7
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, 6 / 67e12) * 1e3
+        tag = "f32" if dt == torch.float32 else "f64"
+        print(f"  loop_control gcr step ({tag}): {ms * 1e3:.3f} us per "
+              f"launch in a graph ({eager_ms * 1e3:.3f} us eager), empty "
+              f"one-thread kernel {floor_ms * 1e3:.3f} us, plain twin on "
+              f"the card {plain_ms * 1e3:.1f} us; roofline bound "
+              f"{bound_ms * 1e3:.6f} us ({nbytes} bytes); {smi}")
+        out[tag] = {"ms": ms, "eager_ms": eager_ms, "launch_floor_ms":
+                    floor_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+    loops.launches.update(saved)        # the timing's launches: no path's
+    main = out["f64"]
+    return {"name": "loop_control gcr", "route": "cuda",
+            "source": "faspsolver_tpu_torch/csrc/loop_control.cu",
+            "replaces": REPLACES["gcr"], "max_abs_err": 0.0,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "launch_floor_ms": main["launch_floor_ms"],
+            "timed": "one step launch, f64 (f32 under \"f32\")",
+            "f32": out["f32"], "cases": len(GCR_CASES), "steps": steps}
+
+
+# phase 8: one GCG descent step on the small grid (poisson_fe_manufactured
+# (64), 3,969 dof, f64, Jacobi) at the windows its solves take: GCG's
+# full-memory rule gives 1,024 (small grid + diag, the regression core
+# set), 200 (small grid + AMG) and 100 (the MatrixMarket set); GCR runs
+# 60 and 30; 8 is GCG's least
+GCG_STEP_WINDOWS = (8, 30, 60, 100, 200, 1024)
+
+
+def gcg_step_times(torch, device, smi):
+    """The device time of one descent step of the resident GCG / GCR
+    tree (``krylov/gcg_gcr.py`` ``_step``: M, A, the masked CGS2 over the
+    whole window, the updates, the control) at each window of
+    GCG_STEP_WINDOWS, replayed from a CUDA graph of 200 steps (each
+    resets j to R - 1 first; the reset's own time is taken off), beside
+    one apply of M and A alone.  The masked products read all R rows
+    six times per step whatever j is; the step's growth with R is
+    theirs.  Returns {R: ms}, with "m_and_a" the apply."""
+    import numpy as np
+    from faspsolver_tpu_torch.krylov import JacobiPrecond, gcg_gcr
+    from faspsolver_tpu_torch.ops import device_operator
+    from faspsolver_tpu_torch.testgen import poisson_fe_manufactured
+    from faspsolver_tpu_torch.utils import loops
+    A, b, *_ = poisson_fe_manufactured(64)
+    op = device_operator(A, dtype=torch.float64).to(device)
+    M = JacobiPrecond.from_csr(A, torch.float64).to(device)
+    bt = torch.as_tensor(b, dtype=torch.float64, device=device)
+    saved = dict(loops.launches)
+    out = {"m_and_a": time_ms(torch, lambda x: op(M(x)), bt, graph=True)}
+    for R in GCG_STEP_WINDOWS:
+        st = gcg_gcr._State(bt, R)
+        st.block.upload({"gcr": loops.gcr_values(1e-30, 0.0, 10 ** 9, 1)})
+        st.b.copy_(bt)
+        gcg_gcr._start(st, op, M, 1)
+        gcg_gcr._cycle(st)
+        rng = np.random.default_rng(R)
+        for t in (st.P, st.Q):
+            t.copy_(torch.as_tensor(rng.standard_normal(tuple(t.shape)),
+                                    device=device) / 64.0)
+        j = st.reg.i[loops.I.J:loops.I.J + 1]
+        j0 = torch.full_like(j, R - 1)
+
+        def reset(x):
+            j.copy_(j0)
+
+        def step(x):
+            j.copy_(j0)
+            gcg_gcr._step(st, op, M)
+
+        reset_ms = time_ms(torch, reset, bt, graph=True)
+        out[R] = time_ms(torch, step, bt, graph=True) - reset_ms
+        del st
+    loops.launches.update(saved)        # the timing's launches: no path's
+    print("  one resident GCG descent step, poisson_fe_manufactured(64) "
+          "f64 + Jacobi (graph of 200): "
+          + ", ".join(f"R = {R} {out[R] * 1e3:.2f} us"
+                      for R in GCG_STEP_WINDOWS)
+          + f"; M and A alone {out['m_and_a'] * 1e3:.2f} us; {smi}")
+    return {str(k): v for k, v in out.items()}
+
+
 # the solve loops of the multigrid entry points, each recorded by
 # :func:`mg_solves`: (module, function) by kind
 MG_LOOPS = {"amg": ("faspsolver_tpu_torch.precond.amg.solve", "_solve"),
@@ -2016,18 +2241,24 @@ def check_mg_resident(torch, device, phase, seen):
 
 
 @contextlib.contextmanager
-def gmres_solves(torch):
-    """While the block runs, every GMRES-family solve (``krylov/gmres.py``
-    ``_gmres``, whatever entry point called it) is recorded: whether it
-    ran resident (``SolveResult.resident``), its host reads, its program
-    launches and iterations.  The first resident one also runs once more
-    as the eager loop (``graphs.eager()``; its launches are not the
-    path's, its seconds are in the phase's), whose count and x it is held
-    to (:func:`check_gmres_resident`)."""
+def krylov_solves(torch, kind):
+    """While the block runs, every solve of a windowed Krylov loop
+    (``kind`` "gmres": ``krylov/gmres.py`` ``_gmres``, the GMRES family;
+    "gcr": ``krylov/gcg_gcr.py`` ``_gcr``, GCG and GCR; whatever entry
+    point called it) is recorded: whether it ran resident
+    (``SolveResult.resident``), whether A and M declare themselves
+    capturable on a vector that replays graphs (``graphs.active``), its
+    host reads, its program launches and iterations.
+    The first resident one also runs once more as the eager loop
+    (``graphs.eager()``; its launches are not the path's, its seconds
+    are in the phase's), whose count and x it is held to
+    (:func:`check_krylov_resident`)."""
     import faspsolver_tpu_torch.krylov  # noqa: F401  (loads the module)
+    from faspsolver_tpu_torch.krylov.common import resolve_precond
     from faspsolver_tpu_torch.utils import graphs
-    mod = sys.modules["faspsolver_tpu_torch.krylov.gmres"]
-    real = mod._gmres
+    mod = sys.modules[KRYLOV_LOOPS[kind][0]]
+    name = KRYLOV_LOOPS[kind][1]
+    real = getattr(mod, name)
     seen = []
 
     def spy(A, b, x0, M, tol, abstol, maxit, restart, *args, **kw):
@@ -2035,6 +2266,8 @@ def gmres_solves(torch):
         out = real(A, b, x0, M, tol, abstol, maxit, restart, *args, **kw)
         resident = out.resident
         rec = {"resident": resident, "syncs": out.syncs,
+               "capturable": graphs.active(b) and graphs.capturable(A)
+               and graphs.capturable(resolve_precond(M)),
                "launches": graphs.stats["replays"] - before,
                "iters": out.iters, "n": int(b.shape[0]),
                "dtype": str(b.dtype).replace("torch.", "")}
@@ -2056,44 +2289,223 @@ def gmres_solves(torch):
         seen.append(rec)
         return out
 
-    mod._gmres = spy
+    setattr(mod, name, spy)
     try:
         yield seen
     finally:
-        mod._gmres = real
+        setattr(mod, name, real)
+
+
+@contextlib.contextmanager
+def loop_solves(torch):
+    """While the block runs, every loop program (``utils.graphs.run_loop``:
+    the Krylov loops, the refiner, the multigrid loops, whatever entry
+    point called it) is recorded: its loop (the module of its state),
+    whether it ran resident, its host reads, program launches,
+    iterations and seconds (to its last host read).  The first resident
+    one runs twice more from the state it started from, resident again
+    (warm) and as the eager loop (``graphs.eager()``), each timed; their
+    launches and graph counters are taken back off (checks, not the
+    path), and the state is put back as the first run left it, so its
+    caller reads that run's result.  A loop run under ``graphs.eager()``
+    (another check's rerun) is not recorded.  :func:`check_loop_resident`
+    holds the three runs together."""
+    from faspsolver_tpu_torch.krylov.common import HostReads
+    from faspsolver_tpu_torch.ops import stencil2d
+    from faspsolver_tpu_torch.utils import graphs, loops
+    real = graphs.run_loop
+    seen = []
+
+    def spy(st, tree, host, resident):
+        if not graphs._enabled:         # another check's eager rerun
+            return real(st, tree, host, resident)
+        first = resident and not any("eager_iters" in r for r in seen)
+        start = [t.clone() for t in st.tensors()] if first else None
+        reads, replays = host.count, graphs.stats["replays"]
+        t0 = time.perf_counter()
+        vals = real(st, tree, host, resident)
+        secs = time.perf_counter() - t0
+        region = next(iter(st.block.regions))
+
+        def iters(v):
+            return int(v[region].i[loops.I.IT]) if v else 0
+
+        rec = {"kind": type(st).__module__.rsplit(".", 1)[-1],
+               "resident": resident, "syncs": host.count - reads,
+               "launches": graphs.stats["replays"] - replays,
+               "iters": iters(vals), "s": secs, "n": int(st.x.numel()),
+               "dtype": str(st.x.dtype).replace("torch.", "")}
+        if first:
+            x = st.x.clone()
+            end = [t.clone() for t in st.tensors()]
+            saved = [dict(stencil2d.launches), dict(loops.launches),
+                     dict(graphs.stats)]
+
+            def again(res):
+                for t, v in zip(st.tensors(), start):
+                    t.copy_(v)
+                h = HostReads(st.x.dtype)
+                r0 = graphs.stats["replays"]
+                t1 = time.perf_counter()
+                v = real(st, tree, h, res)
+                return (v, time.perf_counter() - t1, h.count,
+                        graphs.stats["replays"] - r0, st.x.clone())
+
+            warm, warm_s, warm_syncs, warm_launches, wx = again(True)
+            with graphs.eager():
+                eager, eager_s, eager_syncs, _, ex = again(False)
+            for t, v in zip(st.tensors(), end):
+                t.copy_(v)
+            for counter, was in zip((stencil2d.launches, loops.launches,
+                                     graphs.stats), saved):
+                counter.update(was)
+
+            def diff(a):
+                return float((a - x).norm() / max(float(x.norm()), 1e-300))
+
+            rec.update(warm_s=warm_s, warm_syncs=warm_syncs,
+                       warm_launches=warm_launches, warm_iters=iters(warm),
+                       warm_bit_equal=torch.equal(wx, x),
+                       warm_x_diff=diff(wx), eager_s=eager_s,
+                       eager_syncs=eager_syncs, eager_iters=iters(eager),
+                       bit_equal=torch.equal(ex, x), x_diff=diff(ex))
+        seen.append(rec)
+        return vals
+
+    graphs.run_loop = spy
+    try:
+        yield seen
+    finally:
+        graphs.run_loop = real
+
+
+def check_loop_resident(torch, device, label, seen, atomic=None):
+    """A phase-9a row's loop programs (:func:`loop_solves`): on the card
+    at least one ran, each resident with one program launch and one host
+    read, and the first agrees with its warm rerun and its eager loop:
+    the same count, x bit-equal or, where ``atomic`` names the sum that
+    adds with atomics, within X_DIFF_LIMIT of |x| (the dtype's limit,
+    X_DIFF_LIMITS).  Prints them; returns the faults (empty: none)."""
+    res = [r for r in seen if r["resident"]]
+    twin = [r for r in res if "eager_iters" in r]
+    print(f"    {label}: {len(seen)} loop solves "
+          f"({', '.join(sorted({r['kind'] for r in seen}))}), {len(res)} "
+          f"resident (host reads {sorted({r['syncs'] for r in res})}, "
+          f"program launches {sorted({r['launches'] for r in res})})")
+    for r in twin:
+        print(f"      first resident {r['kind']} solve, n={r['n']} "
+              f"{r['dtype']}: {r['iters']} iterations, {r['s']:.4f} s "
+              f"cold; warm {r['warm_s']:.4f} s ({r['warm_iters']} "
+              f"iterations, reads {r['warm_syncs']}, launches "
+              f"{r['warm_launches']}, x bit-equal {r['warm_bit_equal']}, "
+              f"{r['warm_x_diff']:.2e}); eager loop {r['eager_s']:.4f} s, "
+              f"{r['eager_iters']} iterations, {r['eager_syncs']} reads; "
+              f"x bit-equal {r['bit_equal']} (|x - x_eager| / |x| "
+              f"{r['x_diff']:.2e}); warm / eager "
+              f"{r['eager_s'] / max(r['warm_s'], 1e-12):.2f} x faster")
+        if not (r["bit_equal"] and r["warm_bit_equal"]):
+            print(f"      not bit-equal: "
+                  f"{atomic or 'no sum of this row adds with atomics'}")
+    if torch.device(device).type != "cuda":
+        return []
+    bad = []
+    if not res or len(res) != len(seen):
+        bad.append(f"{label}: {len(seen) - len(res)} of {len(seen)} loop "
+                   f"solves ran eagerly")
+    bad += [f"{label}: {r}" for r in res
+            if (r["syncs"], r["launches"]) != (1, 1)]
+    for r in twin:
+        limit = X_DIFF_LIMITS[r["dtype"]] if atomic else 0.0
+
+        def close(bits, diff):
+            return bits or diff <= limit
+        if not ((r["warm_syncs"], r["warm_launches"]) == (1, 1)
+                and r["iters"] == r["warm_iters"] == r["eager_iters"]
+                and r["eager_syncs"] > r["eager_iters"]
+                and close(r["warm_bit_equal"], r["warm_x_diff"])
+                and close(r["bit_equal"], r["x_diff"])):
+            bad.append(f"{label}: resident, warm and eager disagree: {r}")
+    return bad
+
+
+# the windowed Krylov loops :func:`krylov_solves` records: (module,
+# function) by kind
+KRYLOV_LOOPS = {"gmres": ("faspsolver_tpu_torch.krylov.gmres", "_gmres"),
+                "gcr": ("faspsolver_tpu_torch.krylov.gcg_gcr", "_gcr")}
+
+
+def gmres_solves(torch):
+    """:func:`krylov_solves` of the GMRES family."""
+    return krylov_solves(torch, "gmres")
+
+
+def gcr_solves(torch):
+    """:func:`krylov_solves` of GCG and GCR."""
+    return krylov_solves(torch, "gcr")
 
 
 # a resident GMRES solve against its eager loop where the sums are not
 # deterministic: |x - x_eager| / |x| on the H100 was 6.3e-16 to 1.35e-14
 # (PERF.md section 6); the limit leaves a margin of some 7,000
 X_DIFF_LIMIT = 1e-10
+# phase 9a's rows by dtype: f64 X_DIFF_LIMIT (UA-BSR read 4.1e-16 to
+# 4.8e-16 on the H100); f32, the refined stanza's inner vFGMRES over
+# UA-BSR, 1.62e-7 on the H100 (PERF.md section 6, PR 18): a last-bit f32
+# change carried through a GMRES window; the limit leaves a margin of 60
+X_DIFF_LIMITS = {"float64": X_DIFF_LIMIT, "float32": 1e-5}
 
 
-def check_gmres_resident(torch, device, phase, seen):
-    """On the card every resident GMRES-family solve of the phase is one
-    program launch and one host read, at least one ran, and the one run
-    again eagerly agrees with its eager loop (:func:`gmres_solves`): the
-    same count, x bit-equal or, where the preconditioner adds with
-    atomics, within X_DIFF_LIMIT of |x|."""
+def check_krylov_resident(torch, device, phase, seen, what,
+                          need=True):
+    """On the card every resident solve of the phase (``seen``, from
+    :func:`krylov_solves`) is one program launch and one host read,
+    every solve over a capturable A and M ran resident, at least one ran
+    (unless not ``need``), and the one run again eagerly agrees with its
+    eager loop: the same count, x bit-equal or, where the
+    preconditioner adds with atomics, within X_DIFF_LIMIT of |x|."""
     res = [r for r in seen if r["resident"]]
     twin = [r for r in res if "eager_iters" in r]
-    print(f"  phase {phase}: {len(seen)} GMRES-family solves, {len(res)} "
+    print(f"  phase {phase}: {len(seen)} {what} solves, {len(res)} "
           f"resident (host reads {sorted({r['syncs'] for r in res})}, "
           f"program launches {sorted({r['launches'] for r in res})}), "
-          f"{sum(r['iters'] for r in res)} iterations; eager check "
+          f"{sum(r['iters'] for r in res)} iterations; "
+          f"{sum(not r['capturable'] for r in seen)} eager (a module "
+          f"that is not capturable, or graphs off); eager check "
           f"{twin[0] if twin else None}")
     if torch.device(device).type != "cuda":
         return
-    check(res, f"phase {phase}: a resident GMRES-family solve ran")
+    check(res or not need, f"phase {phase}: a resident {what} solve ran")
     bad = [r for r in res if (r["syncs"], r["launches"]) != (1, 1)]
-    check(not bad, f"phase {phase}: every resident GMRES-family solve is "
+    check(not bad, f"phase {phase}: every resident {what} solve is "
                    f"one program launch and one host read: {bad[:3]}")
-    r = twin[0]
-    check(r["eager_syncs"] > r["eager_iters"]
-          and r["iters"] == r["eager_iters"]
-          and (r["bit_equal"] or r["x_diff"] <= X_DIFF_LIMIT),
-        f"phase {phase}: a resident GMRES-family solve and its eager loop "
-        f"agree: {r}")
+    bad = [r for r in seen if r["capturable"] and not r["resident"]]
+    check(not bad, f"phase {phase}: every {what} solve over capturable "
+                   f"modules ran resident: {bad[:3]}")
+    if twin:
+        r = twin[0]
+        check(r["eager_syncs"] > r["eager_iters"]
+              and r["iters"] == r["eager_iters"]
+              and (r["bit_equal"] or r["x_diff"] <= X_DIFF_LIMIT),
+              f"phase {phase}: a resident {what} solve and its eager loop "
+              f"agree: {r}")
+
+
+def check_spe01_resident(torch, device, seen):
+    """Phase 14: spe01_its's vFGMRES + UA-BSR solve on the 786,432-dof
+    BSR file ran resident (one launch, one read)."""
+    spe = [r for r in seen if r["n"] == 3 * BSR_NX ** 3]
+    print(f"  phase 14: spe01_its's GMRES-family solves {spe}")
+    if torch.device(device).type == "cuda":
+        check(spe and all(r["resident"] and r["syncs"] == 1 for r in spe),
+              f"spe01_its ran resident: {spe}")
+
+
+def check_gmres_resident(torch, device, phase, seen):
+    check_krylov_resident(torch, device, phase, seen, "GMRES-family")
+
+
+def check_gcr_resident(torch, device, phase, seen, need=True):
+    check_krylov_resident(torch, device, phase, seen, "GCG / GCR", need)
 
 
 # ---------------------------------------------------------------------------
@@ -2534,8 +2946,8 @@ def ini_setup_and_solve(torch, device, ini, A, b):
 def drivers_path(torch, device):
     """Phase 8: the repository's ini files through the port's CLI at
     1023^2 (1,046,529 dof) in float64, then one solve per new module on
-    the small grid.  Returns the CLI runs' kernel launches and the
-    readings."""
+    the small grid.  Returns the kernel launches of the CLI runs and the
+    small grid's solves (not their eager reruns) and the readings."""
     import numpy as np
     from faspsolver_tpu_torch import solvers
     from faspsolver_tpu_torch.ops import stencil2d
@@ -2548,7 +2960,7 @@ def drivers_path(torch, device):
     warn = messages.warn
     messages.warn = lambda m: (warned.append(m), warn(m))
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0, "mg": 0}
+              "gmres": 0, "mg": 0, "gcr": 0}
     readings = {}
     try:
         A, b, _ = poisson_2d_manufactured(NX)
@@ -2622,10 +3034,14 @@ def drivers_path(torch, device):
                 kw["amg"] = AMGParam(**amg)
             t0 = time.perf_counter()
             graphs.reset_stats()
+            reset_counts()
             res = getattr(solvers, driver)(A, b, dtype=torch.float64,
                                            device=device, **kw)
             res = res[0] if isinstance(res, tuple) else res
             x = res.x.cpu().numpy()
+            grid_counts = launch_counts()
+            for k in counts:
+                counts[k] += grid_counts.get(k, 0)
             wall = time.perf_counter() - t0
             relres = float(np.linalg.norm(b - A.matvec(x))
                            / np.linalg.norm(b))
@@ -2862,7 +3278,7 @@ def block_path(torch, device, smi):
     from faspsolver_tpu_torch.testgen import poisson_fe_manufactured
     from faspsolver_tpu_torch.utils import params
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0, "mg": 0}
+              "gmres": 0, "mg": 0, "gcr": 0}
     readings = {}
     gen = torch.Generator(device=device).manual_seed(SEED)
     on_card = torch.device(device).type == "cuda"
@@ -2878,23 +3294,36 @@ def block_path(torch, device, smi):
           f"{A.nnz_block * A.nb ** 2} scalar nonzeros, generated in "
           f"{time.perf_counter() - t0:.2f} s")
     check(A.nrow == 3 * BSR_NX ** 3, "phase 9a's size")
-    kept = {}
+    kept, faults = {}, []
     for name, driver, fields, anchor, bound in BSR_GRID:
-        if driver == "refined":
-            r, built = drive_refined(torch, device, A, b, fields["amg"])
-            tol = REFINED["tol"]
-        else:
-            if fields == "ini":
-                its, amg, _, _ = params.param_init(
-                    params.apply_cli_overrides(["-ini", "ini/bsr.dat"]))
-                fields = {"its": vars(its), "amg": vars(amg)}
-            r, built = drive_driver(torch, device, driver, fields, A, b)
-            tol = fields["its"]["tol"]
+        # every Krylov loop of the row resident on the card: one launch
+        # and one read per solve; its first solve rerun warm and as the
+        # eager loop from the same state
+        with loop_solves(torch) as seen:
+            if driver == "refined":
+                r, built = drive_refined(torch, device, A, b,
+                                         fields["amg"])
+                tol = REFINED["tol"]
+            else:
+                if fields == "ini":
+                    its, amg, _, _ = params.param_init(
+                        params.apply_cli_overrides(["-ini", "ini/bsr.dat"]))
+                    fields = {"its": vars(its), "amg": vars(amg)}
+                r, built = drive_driver(torch, device, driver, fields, A, b)
+                tol = fields["its"]["tol"]
         report(name, r, tol, anchor, bound)
+        faults += check_loop_resident(
+            torch, device, name, seen,
+            atomic=("UA-BSR's restriction (BlockAggRestrict) adds with "
+                    "index_add_, atomic on the card") if "UA-BSR" in name
+            else None)
+        r["loops"] = seen
         add(r)
         readings[name] = r
         kept[driver] = built
         del built
+    check(not faults, f"9a: every row resident and equal to its reruns: "
+                      f"{faults}")
     x = torch.randn(A.nrow, generator=gen, device=device,
                     dtype=torch.float64)
     hier = kept["krylov_nk_amg"]
@@ -3205,9 +3634,15 @@ def surface_leftovers(torch, add):
         rel = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
         print(f"  {name:20s} {res.iters:5d} iterations (JAX {anchor} +- "
               f"{bound}), status {res.status}, verified relres {rel:.3e}, "
-              f"{wall:.3f} s, host reads {res.syncs}")
-        check(abs(res.iters - anchor) <= bound and rel < 1e-9,
-              f"{name}: {res.iters} iterations, relres {rel}")
+              f"{wall:.3f} s, host reads {res.syncs}, resident "
+              f"{res.resident}")
+        if fn == "gcg":
+            print(f"  {'':20s} a MatFreeOperator declares no capturable "
+                  f"apply: GCG stays the eager loop (1 + steps + cycles "
+                  f"reads)")
+        check(abs(res.iters - anchor) <= bound and rel < 1e-9
+              and not res.resident,
+              f"{name}: {res.iters} iterations, relres {rel}, eager")
         readings[name] = {"iters": res.iters, "relres": rel, "s": wall}
 
     t0 = time.perf_counter()
@@ -3270,7 +3705,7 @@ def surface_path(torch, device, smi):
     """Phase 10.  Returns the stencil launches of its solves and the
     readings."""
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0, "mg": 0}
+              "gmres": 0, "mg": 0, "gcr": 0}
 
     def add(r):
         for k in counts:
@@ -3329,7 +3764,7 @@ def harness_generated(torch, device, dtype, anchors):
     check([n for n, _, _ in rows] == list(anchors),
           f"the generated rows are the anchored ones: {list(anchors)}")
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0, "mg": 0}
+              "gmres": 0, "mg": 0, "gcr": 0}
     readings = {"lmvu": lmvu}
     for name, A, b in rows:
         reset_counts()
@@ -3680,7 +4115,7 @@ def harness_path(torch, device, corpus_rows=None):
     import shutil
     import tempfile
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0, "mg": 0}
+              "gmres": 0, "mg": 0, "gcr": 0}
 
     def add(c):
         for k in counts:
@@ -3730,7 +4165,7 @@ def regression_path(torch, device, sets=("core", "bsr", "matfree", "mm")):
     from faspsolver_tpu_torch.ops import stencil2d
     from faspsolver_tpu_torch.regression import runner
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0, "mg": 0}
+              "gmres": 0, "mg": 0, "gcr": 0}
     readings = {}
     t0 = time.perf_counter()
     for kind in sets:
@@ -4039,7 +4474,7 @@ def tutorials_path(torch, device, tmp):
     import re
     t0 = time.perf_counter()
     counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0, "mg": 0}
+              "gmres": 0, "mg": 0, "gcr": 0}
     readings, got = {}, {}
     readings["write_s"] = write_tutorial_data(tmp)
     print(f"  FE and SPE01 files written in {readings['write_s']:.1f} s")
@@ -4116,7 +4551,9 @@ def bench_misses(d, spe01_anchor=None):
     GENERAL_ANCHOR; fe_auto within 3 of FE_AUTO_ANCHOR; SPE01 within
     max(2, 5%) of ``spe01_anchor``, default BENCH_SPE01_ANCHOR), a timed
     solve that was not one program launch with one host read and
-    loop-control launches, or that captured a graph, a headline without
+    loop-control launches, or that captured a graph, an SPE01 inner
+    solve that was not one program launch and one host read, a headline
+    without
     both kernel dtypes, a marginal-time chain of k applies without k
     stencil launches per rep."""
     anchor = BENCH_SPE01_ANCHOR if spe01_anchor is None else spe01_anchor
@@ -4153,6 +4590,15 @@ def bench_misses(d, spe01_anchor=None):
         if d.get(f"{p}graph_captures") != 0:
             bad.append(f"{p}graph_captures {d.get(f'{p}graph_captures')} "
                        f"in a timed solve")
+    # SPE01's inner vFGMRES over UA-BSR resident: one program launch per
+    # inner solve, and one host read each beside the refinement's own
+    solves = d.get("spe01_inner_solves")
+    if not (isinstance(solves, int) and solves > 0
+            and d.get("spe01_graph_replays") == solves
+            and d.get("spe01_host_syncs") == 2 * solves):
+        bad.append(f"SPE01 not resident: {solves} inner solves, "
+                   f"{d.get('spe01_graph_replays')} program launches, "
+                   f"{d.get('spe01_host_syncs')} host reads")
     launches = d.get("stencil_launches") or {}
     if not (launches.get("float32") and launches.get("float64")):
         bad.append(f"headline stencil_launches {launches}")
@@ -4393,6 +4839,7 @@ def main(argv) -> int:
     loop_row = check_loop_control(torch, device, smi)
     loop_row.update(check_mg_control(torch, device, smi))
     gmres_row = check_gmres_control(torch, device, smi)
+    gcr_row = check_gcr_control(torch, device, smi)
     if "--kernel-only" in argv:
         print("stopped after phase 3 (--kernel-only)")
         return 0
@@ -4420,10 +4867,12 @@ def main(argv) -> int:
         return 0
     if "--regression-only" in argv:
         banner("12. main path: the regression runner")
-        with gmres_solves(torch) as seen, mg_solves(torch) as mg_seen:
+        with gmres_solves(torch) as seen, mg_solves(torch) as mg_seen, \
+                gcr_solves(torch) as gcr_seen:
             regression_path(torch, device)
         check_gmres_resident(torch, device, 12, seen)
         check_mg_resident(torch, device, 12, mg_seen)
+        check_gcr_resident(torch, device, 12, gcr_seen)
         print("stopped after phase 12 (--regression-only)")
         return 0
     if "--parallel-only" in argv:
@@ -4437,6 +4886,7 @@ def main(argv) -> int:
             with gmres_solves(torch) as seen, mg_solves(torch) as mg_seen:
                 tutorials_path(torch, device, tmp)
             check_gmres_resident(torch, device, 14, seen)
+            check_spe01_resident(torch, device, seen)
             check_mg_resident(torch, device, 14, mg_seen)
         print("stopped after phase 14 (--tutorials-only)")
         return 0
@@ -4479,9 +4929,11 @@ def main(argv) -> int:
     counts["fe_auto"], res["fe_auto"] = fe_auto_path(torch, device, A, b)
     del A, b
     banner("8. main path: drivers (the ini CLI, then the small grid)")
-    with gmres_solves(torch) as seen:
+    with gmres_solves(torch) as seen, gcr_solves(torch) as gcr_seen:
         counts["drivers"], res["drivers"] = drivers_path(torch, device)
     check_gmres_resident(torch, device, 8, seen)
+    check_gcr_resident(torch, device, 8, gcr_seen)
+    gcr_row["gcg_step_ms"] = gcg_step_times(torch, device, smi)
     banner("9. main path: block and factorization preconditioners")
     with gmres_solves(torch) as seen:
         counts["block_and_factorization"], \
@@ -4501,11 +4953,13 @@ def main(argv) -> int:
                                                          corpus_rows=10)
     check_gmres_resident(torch, device, 11, seen)
     banner("12. main path: the regression runner")
-    with gmres_solves(torch) as seen, mg_solves(torch) as mg_seen:
+    with gmres_solves(torch) as seen, mg_solves(torch) as mg_seen, \
+            gcr_solves(torch) as gcr_seen:
         counts["regression"], res["regression"] = regression_path(torch,
                                                                   device)
     check_gmres_resident(torch, device, 12, seen)
     check_mg_resident(torch, device, 12, mg_seen)
+    check_gcr_resident(torch, device, 12, gcr_seen)
     banner("13. main path: the distribution layer")
     counts["distribution"], res["distribution"] = parallel_path(torch,
                                                                 device)
@@ -4515,6 +4969,7 @@ def main(argv) -> int:
             counts["tutorials"], res["tutorials"] = tutorials_path(
                 torch, device, tmp)
         check_gmres_resident(torch, device, 14, seen)
+        check_spe01_resident(torch, device, seen)
         check_mg_resident(torch, device, 14, mg_seen)
         banner("15. main path: the headline benchmark (bench_torch.py)")
         counts["bench"], res["bench"] = bench_path(torch, device, tmp)
@@ -4551,6 +5006,10 @@ def main(argv) -> int:
                     "mg_launches_by_path": mg_by_path})
     by_path = {path: c.get("gmres", 0) for path, c in counts.items()}
     kernels.append({**gmres_row, "launches": sum(by_path.values()),
+                    "launches_by_path": by_path})
+    by_path = {path: c.get("gcr", 0) for path, c in counts.items()}
+    check(sum(by_path.values()) > 0, "the gcr control ran on the paths")
+    kernels.append({**gcr_row, "launches": sum(by_path.values()),
                     "launches_by_path": by_path})
     print(json.dumps({"kernels": kernels, "main_paths": res}))
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")

@@ -36,6 +36,9 @@
 //     faspsolver_tpu/precond/amg/solve.py:56; GMG's V-cycles and
 //     GMG-preconditioned CG, precond/gmg.py:202/:305): 0 init, 1 check
 //     (after a cycle or CG step's residual); both set the WHILE handle.
+//   GCG / GCR: two nested WHILEs, the restart cycles around the descent
+//     steps (faspsolver_tpu/krylov/gcg_gcr.py:124/:104): 0 init, 1 cycle,
+//     2 step, 3 end (see gcr_control).
 //
 // Rounding: the decisions must be those of the eager loop's scalar
 // arithmetic in b's dtype (the JAX package's traced scalars), so every
@@ -414,6 +417,76 @@ __global__ void mg_control(const T* __restrict__ in, T* __restrict__ fp, int* __
     ip[PHASE == 0 ? I_NINIT : I_NBODY] = runs + 1;
     ip[I_CONT] = cont;
     set_cond(h, cont);
+}
+
+// GCG / GCR (faspsolver_tpu/krylov/gcg_gcr.py:58-124): the scalar work
+// of the restart cycles (the outer while_loop) and of each descent step
+// (the inner one).  f / i are the outer loop's region (j in i[I_J]), ia
+// the inner loop's (its CONT and NBODY); R the window (restart, at most
+// maxit).  Each phase is its own kernel on one thread, its loads first.
+//   0 init   in = {absres0, x0.x0}: the initial norms and the entry test
+//            (JAX's `already`), j = 0; the outer CONT
+//   1 cycle  in unused: j = 0 (JAX's cycle starts its inner loop at
+//            j = 0, brk = false); the inner CONT, j < R and it < maxit
+//   2 step   in = {qn, |r|} after the step: brk = qn <= SMALLREAL or
+//            |r| / normr0 < tol (gcg_gcr.py:93-102), j + 1; the inner
+//            CONT, j < R and it + j < maxit and not brk
+//   3 end    in = {absres, x.x} of the true residual: it += j, relres
+//            (normu = max(SMALLREAL, sqrt(x.x)) under MOD_REL_RES), done
+//            = relres < tol or j == 0; status 0, as in JAX; the outer CONT
+template <typename T, int PHASE>
+__global__ void gcr_control(const T* __restrict__ in, T* __restrict__ fp, int* __restrict__ ip,
+                            int* __restrict__ ia, int R, unsigned long long h) {
+    const T small = T(FASP_SMALLREAL);
+    if (PHASE == 0 || PHASE == 3) {
+        const T x0 = in[0], x1 = in[1];
+        Fields<T> r;
+        r.load(fp, ip);
+        loads_issued();
+        T* f = r.f;
+        int* i = r.i;
+        bool cont;
+        if (PHASE == 0) {
+            init_norms(x0, x1, f, i, false);
+            i[I_J] = 0;
+            cont = i[I_CONT];
+        } else {
+            const bool mod = i[I_STOP] == FASP_MOD_REL_RES;
+            const int j = i[I_J];
+            i[I_IT] += j;
+            const T normu = pymax(small, sqrt_rn(x1));
+            const T relres = div_rn(x0, mod ? normu : f[F_NORMR0]);
+            const bool done = relres < f[F_TOL] || j == 0;
+            f[F_ABSRES] = x0;
+            f[F_RELRES] = relres;
+            f[F_NORMU_NEW] = normu;
+            i[I_STATUS] = 0;
+            i[I_NBODY] += 1;
+            cont = !done && i[I_IT] < i[I_MAXIT];
+            i[I_CONT] = cont;
+        }
+        r.store(fp, ip);
+        set_cond(h, cont);
+    } else if (PHASE == 1) {
+        const int it = ip[I_IT], maxit = ip[I_MAXIT];
+        loads_issued();
+        const bool cont = 0 < R && it < maxit;
+        ip[I_J] = 0;
+        ia[I_CONT] = cont;
+        set_cond(h, cont);
+    } else {
+        const T qn = in[0], rn = in[1];
+        const T normr0 = fp[F_NORMR0], tol = fp[F_TOL];
+        const int j = ip[I_J] + 1, it = ip[I_IT], maxit = ip[I_MAXIT];
+        const int nbody = ia[I_NBODY];
+        loads_issued();
+        const bool brk = qn <= small || div_rn(rn, normr0) < tol;
+        const bool cont = j < R && it + j < maxit && !brk;
+        ip[I_J] = j;
+        ia[I_NBODY] = nbody + 1;
+        ia[I_CONT] = cont;
+        set_cond(h, cont);
+    }
 }
 
 // The GMRES family (faspsolver_tpu/krylov/gmres.py:85-250): the scalar
@@ -890,6 +963,21 @@ int mg_entry(int phase, const T* in, T* f, int* i, unsigned long long h, void* s
     return static_cast<int>(cudaGetLastError());
 }
 
+// GCG / GCR's phase 0 to 3 (gcr_control); R is the window
+template <typename T>
+int gcr_entry(int phase, const T* in, T* f, int* i, int* ia, int R, unsigned long long h,
+              void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (phase) {
+        case 0: gcr_control<T, 0><<<1, 1, 0, st>>>(in, f, i, ia, R, h); break;
+        case 1: gcr_control<T, 1><<<1, 1, 0, st>>>(in, f, i, ia, R, h); break;
+        case 2: gcr_control<T, 2><<<1, 1, 0, st>>>(in, f, i, ia, R, h); break;
+        case 3: gcr_control<T, 3><<<1, 1, 0, st>>>(in, f, i, ia, R, h); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -941,6 +1029,17 @@ int fasp_loop_gmres_f32(int phase, const float* in, float* f, int* i, int* ia, f
 int fasp_loop_gmres_f64(int phase, const double* in, double* f, int* i, int* ia, double* arr,
                         int R, unsigned long long h, void* stream) {
     return gmres_entry(phase, in, f, i, ia, arr, R, h, stream);
+}
+
+// GCG / GCR's control (gcr_entry); R is the window
+int fasp_loop_gcr_f32(int phase, const float* in, float* f, int* i, int* ia, int R,
+                      unsigned long long h, void* stream) {
+    return gcr_entry(phase, in, f, i, ia, R, h, stream);
+}
+
+int fasp_loop_gcr_f64(int phase, const double* in, double* f, int* i, int* ia, int R,
+                      unsigned long long h, void* stream) {
+    return gcr_entry(phase, in, f, i, ia, R, h, stream);
 }
 
 // An empty one-thread kernel: the launch floor the control kernels sit on

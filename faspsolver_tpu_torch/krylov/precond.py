@@ -53,6 +53,8 @@ class BlockJacobiPrecond(nn.Module):
     """Block-diagonal preconditioner with precomputed block inverses
     (reference: fasp_precond_dbsr_diag, PreBSR.c:49)."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, dinv):
         super().__init__()
         self.register_buffer("dinv", dinv if isinstance(dinv, torch.Tensor)

@@ -537,6 +537,8 @@ class BsrEllOperator(nn.Module):
     every product, the counterpart of the JAX package's
     ``Precision.HIGHEST``."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, cols, vals, nbrow: int, nbcol: int, nb: int):
         super().__init__()
         self.register_buffer("cols", _buf(cols))                # (nbrow, k)

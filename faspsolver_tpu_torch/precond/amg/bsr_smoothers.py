@@ -33,6 +33,8 @@ class BsrColorBlock(nn.Module):
     of those rows.  The off-diagonal blocks are kept in
     ``block_ell_layout``; ``vals`` is a view."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, rows, cols, vals, dinv):
         super().__init__()
         self.register_buffer("rows", _buf(rows).to(torch.int64))
@@ -47,6 +49,8 @@ class BsrColorBlock(nn.Module):
 
 class BsrSmootherData(nn.Module):
     """What one block level's sweeps need; ``kind`` selects the sweep."""
+
+    capturable = True       # no host read in the apply (utils/graphs.py)
 
     def __init__(self, kind: int, relax: float, nb: int, dinv=None,
                  colors: Sequence[BsrColorBlock] = ()):

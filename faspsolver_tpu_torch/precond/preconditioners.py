@@ -6,11 +6,14 @@ mgcycles; _amli :482; _namli :515; _famg :449; fasp_precond_amg_nk).
 
 On a CUDA vector the AMG and FMG preconditioners replay their cycles
 from a CUDA graph (``utils.graphs.GraphedModule``), kept by the
-hierarchy: every cycle type reads nothing back to the host.  They run
-eagerly where ``capturable`` is False — a hierarchy placed on a mesh, or
-one with a part that does not declare itself capturable (the BSR levels
-and block smoothers, MatFree operators, Schwarz smoothers) — and on
-DTensor vectors.
+hierarchy: every cycle type reads nothing back to the host, over CSR
+and BSR levels alike (block operators, block smoothers and the
+near-kernel correction included).  They run eagerly where
+``capturable`` is False — a hierarchy placed on a mesh, or one with a
+part that does not declare itself capturable (MatFree operators,
+Schwarz smoothers) — and on DTensor vectors.  The near-kernel
+preconditioner (:class:`AMGNKPrecond`) is capturable when its cycles
+and its operator are.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import torch
 from torch import nn
 
 from .. import is_dtensor
-from ..utils.graphs import GraphedModule
+from ..utils.graphs import GraphedModule, capturable
 from .amg.cycles import cycle_fn, fmg_cycle, mgcycle
 from .amg.hierarchy import AMGHierarchy
 
@@ -73,6 +76,12 @@ class AMGNKPrecond(nn.Module):
     fasp_precond_amg_nk, PreCSR.c): z = MG(r); z += NK gram_inv NK^T
     (r - A z), with ``nk`` the (n, m) near-kernel basis and ``gram_inv``
     = (NK^T A NK)^{-1} formed at setup."""
+
+    @property
+    def capturable(self) -> bool:
+        """Its cycles and its operator capturable: the correction adds
+        two dense products and one apply, no host read."""
+        return capturable(self.mg) and capturable(self.A_op)
 
     def __init__(self, hier: AMGHierarchy, nk, gram_inv, A_op,
                  maxit: int = 1):

@@ -9,11 +9,12 @@ body and an IF node around the true-residual recompute
 between the body's vector work: from the reductions the body computed
 it decides the safeguards, updates the scalar state and sets the
 conditional handles.  One entry point per loop — :func:`pcg`,
-:func:`bicgstab`, :func:`minres`, :func:`refine`, :func:`gmres` and
+:func:`bicgstab`, :func:`minres`, :func:`refine`, :func:`gmres`,
 ``mg`` (the multigrid solve loops: AMG as a solver, FAMG, GMG's
-V-cycles and GMG-preconditioned CG) — each with phases (``INIT``,
-``CHECK``, ``DECIDE``; the refinement's ``INIT`` and ``ROUND``; ``mg``'s
-``INIT`` and ``CHECK``).
+V-cycles and GMG-preconditioned CG) and :func:`gcr` (GCG and GCR) —
+each with phases (``INIT``, ``CHECK``, ``DECIDE``; the refinement's
+``INIT`` and ``ROUND``; ``mg``'s ``INIT`` and ``CHECK``; ``gcr``'s
+``INIT``, ``CYCLE``, ``STEP`` and ``END``).
 
 The state lives in a :class:`Block`: one byte tensor per loop program,
 holding a :class:`Region` per loop (the refiner's and its inner PCG's),
@@ -59,6 +60,7 @@ SMALLREAL2 = 1e-40
 INIT, CHECK, DECIDE = 0, 1, 2
 ROUND = 1
 CYCLE, ARNOLDI, SOLVE, RESTART = 1, 2, 3, 4       # GMRES's, after INIT
+STEP, END = 2, 3                                  # GCR's, after CYCLE
 
 # the GMRES family's restart and stagnation rules (krylov/gmres.py)
 CR_MAX = 0.99     # cos(8 deg)  (reference: KryPvgmres.c:79)
@@ -89,7 +91,7 @@ I = _fields("LoopI")
 # kernel launches per entry point; incremented only where a launch is
 # issued (a resident solve adds its device-counted executions)
 launches = {"pcg": 0, "bicgstab": 0, "minres": 0, "refine": 0,
-            "gmres": 0, "mg": 0}
+            "gmres": 0, "mg": 0, "gcr": 0}
 
 
 def reset_launches() -> None:
@@ -196,6 +198,12 @@ def mg_values(tol, maxit, form: str) -> dict:
     (a key of :data:`MG_FORMS`)."""
     return {("f", F.TOL): tol, ("i", I.MAXIT): maxit,
             ("i", I.FORM): MG_FORMS[form]}
+
+
+def gcr_values(tol, abstol, maxit, stop_type) -> dict:
+    """GCG / GCR's outer region's parameters for :meth:`Block.upload`."""
+    return {("f", F.TOL): tol, ("f", F.ABSTOL): abstol,
+            ("i", I.MAXIT): maxit, ("i", I.STOP): int(stop_type)}
 
 
 def gmres_arrays(R: int) -> int:
@@ -449,6 +457,43 @@ def mg_plain(phase: int, inp: torch.Tensor, reg: Region) -> None:
     i[I.CONT] = more & (i[I.IT] < i[I.MAXIT])
 
 
+def gcr_plain(phase: int, inp: torch.Tensor, reg: Region, inner: Region,
+              R: int) -> None:
+    """GCG / GCR's control on CPU regions (``gcr_control``): ``reg`` the
+    restart cycles' (j in ``I.J``), ``inner`` the descent steps', R the
+    window."""
+    f, i = reg.f, reg.i
+    small = _c(SMALLREAL, f.dtype)
+    if phase == INIT:
+        _init_norms(inp[0], inp[1], f, i, False)
+        i[I.J] = 0
+        return
+    if phase == CYCLE:
+        i[I.J] = 0
+        inner.i[I.CONT] = 0 < R and bool(i[I.IT] < i[I.MAXIT])
+        return
+    if phase == STEP:
+        j = int(i[I.J]) + 1
+        brk = bool(inp[0] <= small) or bool(inp[1] / f[F.NORMR0] < f[F.TOL])
+        i[I.J] = j
+        inner.i[I.NBODY] += 1
+        inner.i[I.CONT] = (j < R and bool(i[I.IT] + j < i[I.MAXIT])
+                           and not brk)
+        return
+    mod = int(i[I.STOP]) == StopType.MOD_REL_RES
+    j = int(i[I.J])
+    i[I.IT] += j
+    normu = _pymax(small, _sqrt(inp[1]))
+    relres = inp[0] / (normu if mod else f[F.NORMR0])
+    done = bool(relres < f[F.TOL]) or j == 0
+    f[F.ABSRES] = inp[0]
+    f[F.RELRES] = relres
+    f[F.NORMU_NEW] = normu
+    i[I.STATUS] = 0
+    i[I.NBODY] += 1
+    i[I.CONT] = not done and bool(i[I.IT] < i[I.MAXIT])
+
+
 PLAIN = {"pcg": pcg_plain, "bicgstab": bicgstab_plain,
          "minres": minres_plain, "mg": mg_plain}
 
@@ -601,6 +646,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype, fn.argtypes = i32, [i32, p, p, p, p, u64, p]
         fn = getattr(lib, f"fasp_loop_gmres_{dt}")
         fn.restype, fn.argtypes = i32, [i32, p, p, p, p, p, i32, u64, p]
+        fn = getattr(lib, f"fasp_loop_gcr_{dt}")
+        fn.restype, fn.argtypes = i32, [i32, p, p, p, p, i32, u64, p]
     sig = {"fasp_loop_empty": [p],
            "fasp_graph_create": [p], "fasp_graph_destroy": [p],
            "fasp_graph_handle": [p, p],
@@ -737,6 +784,34 @@ def gmres(phase: int, inp: torch.Tensor, reg: Region, inner: Region,
              torch.cuda.current_stream(reg.f.device).cuda_stream)
     check(err, "loop_control gmres launch")
     launches["gmres"] += 1
+
+
+def gcr(phase: int, inp: torch.Tensor, reg: Region, inner: Region,
+        R: int) -> None:
+    """GCG / GCR's control, phase ``phase`` (``INIT``, ``CYCLE``,
+    ``STEP``, ``END``) over the restart cycles' region ``reg``, the
+    descent steps' ``inner`` (window R) and the body's values ``inp``
+    (1-d, the regions' dtype; read by ``INIT``, ``STEP`` and ``END``):
+    the twin on the CPU, else the kernel, setting the outer WHILE handle
+    at ``INIT`` and ``END`` and the inner one at ``CYCLE`` and ``STEP``."""
+    inp = _device_args(inp, reg)
+    if inner.f.device != reg.f.device or inner.dtype != reg.dtype:
+        raise ValueError("GCR control: regions differ in device or dtype")
+    if reg.f.device.type == "cpu":
+        return gcr_plain(phase, inp, reg, inner, R)
+    if reg.f.device.type != "cuda":
+        raise ValueError(f"no loop-control kernel for device {reg.f.device}")
+    if reg.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"loop control takes f32/f64, got {reg.dtype}")
+    lib = library()
+    fn = (lib.fasp_loop_gcr_f32 if reg.dtype == torch.float32
+          else lib.fasp_loop_gcr_f64)
+    h = reg.h_while if phase in (INIT, END) else inner.h_while
+    err = fn(phase, inp.data_ptr(), reg.f.data_ptr(), reg.i.data_ptr(),
+             inner.i.data_ptr(), R, h,
+             torch.cuda.current_stream(reg.f.device).cuda_stream)
+    check(err, "loop_control gcr launch")
+    launches["gcr"] += 1
 
 
 def launch_empty(device) -> None:

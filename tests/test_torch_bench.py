@@ -63,7 +63,8 @@ DROPPED = {"general_pack_s", "fe_auto_warn"}
 COUNTERS = {"cold_solve_s", "host_syncs", "graph_captures", "graph_replays",
             "graph_nodes_replayed", "stencil_launches",
             "loop_control_launches"}
-ADDED = ({"device_name", "power_limit_w", "chain_launches_per_rep"}
+ADDED = ({"device_name", "power_limit_w", "chain_launches_per_rep",
+          "spe01_inner_solves", "spe01_host_syncs", "spe01_graph_replays"}
          | COUNTERS | {f"{p}{k}" for p in ("general_", "fe_auto_")
                        for k in COUNTERS})
 
@@ -200,6 +201,8 @@ def test_card_checks_name_each_fault(run):
     good = dict(run[0]["detail"], refine_rounds=2, inner_iters=20,
                 general_rounds=2, general_inner_iters=17,
                 fe_auto_inner_iters=28, spe01_inner_iters=100,
+                spe01_inner_solves=3, spe01_host_syncs=6,
+                spe01_graph_replays=3,
                 stencil_launches={"float32": 319, "float64": 2},
                 chain_launches_per_rep={
                     c: {"1": 1, "8": 8} for c in chip_smoke.BENCH_CHAINS},
@@ -212,6 +215,7 @@ def test_card_checks_name_each_fault(run):
               dict(general_rounds=4), dict(general_inner_iters=13),
               dict(fe_auto_inner_iters=32), dict(spe01_inner_iters=106),
               dict(fe_auto_graph_replays=0), dict(graph_captures=1),
+              dict(spe01_graph_replays=2), dict(spe01_host_syncs=9),
               dict(graph_replays=44), dict(host_syncs=27),
               dict(general_loop_control_launches=0),
               dict(stencil_launches={"float32": 319, "float64": 0}),

@@ -980,3 +980,139 @@ def test_resident_mg_raises_when_its_capture_fails():
     assert hier.capturable
     with pytest.raises(RuntimeError):
         amg_solve(hier, b, tol=1e-10, maxit=40)
+
+
+@pytest.mark.cuda
+def test_gcr_control_kernel_is_bit_equal_to_its_twin():
+    """The ``gcr`` entry point of csrc/loop_control.cu over chip_smoke's
+    GCR_CASES (every branch, the three stop types, NaN), f32 and f64:
+    the state block after each step bit-equal to the plain twin's on the
+    CPU."""
+    _need_cuda()
+    import chip_smoke
+    for name in chip_smoke.GCR_CASES:
+        for dt in (torch.float32, torch.float64):
+            got = chip_smoke.gcr_case_blocks(torch, name, dt, "cuda",
+                                             plain=False)
+            want = chip_smoke.gcr_case_blocks(torch, name, dt, "cpu",
+                                              plain=True)
+            for k, (g, w) in enumerate(zip(got, want)):
+                assert torch.equal(g, w), (name, dt, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["jacobi", "amg"])
+@pytest.mark.parametrize("method", ["gcr", "gcg"])
+def test_resident_gcr_reads_once_and_equals_the_eager_loop(method,
+                                                           precond):
+    """GCR(12) and GCG (its full-memory window) resident over Jacobi (f64)
+    and structured AMG (f32) on poisson_2d(127): one program launch and
+    one host read per solve, cold and warm, x bit-equal to the eager
+    loop's on the card with equal iterations and status, the eager
+    loop's reads 1 + steps + cycles, and the warm solve's launches equal
+    the eager loop's."""
+    _need_cuda()
+    from faspsolver_tpu_torch import krylov
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    op64, jac, b64, hier, b32 = _gmres_problem()
+    op, b = (op64, b64) if precond == "jacobi" else (hier.levels[0].A, b32)
+    kw = {"restart": 12} if method == "gcr" else {}
+    solve = lambda: getattr(krylov, method)(  # noqa: E731
+        op, b, M=jac if precond == "jacobi" else AMGPrecond(hier),
+        tol=1e-8 if precond == "jacobi" else 1e-5, maxit=300, **kw)
+    (cold, _, r_cold), (warm, n_warm, r_warm), (eager, n_e, r_e) = \
+        _graphed_and_eager(solve)
+    assert (r_cold, r_warm, r_e) == (1, 1, 0)
+    for got in (cold, warm):
+        assert torch.equal(got.x, eager.x)
+        assert (got.iters, got.status, got.syncs) == (eager.iters,
+                                                      eager.status, 1)
+        assert got.resident and not eager.resident
+    assert eager.iters > 3 and eager.syncs > 1 + eager.iters
+    assert n_warm == n_e and n_e["gcr"] > 0
+
+
+@pytest.mark.cuda
+def test_resident_gcr_raises_when_its_capture_fails():
+    """A preconditioner that declares itself capturable but reads the
+    host in its apply: the resident GCR raises at its capture and does
+    not run the eager loop instead."""
+    _need_cuda()
+    from faspsolver_tpu_torch.krylov import gcr
+
+    class HostReading(torch.nn.Module):
+        capturable = True
+
+        def forward(self, r):
+            return r * float(r.abs().max() > 0)
+
+    op64, _, b64, _, _ = _gmres_problem()
+    with pytest.raises(RuntimeError):
+        gcr(op64, b64, M=HostReading(), tol=1e-8, maxit=50, restart=10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["vFGMRES + UA-BSR", "CG + block Jacobi",
+                                  "refined f32 vFGMRES + UA-BSR"])
+def test_resident_bsr_solves_read_once_and_equal_the_eager_loop(case):
+    """The block path resident on block_poisson_3d(10, nb=3): vFGMRES(30)
+    over UA-BSR (f64), CG over block Jacobi (f64) and the refined
+    stanza's f32 vFGMRES over UA-BSR inside solve_refined.  Each solve
+    is one program launch and one host read (the refined one: per inner
+    solve, beside the refinement's own read per round); the eager loop
+    on the card gives the same count and x, bit for bit over block
+    Jacobi, and within the atomics' reach over UA-BSR (its restriction
+    adds with index_add_): chip_smoke.X_DIFF_LIMITS of |x| by dtype."""
+    _need_cuda()
+    import chip_smoke
+    from faspsolver_tpu_torch.krylov import BlockJacobiPrecond, pcg, vfgmres
+    from faspsolver_tpu_torch.ops import device_operator
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    from faspsolver_tpu_torch.precond.amg import setup_ua_bsr
+    from faspsolver_tpu_torch.solvers import solve_refined
+    from faspsolver_tpu_torch.utils.params import AMGParam
+    A, b = chip_smoke.bsr_problem(10)
+    refined = case.startswith("refined")
+    dt = torch.float32 if refined else torch.float64
+    op = device_operator(A, dtype=dt).to("cuda")
+    if case == "CG + block Jacobi":
+        M = BlockJacobiPrecond.from_bsr(A, dt).to("cuda")
+    else:
+        M = AMGPrecond(setup_ua_bsr(A, AMGParam(
+            AMG_type=3, coarse_dof=30, aggregation_type=2,
+            strong_coupled=0.08), dtype=dt, device="cuda"))
+    bt = torch.as_tensor(b, dtype=dt, device="cuda")
+
+    def solve():
+        if case == "CG + block Jacobi":
+            return pcg(op, bt, M=M, tol=1e-9, maxit=2000)
+        if not refined:
+            return vfgmres(op, bt, M=M, tol=1e-9, maxit=500, restart=30)
+        return solve_refined(A, b, lambda r, tol: vfgmres(
+            op, r, M=M, tol=tol, maxit=100, restart=30), tol=1e-6,
+            max_rounds=4, dtype=torch.float32, device="cuda")
+
+    (cold, _, r_cold), (warm, _, r_warm), (eager, _, r_e) = \
+        _graphed_and_eager(solve)
+    if refined:
+        assert r_cold == r_warm == cold.rounds and r_e == 0
+        assert cold.syncs == warm.syncs == 2 * cold.rounds
+        assert eager.syncs > eager.inner_iters
+        pairs = [(cold.inner_iters, eager.inner_iters),
+                 (warm.inner_iters, eager.inner_iters)]
+        xs = [(torch.as_tensor(g.x), torch.as_tensor(eager.x))
+              for g in (cold, warm)]
+    else:
+        assert (r_cold, r_warm, r_e) == (1, 1, 0)
+        assert cold.syncs == warm.syncs == 1
+        assert cold.resident and warm.resident and not eager.resident
+        assert eager.syncs > eager.iters
+        pairs = [(cold.iters, eager.iters), (warm.iters, eager.iters)]
+        xs = [(g.x, eager.x) for g in (cold, warm)]
+    assert all(g == e > 3 for g, e in pairs), pairs
+    for g, e in xs:
+        if case == "CG + block Jacobi":
+            assert torch.equal(g, e)
+        else:
+            diff = float((g - e).norm() / e.norm())
+            assert diff <= chip_smoke.X_DIFF_LIMITS[str(dt)[6:]], diff

@@ -15,7 +15,11 @@ path bit for bit; so are AMG as a solver and FAMG (their state kept
 with the hierarchy) and GMG's two loops (kept in the module's cache by
 loop, size, dimension, full-MG start, dtype and device).  The graphs
 themselves run on the card:
-``tests/test_torch_gpu.py``."""
+``tests/test_torch_gpu.py``.  GCG / GCR's nested While run the same way
+in the card's arithmetic, and the block (BSR) path's modules declare
+themselves capturable (a UA or SA hierarchy with or without its
+near-kernel basis, block Jacobi, the near-kernel preconditioner), so
+its vFGMRES, CG and near-kernel solves run resident too."""
 import copy
 import importlib
 
@@ -464,3 +468,135 @@ def test_graphed_gmg_loops_are_kept_per_key_and_are_the_eager_loop(
     assert [m[0].shape for m in st.masks] == [(17, 17), (9, 9), (5, 5)]
     gmg.clear_programs()
     assert not gmg._PROGRAMS
+
+
+@pytest.mark.parametrize("method", ["gcr", "gcg"])
+def test_graphed_gcr_control_flow_is_the_eager_loop(graphed_on_cpu,
+                                                    monkeypatch, method):
+    """GCG / GCR's nested While (restart cycles around descent steps) run
+    as the device runs its graph, in the card's arithmetic (masked
+    full-window products, j a device index), over structured AMG, two
+    windows: x bit for bit the eager loop's with equal counts, one host
+    read per resident solve against the eager loop's 1 + steps + cycles,
+    and one kept state per window (the second solve of a window makes no
+    new program)."""
+    from faspsolver_tpu_torch import krylov
+    monkeypatch.setattr(importlib.import_module(
+        "faspsolver_tpu_torch.krylov.gcg_gcr"), "_on_host", lambda b: False)
+    hier = _structured()
+    op = hier.levels[0].A
+    b = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        op.shape[0]))
+    fn = getattr(krylov, method)
+
+    def loops_made():
+        return sum(type(p).__name__ == "Emulated" for p in graphed_on_cpu)
+
+    for restart in (5, 9):
+        kw = dict(M=AMGPrecond(hier), tol=1e-10, maxit=80, restart=restart)
+        with graphs.eager():
+            want = fn(op, b, **kw)
+        made = loops_made()
+        got = [fn(op, b, **kw) for _ in range(2)]
+        assert loops_made() == made + 1
+        for g in got:
+            assert torch.equal(g.x, want.x)
+            assert (g.iters, g.status, g.converged) == (
+                want.iters, want.status, want.converged)
+            assert g.syncs == 1 and want.syncs > 1 + want.iters
+            assert g.resident and not want.resident
+        assert graphs.peek(op, ("gcr", int(StopType.REL_RES), False,
+                                restart)) is not None
+
+
+def _bsr_hierarchy(kind, nk):
+    import chip_smoke
+    from faspsolver_tpu_torch.precond.amg import setup_sa_bsr, setup_ua_bsr
+    A, b = chip_smoke.bsr_problem(6)
+    basis = chip_smoke.component_basis(A.nrow, A.nb) if nk else None
+    setup = setup_ua_bsr if kind == "UA" else setup_sa_bsr
+    hier = setup(A, AMGParam(AMG_type=3 if kind == "UA" else 2,
+                             aggregation_type=2, coarse_dof=30, smoother=2),
+                 dtype=torch.float64, nk=basis)
+    return A, b, hier
+
+
+@pytest.mark.parametrize("nk", [False, True], ids=["plain", "near-kernel"])
+@pytest.mark.parametrize("kind", ["UA", "SA"])
+def test_a_bsr_hierarchy_is_capturable(kind, nk):
+    """setup_bsr's levels (BsrEllOperator, block smoother data and its
+    color blocks, the transfers, the near-kernel data) each declare
+    themselves capturable, so the hierarchy and its AMG preconditioner
+    are."""
+    from faspsolver_tpu_torch.ops.operators import BsrEllOperator
+    from faspsolver_tpu_torch.precond.amg import (BsrColorBlock,
+                                                  BsrSmootherData)
+    _, _, hier = _bsr_hierarchy(kind, nk)
+    assert hier.num_levels > 1
+    for lvl in hier.levels:
+        assert isinstance(lvl.A, BsrEllOperator) and graphs.capturable(lvl.A)
+        assert (lvl.nk is not None) == nk
+        if lvl.smoother is not None:
+            assert isinstance(lvl.smoother, BsrSmootherData)
+            assert graphs.capturable(lvl.smoother)
+            assert all(isinstance(c, BsrColorBlock) and graphs.capturable(c)
+                       for c in lvl.smoother.colors)
+    assert hier.capturable
+    assert AMGPrecond(hier).capturable and FMGPrecond(hier).capturable
+
+
+def test_block_jacobi_and_near_kernel_preconditioners_are_capturable():
+    """Block Jacobi declares itself capturable; the near-kernel
+    preconditioner is when its cycles and its operator are (a BSR or a
+    CSR operator), and is not over a MatFree operator."""
+    import chip_smoke
+    from faspsolver_tpu_torch.krylov import BlockJacobiPrecond
+    from faspsolver_tpu_torch.ops.operators import device_operator
+    from faspsolver_tpu_torch.precond import AMGNKPrecond
+    A, _, hier = _bsr_hierarchy("UA", False)
+    assert graphs.capturable(BlockJacobiPrecond.from_bsr(A))
+    basis = torch.from_numpy(chip_smoke.component_basis(A.nrow, A.nb))
+    gram = torch.eye(A.nb, dtype=torch.float64)
+    op = device_operator(A)
+    csr = device_operator(A.to_csr())
+    for A_op, want in ((op, True), (csr, True),
+                       (MatFreeOperator(op, A.nrow, torch.float64), False)):
+        assert graphs.capturable(AMGNKPrecond(hier, basis, gram,
+                                              A_op)) == want
+
+
+@pytest.mark.parametrize("case", ["vfgmres UA", "vfgmres SA near-kernel",
+                                  "cg block Jacobi", "vfgmres AMG-nk"])
+def test_graphed_bsr_solves_are_the_eager_loop(graphed_on_cpu, case):
+    """vFGMRES over UA-BSR and over SA-BSR with its near-kernel basis, CG
+    over block Jacobi and vFGMRES over the near-kernel preconditioner on
+    block_poisson_3d(6, nb=3) run as the device runs their graph: x bit
+    for bit the eager loop's, equal counts, one host read per resident
+    solve."""
+    import chip_smoke
+    from faspsolver_tpu_torch.krylov import BlockJacobiPrecond, vfgmres
+    from faspsolver_tpu_torch.ops.operators import device_operator
+    from faspsolver_tpu_torch.precond import AMGNKPrecond
+    kind = "SA" if "SA" in case else "UA"
+    A, b, hier = _bsr_hierarchy(kind, "near-kernel" in case)
+    op = device_operator(A)
+    bt = torch.from_numpy(b)
+    if case == "cg block Jacobi":
+        M = BlockJacobiPrecond.from_bsr(A)
+        solve = lambda: pcg(op, bt, M=M, tol=1e-9, maxit=300)  # noqa: E731
+    else:
+        if case == "vfgmres AMG-nk":
+            basis = chip_smoke.component_basis(A.nrow, A.nb)
+            gram = np.linalg.pinv(basis.T @ (A.to_scipy() @ basis))
+            M = AMGNKPrecond(hier, torch.from_numpy(basis),
+                             torch.from_numpy(gram), op)
+        else:
+            M = AMGPrecond(hier)
+        solve = lambda: vfgmres(op, bt, M=M, tol=1e-9,  # noqa: E731
+                                maxit=200, restart=30)
+    with graphs.eager():
+        want = solve()
+    got = solve()
+    assert graphed_on_cpu and got.resident and not want.resident
+    assert torch.equal(got.x, want.x) and got.iters == want.iters > 3
+    assert got.syncs == 1 and want.syncs > want.iters

@@ -37,6 +37,13 @@ it, on the CPU.
    against the JAX function on the same hierarchy or grid (x within
    atol 1e-10, equal counts; a NaN relres runs AMG to maxit and stops
    GMG, in both packages).
+6. GCG / GCR's control (``loops.gcr_plain``) against the host loop's
+   NumPy scalars as they stood (the step's breakdown and residual test,
+   the cycle's true-residual test) over chip_smoke.GCR_CASES and over the
+   control sequences of real solves; the loop tree on the CPU against a
+   copy of that host loop (``_host_loop_gcr``), bit for bit with its
+   reads; and the tree against the JAX ``gcr`` / ``gcg`` in f64, in the
+   CPU's arithmetic and in the card's (masked full-window products).
 The kernel itself runs only on the card: ``tests/test_torch_gpu.py`` and
 chip_smoke.py's phase 3 hold it bit-equal to the twin."""
 import importlib
@@ -1277,3 +1284,263 @@ def test_mg_trees_on_a_nan_right_hand_side_stop_as_in_jax(mg_pairs):
             ref = getattr(jax_gmg, fn)(jnp.asarray(f), 16)
         assert got.iters == int(ref.iters) == 0 and got.syncs == 1, fn
         assert not got.converged and not bool(ref.converged)
+
+
+# ---------------------------------------------------------------------------
+# GCG / GCR: the control against the host loop, the tree against it and JAX
+# ---------------------------------------------------------------------------
+
+GCR = ("gcr", "gcg")
+GCR_MODULE = importlib.import_module("faspsolver_tpu_torch.krylov.gcg_gcr")
+
+
+def _numpy_gcr(phase, inp, f, i, ia, R):
+    """One GCR control step as the host loop took it (NumPy scalars of
+    b's dtype) on NumPy copies of the regions, updated in place."""
+    t = f.dtype.type
+    small = t(loops.SMALLREAL)
+    if phase == loops.INIT:
+        _numpy_control("pcg", loops.INIT, inp[:2], f, i)
+        i[I.J] = 0
+        return
+    if phase == loops.CYCLE:
+        i[I.J] = 0
+        ia[I.CONT] = 0 < R and i[I.IT] < i[I.MAXIT]
+        return
+    qn, rn = (t(v) for v in inp[:2])
+    if phase == loops.STEP:
+        brk = qn <= small or rn / f[F.NORMR0] < f[F.TOL]
+        i[I.J] += 1
+        ia[I.NBODY] += 1
+        ia[I.CONT] = i[I.J] < R and i[I.IT] + i[I.J] < i[I.MAXIT] \
+            and not brk
+        return
+    absres, xx = qn, rn
+    mod = i[I.STOP] == StopType.MOD_REL_RES
+    i[I.IT] += i[I.J]
+    normu = max(small, np.sqrt(xx))
+    relres = absres / (normu if mod else f[F.NORMR0])
+    done = bool(relres < f[F.TOL]) or i[I.J] == 0
+    f[F.ABSRES], f[F.RELRES], f[F.NORMU_NEW] = absres, relres, normu
+    i[I.STATUS] = 0
+    i[I.NBODY] += 1
+    i[I.CONT] = not done and i[I.IT] < i[I.MAXIT]
+
+
+def _numpy_gcr_blocks(name, dtype):
+    """chip_smoke.GCR_CASES[name] through :func:`_numpy_gcr`: the block's
+    bytes after every step."""
+    blk, _, _, R = chip_smoke.gcr_case_state(torch, name, dtype, "cpu")
+    raw = blk.bytes.numpy()
+    host = blk.decode(raw)
+    out = []
+    for phase, vals in chip_smoke.GCR_CASES[name][1]:
+        _numpy_gcr(phase, np.asarray(vals or [0.0]), host["gcr"].f,
+                   host["gcr"].i, host["descent"].i, R)
+        out.append(torch.from_numpy(raw.copy()))
+    return out
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(chip_smoke.GCR_CASES))
+def test_gcr_twin_decides_as_the_host_loop_on_the_edge_cases(name, dt):
+    want = _numpy_gcr_blocks(name, DTYPES[dt])
+    got = chip_smoke.gcr_case_blocks(torch, name, DTYPES[dt], "cpu",
+                                     plain=True)
+    assert len(got) == len(want)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), (name, dt, k)
+
+
+def test_the_gcr_cases_take_their_branches():
+    """What the cases are there for, read from the twin's last block:
+    the entry test, a breakdown ending a window after its first step, a
+    claim the true residual refutes, maxit inside a window, j == 0
+    ending the outer loop, NaN running to maxit, and convergence under
+    each stop type."""
+    def last(name, dt=torch.float64):
+        blk = chip_smoke.gcr_case_blocks(torch, name, dt, "cpu",
+                                         plain=True)[-1]
+        ref, *_ = chip_smoke.gcr_case_state(torch, name, dt, "cpu")
+        host = ref.decode(blk.numpy())
+        return host["gcr"], host["descent"]
+
+    def after(name, k):
+        blk = chip_smoke.gcr_case_blocks(torch, name, torch.float64, "cpu",
+                                         plain=True)[k]
+        ref, *_ = chip_smoke.gcr_case_state(torch, name, torch.float64,
+                                            "cpu")
+        host = ref.decode(blk.numpy())
+        return host["gcr"], host["descent"]
+
+    o, _ = last("gcr done at entry")
+    assert o.i[I.CONT] == 0 and o.f[F.ABSRES0] < 1e-18   # absres0 < abstol
+    assert last("gcr maxit 0")[0].i[I.CONT] == 0
+    o, d = after("gcr breakdown at step 0", 2)
+    assert d.i[I.CONT] == 0 and o.i[I.J] == 1
+    o, d = after("gcr breakdown at step 0", 3)
+    assert o.i[I.CONT] == 1 and o.i[I.IT] == 1
+    o, d = after("gcr tol met mid-window", 3)
+    assert d.i[I.CONT] == 0 and o.i[I.J] == 2
+    o, d = after("gcr relres exactly tol", 2)
+    assert d.i[I.CONT] == 1
+    o, _ = after("gcr relres exactly tol", 4)
+    assert o.i[I.CONT] == 1
+    o, _ = after("gcr false claim restarts", 3)
+    assert o.i[I.CONT] == 1 and o.i[I.IT] == 1
+    o, d = after("gcr full window restarts", 4)
+    assert d.i[I.CONT] == 0 and o.i[I.J] == 3
+    o, d = after("gcr maxit inside a window", 9)
+    assert d.i[I.CONT] == 0 and o.i[I.J] == 2
+    o, _ = last("gcr maxit inside a window")
+    assert o.i[I.IT] == 6 and o.i[I.CONT] == 0
+    o, d = after("gcr empty window ends", 1)
+    assert d.i[I.CONT] == 0
+    o, _ = last("gcr empty window ends")
+    assert o.i[I.CONT] == 0 and o.i[I.IT] == 0 and o.f[F.RELRES] == 1.0
+    o, d = last("gcr NaN runs to maxit")
+    assert o.i[I.IT] == 3 and o.i[I.CONT] == 0 and np.isnan(o.f[F.RELRES])
+    assert d.i[I.NBODY] == 3
+    for name, stop in (("gcr MOD_REL_RES", 3), ("gcr REL_PRECRES", 2)):
+        o, _ = last(name)
+        assert o.i[I.STOP] == stop and o.i[I.CONT] == 0
+        assert o.f[F.RELRES] < 1e-6 and o.i[I.STATUS] == 0
+
+
+@pytest.fixture
+def checked_gcr_twin(monkeypatch):
+    """Every GCR twin call of a solve also run through the host loop's
+    NumPy arithmetic on copies of the regions before it, and the two held
+    bit-equal.  Returns the calls checked, by phase."""
+    calls = {}
+    twin = loops.gcr_plain
+
+    def run(phase, inp, reg, inner, R):
+        f0, i0, ia0 = (reg.f.numpy().copy(), reg.i.numpy().copy(),
+                       inner.i.numpy().copy())
+        _numpy_gcr(phase, inp.numpy(), f0, i0, ia0, R)
+        twin(phase, inp, reg, inner, R)
+        assert np.array_equal(_bits(reg.f.numpy()), _bits(f0)), phase
+        assert np.array_equal(reg.i.numpy(), i0), phase
+        assert np.array_equal(inner.i.numpy(), ia0), phase
+        calls[phase] = calls.get(phase, 0) + 1
+
+    monkeypatch.setattr(loops, "gcr_plain", run)
+    return calls
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("method", GCR)
+def test_gcr_twin_computes_as_the_host_loop_in_real_solves(
+        checked_gcr_twin, method, dt):
+    A, b = _problem("fe")
+    op = device_operator(A, dtype=DTYPES[dt])
+    M = tk.JacobiPrecond.from_csr(A, DTYPES[dt])
+    res = getattr(tk, method)(op, torch.from_numpy(b).to(DTYPES[dt]), M=M,
+                              tol=1e-8 if dt == "f64" else 1e-5, maxit=200,
+                              restart=10, stop_type=int(StopType.MOD_REL_RES))
+    assert res.iters > 10
+    assert checked_gcr_twin[loops.STEP] == res.iters
+    assert checked_gcr_twin[loops.END] >= 2
+
+
+def _host_loop_gcr(A, b, M, tol, maxit, restart, stop_type):
+    """GCR's host loop as it stood before its loop tree (a copy): CGS2
+    over the first j rows of P and Q, (qn, |r|) read after every step,
+    the true residual once per cycle.  Returns (x, iterations, relres,
+    host reads)."""
+    from faspsolver_tpu_torch.krylov.common import (
+        HostReads, abs_residual, initial_norms, residual_norms)
+    host = HostReads(b.dtype)
+    t = host.t
+    tol, abstol = t(tol), t(1e-18)
+    small = t(loops.SMALLREAL)
+    R = int(min(restart, maxit))
+    n = b.shape[0]
+    x = torch.zeros_like(b)
+    r = b - A(x)
+    absres0, normr0, _, relres = initial_norms(
+        stop_type, *host(abs_residual(stop_type, r, M(r)),
+                         torch.dot(x, x)))
+    done = bool(relres < tol) or bool(absres0 < abstol)
+    P = torch.zeros((R, n), dtype=b.dtype)
+    Q = torch.zeros((R, n), dtype=b.dtype)
+    it = 0
+    while not done and it < maxit:
+        j, brk = 0, False
+        while j < R and it + j < maxit and not brk:
+            p = M(r)
+            q = A(p)
+            Pj, Qj = P[:j], Q[:j]
+            h1 = Qj @ q
+            p = p - h1 @ Pj
+            q = q - h1 @ Qj
+            h2 = Qj @ q
+            p = p - h2 @ Pj
+            q = q - h2 @ Qj
+            qn = torch.sqrt(torch.dot(q, q))
+            bad = qn <= loops.SMALLREAL
+            inv = torch.where(bad, torch.zeros_like(qn),
+                              1.0 / torch.where(bad, torch.ones_like(qn), qn))
+            p = p * inv
+            q = q * inv
+            alpha = torch.dot(q, r)
+            x = x + alpha * p
+            r = r - alpha * q
+            P[j] = p
+            Q[j] = q
+            qn_h, rn = host(qn, torch.sqrt(torch.dot(r, r)))
+            brk = qn_h <= small or rn / normr0 < tol
+            j += 1
+        it += j
+        r = b - A(x)
+        z = M(r) if stop_type == StopType.REL_PRECRES else r
+        absres, xx = host(abs_residual(stop_type, r, z), torch.dot(x, x))
+        relres = residual_norms(stop_type, absres, normr0,
+                                max(small, np.sqrt(xx)))[1]
+        done = bool(relres < tol) or j == 0
+    return x, it, float(relres), host.count
+
+
+@pytest.mark.parametrize("stop", [1, 2, 3])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("method", GCR)
+def test_gcr_tree_on_the_cpu_computes_as_the_host_loop(method, dt, stop):
+    """On the CPU the loop tree gives the host loop's numbers bit for bit
+    (:func:`_host_loop_gcr`): x, iterations, relres and the reads (1 +
+    steps + cycles), for GCR's window, GCG's full-memory one and an
+    empty window."""
+    A, b = _problem("fe")
+    op = device_operator(A, dtype=DTYPES[dt])
+    M = tk.JacobiPrecond.from_csr(A, DTYPES[dt])
+    bt = torch.from_numpy(b).to(DTYPES[dt])
+    tol = 1e-9 if dt == "f64" else 1e-5
+    for restart in ((7, 0) if method == "gcr" else (None, 5)):
+        kw = {} if restart is None else {"restart": restart}
+        got = getattr(tk, method)(op, bt, M=M, tol=tol, maxit=150,
+                                  stop_type=stop, **kw)
+        R = (max(8, min(150, 1024)) if restart is None else restart)
+        x, it, relres, syncs = _host_loop_gcr(op, bt, M, tol, 150, R, stop)
+        assert (got.iters, got.status, got.syncs) == (it, 0, syncs), restart
+        assert got.relres == relres and not got.resident
+        assert torch.equal(got.x, x), restart
+
+
+@pytest.mark.parametrize("arithmetic", ["cpu", "card"])
+@pytest.mark.parametrize("stop", [1, 3])
+@pytest.mark.parametrize("problem", ["poisson", "fe"])
+@pytest.mark.parametrize("method", GCR)
+def test_gcr_tree_matches_jax(monkeypatch, method, problem, stop,
+                              arithmetic):
+    """The eager loop tree against the JAX package on the CPU in f64 (tol
+    1e-10, restart 12 for GCR, GCG's full window), in the CPU's
+    arithmetic (products over the first j rows) and in the card's
+    (masked full-window products, j a device index): iterations and
+    status equal, x within 1e-10 of max |x|, and the eager loop's reads
+    more than its steps."""
+    if arithmetic == "card":
+        monkeypatch.setattr(GCR_MODULE, "_on_host", lambda b: False)
+    kw = {"restart": 12} if method == "gcr" else {}
+    got, ref, err = _jax_pair(method, problem, "f64", tol=1e-10, maxit=400,
+                              stop_type=stop, **kw)
+    assert got == ref and err <= 1e-10, (got, ref, err)

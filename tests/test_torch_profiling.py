@@ -2,8 +2,9 @@
 (``utils/profiling.py``): phase timing, byte counts, the memory report's
 format, and a trace that holds an annotated region."""
 import glob
+import itertools
 import json
-import time
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,20 +19,29 @@ from faspsolver_tpu_torch.utils.params import AMGParam
 torch.set_num_threads(2)
 
 
-def _phases(mod):
+def _phases(mod, monkeypatch):
+    """Three recorded phases and an unrecorded one, timed by a fake clock
+    that ticks 1.0 per read of ``time.perf_counter`` in ``mod`` alone:
+    each phase reads it twice, so it lasts exactly one tick (a real
+    sleep could oversleep under a loaded test run)."""
+    ticks = itertools.count()
+    monkeypatch.setattr(mod, "time", types.SimpleNamespace(
+        perf_counter=lambda: float(next(ticks))))
     results = {}
     for label in ("setup", "solve", "setup"):
         with mod.timed_phase(label, results):
-            time.sleep(0.01)
+            pass
     with mod.timed_phase("unrecorded"):
         pass
     return results
 
 
-def test_timed_phase_accumulates_as_jax_does():
-    got, ref = _phases(profiling), _phases(jax_profiling)
+def test_timed_phase_accumulates_as_jax_does(monkeypatch):
+    got = _phases(profiling, monkeypatch)
+    ref = _phases(jax_profiling, monkeypatch)
     assert list(got) == list(ref) == ["setup", "solve"]
-    assert got["setup"] >= 0.02 and 0.01 <= got["solve"] < got["setup"]
+    assert got == ref == {"setup": 2.0, "solve": 1.0}
+    assert got["solve"] < got["setup"]
 
 
 def test_tree_nbytes_counts_each_storage_of_a_hierarchy_once():
