@@ -80,7 +80,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ILUt under CG through the CLI on poisson_2d(1023), each apply timed as
    the eager loop over its levels and as the replay of its CUDA graph;
    (c) forward (GMRES) and symmetric (CG) Schwarz through the CLI on
-   poisson_2d(1023); (d) the ILU / Schwarz level smoothers, energy-min
+   poisson_2d(1023), each Krylov loop resident (one launch, one read)
+   and its solve rerun warm and as the eager loop, x bit-equal; (d) the
+   ILU / Schwarz level smoothers, energy-min
    interpolation, CR coarsening, ILU-M, ILUtp and Schwarz on
    poisson_fe_manufactured(64).  Each is held to its JAX count and its
    tolerance, and one BsrEll SpMV, block Gauss-Seidel sweep, block ILU,
@@ -93,17 +95,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    diagonal, vFGMRES + banded block ILU(0) / ILU(1), block Gauss-Seidel
    and Schwarz; (b) the same matrix field by field as a 3 x 3 BLC under
    the block preconditioner in its four modes, and poisson_3d(96) in 12
-   z-slabs (884,736 dof) under the sweeping preconditioner; (c) matrix-
+   z-slabs (884,736 dof) under the sweeping preconditioner; in (a) and
+   (b) every Krylov loop resident (one launch, one read), each row's
+   solve rerun warm and as the eager loop: the same count, x bit-equal
+   (within X_DIFF_LIMITS over BLC's UA-AMG blocks); (c) matrix-
    free geometric multigrid at n = 1024 (2-D) and 128 (3-D), held to the
-   O(h^2) error too, each row cold, warm and as the eager loop; (d) a MatFreeOperator over the f64 1023^2 stencil
-   operator (it must launch the f64 kernel) and through the six matfree
-   Krylov methods, maxeig on the host and on the card, and the four C
+   O(h^2) error too, each row cold, warm and as the eager loop; (d) a
+   MatFreeOperator over the f64 1023^2 stencil operator (it must launch
+   the f64 kernel) and over the ELL operator through the six matfree
+   Krylov methods, each loop resident (the wrapped operators declare
+   themselves capturable) and rerun warm and as the eager loop, maxeig
+   on the host and on the card, and the four C
    API functions.  Each count is held to its JAX count, and one apply of
    each new operator and preconditioner on the card against the CPU;
 11. the benchmark harness, checkpoint and profiling, every call through
    the port's entry points with no device argument: (a) the six
-   generated rows (65,025 to 1,046,529 dof) as run_generated("amg")
-   scores them in float64 (lMVU, a warm and a timed call of the whole
+   generated rows (29,791 to 1,046,529 dof; the largest 3-D row at 63^3,
+   HARNESS_3D) as run_generated("amg") scores them in float64 (lMVU, a warm and a timed call of the whole
    solver), x verified on the host, (b) the same in the f32 refined mode,
    (c) main(["--corpus"]) over the first ten corpus rows at 255^2 (all
    20 with --harness-only), each count held to the JAX package's CPU
@@ -183,6 +191,11 @@ after: its seconds, program launches and nodes, captures, capture
 seconds and graph MB, the memory reserved before and after, host syncs
 and launches; both dtypes and the loop-control kernel must have
 launched, and every solve must be one program launch and one host read.
+Phases 9a, 9c, 10a, 10b and 10d record every loop program of each row
+(:func:`loop_solves`): each must be resident, one launch and one read,
+and its first solve is rerun warm and as the eager loop, each printed
+with its seconds, host reads, program
+launches, nodes, captures, capture seconds and graph MB.
 Phase 4 runs the headline once more as the eager loop
 (``graphs.eager()``) and holds its x bit-equal to the resident solve's,
 with equal counts and launches, and the eager loop's reads (one per
@@ -451,6 +464,9 @@ BLC_GRID = [(f"vFGMRES + BLC {mode}", "krylov_block",
 SWEEP_N, SWEEP_SLABS = 96, 12
 SWEEP_GRID = [("vFGMRES + sweeping, 12 slabs", "krylov_sweeping",
                dict(its=_BSR_ITS), 43, 3)]
+# the sum of 10b's rows that adds with atomics on the card
+UA_ATOMIC = ("UA-AMG's restriction (AggRestrict) adds with index_add_, "
+             "atomic on the card")
 # (10c) matrix-free geometric multigrid: -Δu = f with f = dπ² Π sin(π x_i)
 # on the unit square (n = 1024: 1,046,529 interior unknowns) and cube
 # (n = 128: 2,048,383), default tol 1e-8: (name, function, dimension,
@@ -499,14 +515,18 @@ MAXEIG_ANCHOR = 8303774.513804946
 # vGMRES restarts; the f32 mode's rounding); a row that
 # reference_anomalies() flags is printed as such and held only to
 # convergence and its verified relres.  None of these anchors is flagged.
+# The generated rows' 3-D sizes: the harness's largest, 101^3 (1,030,301
+# dof), took 24-28 s a timed call on the H100 beside its warm call, so
+# the run keeps to its time budget with 63^3 (250,047 dof) in its place
+HARNESS_3D = (31, 47, 63)
 HARNESS_GEN_F64 = {
     "fdm2d-255x255": (6, ""), "fdm2d-511x511": (6, ""),
     "fdm2d-1023x1023": (6, ""), "fdm3d-31^3": (6, ""), "fdm3d-47^3": (6, ""),
-    "fdm3d-101^3": (6, "")}
+    "fdm3d-63^3": (6, "")}
 HARNESS_GEN_F32 = {
     "fdm2d-255x255": (8, ""), "fdm2d-511x511": (8, ""),
     "fdm2d-1023x1023": (9, ""), "fdm3d-31^3": (8, ""), "fdm3d-47^3": (8, ""),
-    "fdm3d-101^3": (8, "")}
+    "fdm3d-63^3": (8, "")}
 HARNESS_CORPUS_F64 = {
     "poisson2d": (6, ""), "poisson3d": (6, ""), "aniso-x-1e1": (5, ""),
     "aniso-x-1e2": (5, ""), "aniso-x-1e3": (4, ""), "aniso-y-1e1": (5, ""),
@@ -2296,20 +2316,32 @@ def krylov_solves(torch, kind):
         setattr(mod, name, real)
 
 
+def graph_growth(before):
+    """The graph counters' growth since ``before`` (a copy of
+    ``graphs.stats``): the graph nodes the launches ran, the captures,
+    their nodes and seconds, and the graph MB they reserved."""
+    from faspsolver_tpu_torch.utils import graphs
+    d = {k: graphs.stats[k] - v for k, v in before.items()}
+    return {"nodes": d["nodes_replayed"], "captures": d["captures"],
+            "graph_nodes": d["nodes_captured"], "capture_s": d["capture_s"],
+            "graph_mb": round(d["graph_bytes"] / 2**20, 1)}
+
+
 @contextlib.contextmanager
 def loop_solves(torch):
     """While the block runs, every loop program (``utils.graphs.run_loop``:
     the Krylov loops, the refiner, the multigrid loops, whatever entry
     point called it) is recorded: its loop (the module of its state),
     whether it ran resident, its host reads, program launches,
-    iterations and seconds (to its last host read).  The first resident
-    one runs twice more from the state it started from, resident again
-    (warm) and as the eager loop (``graphs.eager()``), each timed; their
+    iterations, seconds (to its last host read) and graph counters
+    (:func:`graph_growth`).  The first resident one runs twice more from
+    the state it started from, resident (warm) and as the eager loop
+    (``graphs.eager()``), each timed and counted; their
     launches and graph counters are taken back off (checks, not the
     path), and the state is put back as the first run left it, so its
     caller reads that run's result.  A loop run under ``graphs.eager()``
     (another check's rerun) is not recorded.  :func:`check_loop_resident`
-    holds the three runs together."""
+    holds the runs together."""
     from faspsolver_tpu_torch.krylov.common import HostReads
     from faspsolver_tpu_torch.ops import stencil2d
     from faspsolver_tpu_torch.utils import graphs, loops
@@ -2322,6 +2354,7 @@ def loop_solves(torch):
         first = resident and not any("eager_iters" in r for r in seen)
         start = [t.clone() for t in st.tensors()] if first else None
         reads, replays = host.count, graphs.stats["replays"]
+        before = dict(graphs.stats)
         t0 = time.perf_counter()
         vals = real(st, tree, host, resident)
         secs = time.perf_counter() - t0
@@ -2334,7 +2367,8 @@ def loop_solves(torch):
                "resident": resident, "syncs": host.count - reads,
                "launches": graphs.stats["replays"] - replays,
                "iters": iters(vals), "s": secs, "n": int(st.x.numel()),
-               "dtype": str(st.x.dtype).replace("torch.", "")}
+               "dtype": str(st.x.dtype).replace("torch.", ""),
+               **graph_growth(before)}
         if first:
             x = st.x.clone()
             end = [t.clone() for t in st.tensors()]
@@ -2345,15 +2379,16 @@ def loop_solves(torch):
                 for t, v in zip(st.tensors(), start):
                     t.copy_(v)
                 h = HostReads(st.x.dtype)
-                r0 = graphs.stats["replays"]
+                r0, g0 = graphs.stats["replays"], dict(graphs.stats)
                 t1 = time.perf_counter()
                 v = real(st, tree, h, res)
                 return (v, time.perf_counter() - t1, h.count,
-                        graphs.stats["replays"] - r0, st.x.clone())
+                        graphs.stats["replays"] - r0, st.x.clone(),
+                        graph_growth(g0))
 
-            warm, warm_s, warm_syncs, warm_launches, wx = again(True)
+            warm, warm_s, warm_syncs, warm_launches, wx, wg = again(True)
             with graphs.eager():
-                eager, eager_s, eager_syncs, _, ex = again(False)
+                eager, eager_s, eager_syncs, _, ex, eg = again(False)
             for t, v in zip(st.tensors(), end):
                 t.copy_(v)
             for counter, was in zip((stencil2d.launches, loops.launches,
@@ -2368,7 +2403,9 @@ def loop_solves(torch):
                        warm_bit_equal=torch.equal(wx, x),
                        warm_x_diff=diff(wx), eager_s=eager_s,
                        eager_syncs=eager_syncs, eager_iters=iters(eager),
-                       bit_equal=torch.equal(ex, x), x_diff=diff(ex))
+                       bit_equal=torch.equal(ex, x), x_diff=diff(ex),
+                       **{f"warm_{k}": v for k, v in wg.items()},
+                       **{f"eager_{k}": v for k, v in eg.items()})
         seen.append(rec)
         return vals
 
@@ -2379,13 +2416,21 @@ def loop_solves(torch):
         graphs.run_loop = real
 
 
+def _graph_counts(r, tag=""):
+    return (f"{r[tag + 'nodes']} nodes run, captures {r[tag + 'captures']} "
+            f"({r[tag + 'graph_nodes']} nodes, {r[tag + 'capture_s']:.3f} s, "
+            f"{r[tag + 'graph_mb']} MB)")
+
+
 def check_loop_resident(torch, device, label, seen, atomic=None):
-    """A phase-9a row's loop programs (:func:`loop_solves`): on the card
-    at least one ran, each resident with one program launch and one host
-    read, and the first agrees with its warm rerun and its eager loop:
-    the same count, x bit-equal or, where ``atomic`` names the sum that
-    adds with atomics, within X_DIFF_LIMIT of |x| (the dtype's limit,
-    X_DIFF_LIMITS).  Prints them; returns the faults (empty: none)."""
+    """A row's loop programs (:func:`loop_solves`): on the card at least
+    one ran, each resident with one program launch and one host read,
+    and the first agrees with its warm rerun and its eager loop: the
+    same count, x bit-equal or, where ``atomic`` names
+    the sum that adds with atomics, within X_DIFF_LIMIT of |x| (the
+    dtype's limit, X_DIFF_LIMITS).  Prints them, with their seconds,
+    host reads, program launches and graph counters; returns the faults
+    (empty: none)."""
     res = [r for r in seen if r["resident"]]
     twin = [r for r in res if "eager_iters" in r]
     print(f"    {label}: {len(seen)} loop solves "
@@ -2394,14 +2439,16 @@ def check_loop_resident(torch, device, label, seen, atomic=None):
           f"program launches {sorted({r['launches'] for r in res})})")
     for r in twin:
         print(f"      first resident {r['kind']} solve, n={r['n']} "
-              f"{r['dtype']}: {r['iters']} iterations, {r['s']:.4f} s "
-              f"cold; warm {r['warm_s']:.4f} s ({r['warm_iters']} "
-              f"iterations, reads {r['warm_syncs']}, launches "
-              f"{r['warm_launches']}, x bit-equal {r['warm_bit_equal']}, "
+              f"{r['dtype']}: {r['iters']} iterations; cold {r['s']:.4f} s "
+              f"(reads {r['syncs']}, launches {r['launches']}, "
+              f"{_graph_counts(r)}); warm {r['warm_s']:.4f} s "
+              f"({r['warm_iters']} iterations, reads {r['warm_syncs']}, "
+              f"launches {r['warm_launches']}, {_graph_counts(r, 'warm_')}, "
+              f"x bit-equal {r['warm_bit_equal']}, "
               f"{r['warm_x_diff']:.2e}); eager loop {r['eager_s']:.4f} s, "
-              f"{r['eager_iters']} iterations, {r['eager_syncs']} reads; "
-              f"x bit-equal {r['bit_equal']} (|x - x_eager| / |x| "
-              f"{r['x_diff']:.2e}); warm / eager "
+              f"{r['eager_iters']} iterations, {r['eager_syncs']} reads, "
+              f"{_graph_counts(r, 'eager_')}; x bit-equal {r['bit_equal']} "
+              f"(|x - x_eager| / |x| {r['x_diff']:.2e}); warm / eager "
               f"{r['eager_s'] / max(r['warm_s'], 1e-12):.2f} x faster")
         if not (r["bit_equal"] and r["warm_bit_equal"]):
             print(f"      not bit-equal: "
@@ -3362,10 +3409,16 @@ def block_path(torch, device, smi):
 
     print(f"  9c. Schwarz through the CLI, poisson_2d({SWZ_NX}), float64")
     size = ["-precond", "5", "-problem", "poisson2d", "-size", str(SWZ_NX)]
+    faults = []
     for name, overrides in SWZ_RUNS.items():
         anchor, bound = SWZ_ANCHORS[name]
-        r, M = cli_run(torch, device, size, overrides)
+        # the Krylov loop over Schwarz resident on the card: one launch
+        # and one read; its solve rerun warm and as the eager loop
+        with loop_solves(torch) as seen:
+            r, M = cli_run(torch, device, size, overrides)
         report(name, r, TOL, anchor, bound)
+        faults += check_loop_resident(torch, device, name, seen)
+        r["loops"] = seen
         check(on_card and r["launches"]["float64"] > 0 or not on_card,
               f"{name}: the sweeps applied A through the f64 stencil kernel")
         check(r["setup_s"] < 60.0,
@@ -3376,6 +3429,8 @@ def block_path(torch, device, smi):
                         dtype=torch.float64)
         on_card_vs_cpu(torch, f"{name} apply ({SWZ_NX}^2)", M, x)
         del M
+    check(not faults, f"9c: every Schwarz solve resident and equal to its "
+                      f"reruns: {faults}")
 
     print("  9d. level smoothers and the rest, poisson_fe_manufactured(64)")
     A, b, *_ = poisson_fe_manufactured(64)
@@ -3427,13 +3482,18 @@ def surface_str(torch, device, smi, add):
     split = {"factor_s": (str_precond, "str_ilu_factor_banded"),
              "wavefronts_s": (str_precond, "_grid_wavefronts"),
              "patch_inverses_s": (str_precond, "_schwarz_patches")}
-    kept = {}
+    kept, faults = {}, []
     for name, driver, fields, anchor, bound in STR_GRID:
-        r, built = drive_driver(torch, device, driver, fields, A, b, split)
+        # every Krylov loop over the STR modules resident on the card
+        with loop_solves(torch) as seen:
+            r, built = drive_driver(torch, device, driver, fields, A, b,
+                                    split)
         r["split"] = {k: v for k, v in r["split"].items() if v}
         if built is not None:
             r["apply_ms"] = apply_ms(torch, built, x)
         report(name, r, fields["its"]["tol"], anchor, bound)
+        faults += check_loop_resident(torch, device, name, seen)
+        r["loops"] = seen
         add(r)
         readings[name] = r
         kept[name] = built
@@ -3443,6 +3503,8 @@ def surface_str(torch, device, smi, add):
     for name in ("vFGMRES + STR ILU(0)", "vFGMRES + STR ILU(1)"):
         readings[f"{name[10:]} apply"] = ilu_apply_times(
             torch, f"{name[10:]}, {A.nrow:,} dof", kept[name], x, smi)
+    check(not faults, f"10a: every STR solve resident and equal to its "
+                      f"reruns: {faults}")
     return readings
 
 
@@ -3471,11 +3533,16 @@ def surface_blc(torch, device, add):
           f"max abs error / scale {err / scale:.2e} (bound 1e-13)")
     check(err <= 1e-13 * scale, f"BlcOperator is the BSR operator: {err}")
     readings["BlcOperator apply ms"] = apply_ms(torch, op, x)
-    kept = {}
+    kept, faults = {}, []
     for name, driver, fields, anchor, bound in BLC_GRID:
-        r, built = drive_driver(torch, device, driver, fields, A, b)
+        # every Krylov loop over the BLC modules resident on the card
+        with loop_solves(torch) as seen:
+            r, built = drive_driver(torch, device, driver, fields, A, b)
         r["apply_ms"] = apply_ms(torch, built, x)
         report(name, r, fields["its"]["tol"], anchor, bound)
+        faults += check_loop_resident(torch, device, name, seen,
+                                      atomic=UA_ATOMIC)
+        r["loops"] = seen
         add(r)
         readings[name] = r
         kept[name] = built
@@ -3486,14 +3553,20 @@ def surface_blc(torch, device, add):
     print(f"  sweeping: poisson_3d({n}) in {slabs} z-slabs of "
           f"{A.row_sizes()[0]:,} rows, {A.nrow:,} dof")
     for name, driver, fields, anchor, bound in SWEEP_GRID:
-        r, built = drive_driver(torch, device, driver, fields, A, b)
+        with loop_solves(torch) as seen:
+            r, built = drive_driver(torch, device, driver, fields, A, b)
         xs = torch.randn(A.nrow, generator=gen, device=device,
                          dtype=torch.float64)
         r["apply_ms"] = apply_ms(torch, built, xs)
         report(name, r, fields["its"]["tol"], anchor, bound)
+        faults += check_loop_resident(torch, device, name, seen,
+                                      atomic=UA_ATOMIC)
+        r["loops"] = seen
         add(r)
         readings[name] = r
         on_card_vs_cpu(torch, "sweeping apply", built, xs)
+    check(not faults, f"10b: every BLC and sweeping solve resident and "
+                      f"equal to its reruns: {faults}")
     return readings
 
 
@@ -3604,10 +3677,14 @@ def surface_leftovers(torch, add):
     mf = MatFreeOperator(op, P.nrow, torch.float64)
     M = JacobiPrecond.from_csr(P).to(place)
     reset_counts()
-    t0 = time.perf_counter()
-    res = itsolver(mf, bp, M=M, its=ITSParam(**MATFREE_STENCIL))
-    x = res.x.cpu().numpy()
-    wall = time.perf_counter() - t0
+    # the stencil operator declares itself capturable, and so does the
+    # MatFreeOperator around it: the CG loop is resident on the card
+    faults = []
+    with loop_solves(torch) as seen:
+        t0 = time.perf_counter()
+        res = itsolver(mf, bp, M=M, its=ITSParam(**MATFREE_STENCIL))
+        x = res.x.cpu().numpy()
+        wall = time.perf_counter() - t0
     r = {"iters": res.iters, "converged": res.converged, "syncs": res.syncs,
          "relres": float(np.linalg.norm(bp - P.matvec(x))
                          / np.linalg.norm(bp)),
@@ -3617,6 +3694,9 @@ def surface_leftovers(torch, add):
            MATFREE_STENCIL["tol"], anchor, bound)
     check(r["launches"]["float64"] > 0,
           "the MatFree solve launched the f64 stencil kernel")
+    faults += check_loop_resident(torch, place, "MatFree "
+                                  "stencil CG", seen)
+    r["loops"] = seen
     add(r)
     readings["MatFree stencil CG"] = r
 
@@ -3626,24 +3706,28 @@ def surface_leftovers(torch, add):
     bt = torch.from_numpy(b).to(place)
     for name, fn, restart, anchor, bound in MATFREE_GRID:
         kw = dict(MATFREE_ITS, **({"restart": restart} if restart else {}))
-        t0 = time.perf_counter()
-        res = getattr(krylov, fn)(MatFreeOperator(ell, A.nrow, torch.float64),
-                                  bt, M=Mj, **kw)
-        x = res.x.cpu().numpy()
-        wall = time.perf_counter() - t0
+        # the ELL operator declares itself capturable, so the loop over
+        # the MatFreeOperator around it is resident on the card
+        with loop_solves(torch) as seen:
+            t0 = time.perf_counter()
+            res = getattr(krylov, fn)(MatFreeOperator(ell, A.nrow,
+                                                      torch.float64),
+                                      bt, M=Mj, **kw)
+            x = res.x.cpu().numpy()
+            wall = time.perf_counter() - t0
         rel = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
         print(f"  {name:20s} {res.iters:5d} iterations (JAX {anchor} +- "
               f"{bound}), status {res.status}, verified relres {rel:.3e}, "
               f"{wall:.3f} s, host reads {res.syncs}, resident "
               f"{res.resident}")
-        if fn == "gcg":
-            print(f"  {'':20s} a MatFreeOperator declares no capturable "
-                  f"apply: GCG stays the eager loop (1 + steps + cycles "
-                  f"reads)")
-        check(abs(res.iters - anchor) <= bound and rel < 1e-9
-              and not res.resident,
-              f"{name}: {res.iters} iterations, relres {rel}, eager")
-        readings[name] = {"iters": res.iters, "relres": rel, "s": wall}
+        faults += check_loop_resident(torch, place, name, seen)
+        check(abs(res.iters - anchor) <= bound and rel < 1e-9,
+              f"{name}: {res.iters} iterations, relres {rel}")
+        readings[name] = {"iters": res.iters, "relres": rel, "s": wall,
+                          "syncs": res.syncs, "resident": res.resident,
+                          "loops": seen}
+    check(not faults, f"10d: every MatFree solve resident and equal to its "
+                      f"reruns: {faults}")
 
     t0 = time.perf_counter()
     lam = eigen.maxeig(P)
@@ -3760,7 +3844,7 @@ def harness_generated(torch, device, dtype, anchors):
         kept["out"] = solver(A, b)
         return kept["out"]
 
-    rows = harness.generated_problems()
+    rows = harness.generated_problems(sizes_3d=HARNESS_3D)
     check([n for n, _, _ in rows] == list(anchors),
           f"the generated rows are the anchored ones: {list(anchors)}")
     counts = {"float32": 0, "float64": 0, "loop_control": 0,

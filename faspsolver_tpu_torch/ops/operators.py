@@ -718,7 +718,13 @@ class SumOperator(nn.Module):
 class MatFreeOperator(nn.Module):
     """Any callable ``x -> A x`` as an operator with ``shape`` and
     ``dtype`` (reference: mxv_matfree, fasp.h:1109-1117).  A callable that
-    is an ``nn.Module`` becomes a child, so ``.to()`` moves its buffers."""
+    is an ``nn.Module`` becomes a child, so ``.to()`` moves its buffers.
+    It is capturable only when that child declares itself so: a plain
+    Python function is opaque and keeps every loop over it eager."""
+
+    @property
+    def capturable(self) -> bool:
+        return isinstance(self.fn, nn.Module) and capturable(self.fn)
 
     def __init__(self, fn, n: int, _dtype):
         super().__init__()

@@ -24,7 +24,10 @@ class StrOperator(nn.Module):
     x_{g+off_b}.  The bands are buffers (``diag``, ``band0``, ...); each
     band is one batched (nc, nc) x (nc,) product over a shifted slice
     (:func:`~.operators.block_diag_apply`, TF32 off) added into a slice
-    of y."""
+    of y.  The shifts are Python ints fixed at construction, so the apply
+    reads nothing back to the host."""
+
+    capturable = True       # no host read in the apply (utils/graphs.py)
 
     def __init__(self, diag, bands: Sequence, offsets: Sequence[int],
                  ng: int, nc: int):

@@ -13,8 +13,10 @@ A block grid with holes keeps its operators in an ``nn.ModuleDict``
 keyed ``"i,j"`` (a missing key is a zero block), so one ``.to(device)``
 moves all of them.
 Slices of a vector are ``narrow`` views and the pieces are joined with
-``torch.cat``.  Plain PyTorch: the JAX package computes these outside any
-Pallas kernel.
+``torch.cat``; the block sizes and the grid's keys are fixed at setup, so
+no apply reads back to the host, and each module is capturable when all
+its parts are (a resident Krylov loop over it is one CUDA graph).  Plain
+PyTorch: the JAX package computes these outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from ..formats import CSRMatrix
 from ..formats.blc import BLCMatrix
 from ..krylov.precond import JacobiPrecond
 from ..ops.operators import device_operator
+from ..utils.graphs import capturable
 from ..utils.params import AMGParam
 
 
@@ -48,6 +51,10 @@ class BlcOperator(nn.Module):
     """Device operator for a matrix of blocks: y_i = sum_j A_ij x_j
     (reference: fasp_blas_dblc_aAxpy, BlaSpmvBLC.c).  ``ops`` maps
     (i, j) to the operator of a nonzero block."""
+
+    @property
+    def capturable(self) -> bool:
+        return all(capturable(op) for op in self.ops.values())
 
     def __init__(self, ops: Dict[Tuple[int, int], nn.Module],
                  row_sizes: Sequence[int], col_sizes: Sequence[int]):
@@ -108,6 +115,11 @@ class BlcPrecond(nn.Module):
     PreBLC.c fasp_precond_dblc_diag_/lower_/upper_/sgs_{2,3,4}):
     ``solvers[i]`` approximates A_ii^{-1}, ``offdiag`` maps (i, j), i != j,
     to the operator of a nonzero off-diagonal block."""
+
+    @property
+    def capturable(self) -> bool:
+        return all(capturable(m) for m in (*self.solvers,
+                                           *self.offdiag.values()))
 
     def __init__(self, solvers: Sequence[nn.Module],
                  offdiag: Dict[Tuple[int, int], nn.Module], mode: str,
@@ -172,6 +184,12 @@ class BlcSweepingPrecond(nn.Module):
     approximate solves, then backward substitution.  ``lower`` /
     ``upper`` map a layer i to its sub- (A_{i+1,i}) / super- (A_{i,i+1})
     diagonal operator where that block is nonzero."""
+
+    @property
+    def capturable(self) -> bool:
+        return all(capturable(m) for m in (*self.solvers,
+                                           *self.lower.values(),
+                                           *self.upper.values()))
 
     def __init__(self, solvers: Sequence[nn.Module],
                  lower: Dict[int, nn.Module], upper: Dict[int, nn.Module],

@@ -10,8 +10,8 @@ hierarchy: every cycle type reads nothing back to the host, over CSR
 and BSR levels alike (block operators, block smoothers and the
 near-kernel correction included).  They run eagerly where
 ``capturable`` is False — a hierarchy placed on a mesh, or one with a
-part that does not declare itself capturable (MatFree operators,
-Schwarz smoothers) — and on DTensor vectors.  The near-kernel
+part that does not declare itself capturable (a MatFree operator over
+a plain function) — and on DTensor vectors.  The near-kernel
 preconditioner (:class:`AMGNKPrecond`) is capturable when its cycles
 and its operator are.
 """

@@ -28,6 +28,7 @@ from .. import np_dtype
 from ..constants import SchwarzType
 from ..formats import CSRMatrix
 from ..ops.operators import _buf, best_operator, block_diag_apply
+from ..utils.graphs import capturable
 from ..utils.params import SWZParam
 
 
@@ -70,6 +71,8 @@ class _ColorGroup(nn.Module):
     ghost index n, ``mask`` (nblk, m) 1.0 valid / 0.0 padding, ``inv``
     (nblk, m, m) block inverses (factored on the host)."""
 
+    capturable = True       # buffers only (utils/graphs.py)
+
     def __init__(self, dofs, mask, inv):
         super().__init__()
         self.register_buffer("dofs", _buf(dofs).to(torch.int64))
@@ -79,7 +82,15 @@ class _ColorGroup(nn.Module):
 
 class SchwarzPrecond(nn.Module):
     """Color-batched overlapping Schwarz (the SWZ_data of fasp.h:726-796).
-    ``A`` is the operator of the residual updates."""
+    ``A`` is the operator of the residual updates.  The colors are
+    walked by Python index and every shape is fixed at setup; the apply
+    allocates (``torch.cat``, ``new_zeros``), which a capture takes into
+    its pool, and reads nothing back to the host: it is capturable when
+    ``A`` is."""
+
+    @property
+    def capturable(self) -> bool:
+        return capturable(self.A)
 
     def __init__(self, groups: Sequence[_ColorGroup], A, n: int,
                  swz_type: int = int(SchwarzType.FORWARD)):

@@ -35,6 +35,7 @@ from ..formats.str_grid import STRMatrix
 from ..krylov.precond import BlockJacobiPrecond
 from ..ops.operators import _buf, block_diag_apply, block_ell_layout
 from ..ops.str_ops import StrOperator
+from ..utils.graphs import capturable
 from ..utils.params import ILUParam
 from .ilu import BlockTriangularSolver, BSRILUPrecond, setup_ilu
 
@@ -68,7 +69,13 @@ class StrBlockGSPrecond(nn.Module):
     """Block Gauss-Seidel sweeps (reference: fasp_precond_dstr_blockgs,
     PreSTR.c; fasp_smoother_dstr_gs).  Red-black masked when the stencil
     is bipartite, a damped block Jacobi sweep otherwise; ``masks`` is
-    (colors, ng)."""
+    (colors, ng).  Walking ``masks`` yields views of its rows (two, or
+    the one damping row of the Jacobi fallback), so the apply reads
+    nothing back to the host: it is capturable when its operator is."""
+
+    @property
+    def capturable(self) -> bool:
+        return capturable(self.A)
 
     def __init__(self, A: StrOperator, dinv, masks, nsweeps: int = 2):
         super().__init__()
@@ -393,7 +400,13 @@ class StrSchwarzSmoother(nn.Module):
     additive within one, as in the JAX package).  The patch data
     (``inv`` (ng, m, m), ``members`` / ``valid`` (ng, k1)) is stored in
     color order, so a color reads slices and gathers nothing but the
-    residual."""
+    residual.  The slices come from ``sizes``, a tuple fixed at setup, so
+    the apply reads nothing back to the host: it is capturable when its
+    operator is."""
+
+    @property
+    def capturable(self) -> bool:
+        return capturable(self.A)
 
     def __init__(self, A: StrOperator, inv, members, valid, colors,
                  nsweeps: int = 1):

@@ -375,7 +375,8 @@ def jax_refined(A, b, amg_fields: dict):
 
 def _harness(kind: str, precision: str):
     """The JAX package's own harness functions on the CPU, one solve per
-    row: ``gen`` over ``generated_problems()``, ``corpus`` over
+    row: ``gen`` over ``generated_problems()`` at chip_smoke's 3-D
+    sizes (``HARNESS_3D``), ``corpus`` over
     ``corpus_problems(255)``, with ``_solver_factory("amg")`` in f64 (x64
     on) or its f32 refined mode (x64 off).  Prints each row's iterations
     and whether the f32 ladder rescued or escalated it, then the table
@@ -388,7 +389,8 @@ def _harness(kind: str, precision: str):
     from faspsolver_tpu.benchmark.harness import (_solver_factory,
                                                   corpus_problems,
                                                   generated_problems)
-    rows = generated_problems() if kind == "gen" else corpus_problems(255)
+    rows = (generated_problems(sizes_3d=chip_smoke.HARNESS_3D)
+            if kind == "gen" else corpus_problems(255))
     table = {}
     for name, A, b in rows:
         t0 = time.perf_counter()

@@ -9,6 +9,7 @@ import contextlib
 
 import numpy as np
 import pytest
+import resident_cases
 import torch
 
 from faspsolver_tpu_torch.ops import stencil2d
@@ -1116,3 +1117,64 @@ def test_resident_bsr_solves_read_once_and_equal_the_eager_loop(case):
         else:
             diff = float((g - e).norm() / e.norm())
             assert diff <= chip_smoke.X_DIFF_LIMITS[str(dt)[6:]], diff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", resident_cases.CASES)
+def test_resident_str_blc_schwarz_solves_read_once_and_equal_the_eager_loop(
+        case):
+    """The cases of ``tests/resident_cases.py`` at the card's size
+    (block_poisson_3d(16, nb=3) in STR and BLC form, poisson_3d(32) in 4
+    slabs, poisson_2d(127), the ELL operator of
+    poisson_fe_manufactured(32) behind a MatFreeOperator): cold and warm
+    each one program launch and one host read; the eager loop on the
+    card gives the same count and status, and x bit for bit, or within
+    chip_smoke.X_DIFF_LIMIT of |x| where UA-AMG's restriction adds with
+    index_add_ (the BLC and sweeping cases)."""
+    _need_cuda()
+    import chip_smoke
+    solve, _, _ = resident_cases.build(case, "card", "cuda")
+    (cold, _, r_cold), (warm, _, r_warm), (eager, _, r_e) = \
+        _graphed_and_eager(solve)
+    assert (r_cold, r_warm, r_e) == (1, 1, 0)
+    assert cold.syncs == warm.syncs == 1
+    assert cold.resident and warm.resident and not eager.resident
+    assert eager.syncs > eager.iters
+    assert cold.iters == warm.iters == eager.iters > 3
+    assert cold.status == warm.status == eager.status
+    for g in (cold, warm):
+        if case in resident_cases.ATOMIC:
+            diff = float((g.x - eager.x).norm() / eager.x.norm())
+            assert diff <= chip_smoke.X_DIFF_LIMIT, diff
+        else:
+            assert torch.equal(g.x, eager.x)
+
+
+@pytest.mark.cuda
+def test_resident_matfree_solve_needs_a_capturable_function():
+    """A MatFreeOperator over a plain function keeps CG eager on the card
+    (one host read per step, no program launched); over the ELL operator
+    itself, a module that declares itself capturable, the same solve is
+    resident, cold and warm: one launch, one read, the same count and x
+    bit for bit."""
+    _need_cuda()
+    from faspsolver_tpu_torch.krylov import JacobiPrecond, pcg
+    from faspsolver_tpu_torch.ops import MatFreeOperator, device_operator
+    from faspsolver_tpu_torch.testgen import poisson_fe_manufactured
+    from faspsolver_tpu_torch.utils import graphs
+    P, b, *_ = poisson_fe_manufactured(32)
+    ell = device_operator(P, prefer="ell").to("cuda")
+    M = JacobiPrecond.from_csr(P).to("cuda")
+    bt = torch.from_numpy(b).cuda()
+    plain = MatFreeOperator(lambda v: ell(v), P.nrow, torch.float64)
+    graphs.reset_stats()
+    eager = pcg(plain, bt, M=M, tol=1e-9, maxit=2000)
+    assert graphs.stats["replays"] == 0 and not eager.resident
+    assert eager.syncs > eager.iters > 3
+    wrapped = MatFreeOperator(ell, P.nrow, torch.float64)
+    for _ in ("cold", "warm"):
+        graphs.reset_stats()
+        got = pcg(wrapped, bt, M=M, tol=1e-9, maxit=2000)
+        assert got.resident and got.syncs == 1
+        assert graphs.stats["replays"] == 1
+        assert got.iters == eager.iters and torch.equal(got.x, eager.x)

@@ -19,13 +19,17 @@ themselves run on the card:
 in the card's arithmetic, and the block (BSR) path's modules declare
 themselves capturable (a UA or SA hierarchy with or without its
 near-kernel basis, block Jacobi, the near-kernel preconditioner), so
-its vFGMRES, CG and near-kernel solves run resident too."""
+its vFGMRES, CG and near-kernel solves run resident too; so do the
+STR operator and preconditioners, the BLC operator and block and
+sweeping preconditioners, Schwarz, and a MatFree operator whose
+function is a capturable module."""
 import copy
 import importlib
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import resident_cases
 import torch
 from native_parity import ensure_native
 
@@ -333,10 +337,11 @@ def test_every_cycle_of_a_csr_hierarchy_is_capturable(cycle):
 
 
 def test_what_is_not_capturable_stays_eager(graphed_on_cpu):
-    """A MatFree operator declares nothing: the PCG over it runs its
-    segments eagerly (no program is made) and solves the same."""
+    """A MatFree operator over a plain function declares nothing: the
+    PCG over it runs its segments eagerly (no program is made) and
+    solves the same."""
     op = DiaOperator.from_csr(A)
-    free = MatFreeOperator(op, A.nrow, torch.float64)
+    free = MatFreeOperator(lambda v: op(v), A.nrow, torch.float64)
     assert graphs.capturable(op) and not graphs.capturable(free)
     b = torch.from_numpy(_rhs(3))
     got = pcg(free, b, tol=1e-10)
@@ -548,7 +553,8 @@ def test_a_bsr_hierarchy_is_capturable(kind, nk):
 def test_block_jacobi_and_near_kernel_preconditioners_are_capturable():
     """Block Jacobi declares itself capturable; the near-kernel
     preconditioner is when its cycles and its operator are (a BSR or a
-    CSR operator), and is not over a MatFree operator."""
+    CSR operator), and is not over a MatFree operator of a plain
+    function."""
     import chip_smoke
     from faspsolver_tpu_torch.krylov import BlockJacobiPrecond
     from faspsolver_tpu_torch.ops.operators import device_operator
@@ -560,7 +566,8 @@ def test_block_jacobi_and_near_kernel_preconditioners_are_capturable():
     op = device_operator(A)
     csr = device_operator(A.to_csr())
     for A_op, want in ((op, True), (csr, True),
-                       (MatFreeOperator(op, A.nrow, torch.float64), False)):
+                       (MatFreeOperator(lambda v: op(v), A.nrow,
+                                        torch.float64), False)):
         assert graphs.capturable(AMGNKPrecond(hier, basis, gram,
                                               A_op)) == want
 
@@ -599,4 +606,67 @@ def test_graphed_bsr_solves_are_the_eager_loop(graphed_on_cpu, case):
     got = solve()
     assert graphed_on_cpu and got.resident and not want.resident
     assert torch.equal(got.x, want.x) and got.iters == want.iters > 3
+    assert got.syncs == 1 and want.syncs > want.iters
+
+
+def test_str_blc_schwarz_and_matfree_modules_are_capturable():
+    """The STR operator, block diag, ILU, block GS and Schwarz; the BLC
+    operator, its block preconditioner in each mode and the sweeping
+    one over UA-AMG blocks; Schwarz and its color groups; a MatFree
+    operator over the ELL operator: each declares itself capturable.
+    A MatFree operator over a plain function does not, nor does a BLC
+    preconditioner with such a part."""
+    import chip_smoke
+    from faspsolver_tpu_torch.ops import device_operator
+    from faspsolver_tpu_torch.ops.str_ops import StrOperator
+    from faspsolver_tpu_torch.precond import (setup_blc_precond,
+                                              setup_blc_sweeping,
+                                              setup_schwarz, setup_str_blockgs,
+                                              setup_str_diag, setup_str_ilu,
+                                              setup_str_schwarz)
+    from faspsolver_tpu_torch.precond.blc_precond import (BlcOperator,
+                                                          BlcPrecond)
+    from faspsolver_tpu_torch.utils.params import SWZParam
+    S, _, _ = chip_smoke.str_problem(6)
+    B, _ = chip_smoke.blc_problem(6)
+    L, _ = chip_smoke.sweep_problem(12, 3)
+    swz = setup_schwarz(A, SWZParam(SWZ_type=3))
+    ell = device_operator(A, prefer="ell")
+    blc = setup_blc_precond(B, mode="sgs")
+    yes = [StrOperator.from_str(S), setup_str_diag(S), setup_str_ilu(S),
+           setup_str_ilu(S, fill=1), setup_str_blockgs(S),
+           setup_str_schwarz(S), BlcOperator.from_blc(B), blc,
+           setup_blc_sweeping(L), swz, *swz.groups,
+           MatFreeOperator(ell, A.nrow, torch.float64)]
+    yes += [setup_blc_precond(B, mode=m) for m in ("diag", "lower", "upper")]
+    for m in yes:
+        assert graphs.capturable(m), type(m).__name__
+    free = MatFreeOperator(lambda v: ell(v), A.nrow, torch.float64)
+    assert not graphs.capturable(free)
+    assert not graphs.capturable(BlcPrecond(
+        list(blc.solvers), {(0, 1): free}, "sgs", blc.sizes))
+    assert not graphs.capturable(BlcOperator({(0, 0): free}, [A.nrow],
+                                             [A.nrow]))
+
+
+@pytest.mark.parametrize("case", resident_cases.CASES)
+def test_graphed_str_blc_schwarz_solves_are_the_eager_loop(graphed_on_cpu,
+                                                           case):
+    """CG + STR block diag, vFGMRES + STR ILU(0), block GS and Schwarz on
+    block_poisson_3d(8, nb=3) in STR form; vFGMRES + BLC diag and sgs on
+    the same matrix as a 3 x 3 BLC; vFGMRES + sweeping on poisson_3d(16)
+    in 4 slabs; GMRES + forward and CG + symmetric Schwarz on
+    poisson_2d(31); matrix-free CG and GCG over the ELL operator
+    (``tests/resident_cases.py``): run as the device runs their graph,
+    each gives the eager loop's count, status and x bit for bit, with
+    one host read."""
+    solve, op, M = resident_cases.build(case, "small", "cpu")
+    assert graphs.capturable(op) and graphs.capturable(M)
+    with graphs.eager():
+        want = solve()
+    got = solve()
+    assert graphed_on_cpu and got.resident and not want.resident
+    assert torch.equal(got.x, want.x)
+    assert (got.iters, got.status) == (want.iters, want.status)
+    assert got.iters > 3 and want.converged
     assert got.syncs == 1 and want.syncs > want.iters
