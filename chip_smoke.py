@@ -144,10 +144,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    replicated UA-BSR hierarchy; (f) the communication record of one
    whole cycle of (c) and (d); (g) dryrun_multichip(world size); each
    count held to the JAX package's one-device count, x verified on the
-   host in f64, (b) and (c) must launch the f64 kernel; then (c) once
-   more under the profiler for the device's busy share.  One card means
-   world size 1 (NCCL takes one rank per card); the multi-rank exchange
-   is held on four gloo CPU ranks by tests/test_torch_parallel.py.
+   host in f64, (b) and (c) must launch the f64 kernel; every Krylov
+   loop of (a)-(e) and (g) resident over its DTensor vectors (one
+   launch, one read), each of (a)-(e) rerun warm and as the eager loop
+   from the same state, timed, with the same count and x (bit-equal, or
+   within X_DIFF_LIMIT where (d)'s coarse transfers and (e)'s UA-BSR
+   restriction add with atomics), and what a two-iteration eager run of
+   its pieces communicates (the pieces the graph captured); then (c)
+   once more as the eager loop under the profiler for the device's busy
+   share.  One card means world size 1 (NCCL takes one rank per card);
+   the multi-rank exchange is held on four gloo CPU ranks by
+   tests/test_torch_parallel.py, where it runs eagerly.
 14. the tutorials (``tutorials_torch/``, the port of ``tutorials/``),
    each script's ``main`` with no device argument: the P1-FE matrix of
    phase 6 and its right-hand side written as csrmat_FE.dat / rhs_FE.dat
@@ -4300,12 +4307,15 @@ def _host_relres(A, x, b):
     return float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
 
 
-def parallel_solves(torch, device):
+def parallel_solves(torch, device, smi=""):
     """Phase 13 on every rank of the process group: (a)-(g),
     each solve timed with the launch counts set to 0 just before it and
     read just after, x gathered and verified on the host in f64, its
-    count held to the JAX package's one-device count.  Returns the
-    launches by solve and the readings (rank 0's are printed)."""
+    count held to the JAX package's one-device count, its loop resident
+    and rerun warm and as the eager loop (:func:`loop_solves`,
+    :func:`check_loop_resident`), and what a two-iteration run of it
+    communicates recorded.  Returns the launches by solve and the
+    readings (rank 0's are printed)."""
     import numpy as np
     from faspsolver_tpu_torch import as_tensor
     from faspsolver_tpu_torch.constants import AMGType, SmootherType
@@ -4315,12 +4325,13 @@ def parallel_solves(torch, device):
         assert_neighbor_comm_only, cycle_comm_pattern, dist_dia_operator,
         dist_operator, halo_shard_hierarchy, make_mesh, replicate,
         shard_block_rows, shard_hierarchy, shard_vector)
-    from faspsolver_tpu_torch.parallel.comm import mesh_device, whole
+    from faspsolver_tpu_torch.parallel.comm import mesh_device, record, whole
     from faspsolver_tpu_torch.parallel.dryrun import dryrun_multichip
     from faspsolver_tpu_torch.precond import AMGPrecond
     from faspsolver_tpu_torch.precond.amg import setup_rs, setup_structured
     from faspsolver_tpu_torch.precond.amg.setup_bsr import setup_ua_bsr
     from faspsolver_tpu_torch.testgen import block_poisson_3d, poisson_2d
+    from faspsolver_tpu_torch.utils import graphs
     from faspsolver_tpu_torch.utils.params import AMGParam
 
     mesh = make_mesh()                        # the world's ranks, NCCL
@@ -4334,32 +4345,50 @@ def parallel_solves(torch, device):
     b = A.matvec(np.ones(n))
     bd = shard_vector(as_tensor(b, f64), mesh)
 
-    def solve(key, fn, A, b, anchor, what):
+    def solve(key, fn, A, b, anchor, what, atomic=None):
+        """``fn(**over)`` solves with PARALLEL_RUNS[anchor] updated by
+        ``over``; ``atomic`` names the sum of the path that adds with
+        atomics (x then within X_DIFF_LIMIT of the eager loop's)."""
         reset_counts()
         sync(torch, device)
-        t0 = time.perf_counter()
-        res = fn()
-        x = whole(res.x)[:A.nrow].cpu().numpy()
-        secs = time.perf_counter() - t0
+        with loop_solves(torch) as seen:
+            t0 = time.perf_counter()
+            res = fn()
+            x = whole(res.x)[:A.nrow].cpu().numpy()
+            secs = time.perf_counter() - t0
         launches = launch_counts()
         rr = _host_relres(A, x, b)
         tol = PARALLEL_RUNS[anchor]["tol"]
         ref, bound = PARALLEL_ANCHORS[anchor]
         say(f"  ({key}) {what}: {res.iters} iterations (JAX one device "
-            f"{ref}), host f64 relres {rr:.3e}, {secs:.2f} s, launches "
-            f"{launches}")
+            f"{ref}), host f64 relres {rr:.3e}, {secs:.2f} s with the "
+            f"warm and eager reruns, launches {launches}")
         check(res.converged and rr < 10 * tol,
               f"({key}) converged, verified relres {rr:.3e}")
         check(abs(res.iters - ref) <= bound,
               f"({key}) {res.iters} iterations within {bound} of JAX {ref}")
+        bad = check_loop_resident(torch, device, f"({key})", seen, atomic)
+        check(not bad, f"({key}) resident, warm and eager agree: {bad}")
+        with record(mesh) as rec:
+            fn(maxit=2)
+        say(f"    ({key}) a 2-iteration eager run of its pieces "
+            f"communicates: {rec.summary()}")
         counts[key] = launches
-        readings[key] = {"iters": res.iters, "relres": rr, "s": secs}
+        r = seen[0]
+        readings[key] = {"iters": res.iters, "relres": rr, "s": secs,
+                         "resident": r["resident"], "syncs": r["syncs"],
+                         "launches": r["launches"], "cold_s": r["s"],
+                         "comm_2_iters": rec.summary(),
+                         **{k: r[k] for k in ("warm_s", "eager_s",
+                                              "eager_iters", "eager_syncs",
+                                              "bit_equal", "x_diff")
+                            if k in r}}
         return res
 
     dinv = shard_vector(as_tensor(1.0 / A.diagonal(), f64), mesh)
     op = dist_operator(A, mesh, dtype=f64)
-    solve("a", lambda: pcg(op, bd, M=JacobiPrecond(dinv),
-                           **PARALLEL_RUNS["a"]), A, b, "a",
+    solve("a", lambda **o: pcg(op, bd, M=JacobiPrecond(dinv),
+                               **{**PARALLEL_RUNS["a"], **o}), A, b, "a",
           f"Jacobi-PCG over dist_operator(poisson_2d({PAR_NX}))")
     del op, dinv
     t0 = time.perf_counter()
@@ -4371,14 +4400,14 @@ def parallel_solves(torch, device):
         f"levels {[lvl.A.shape[0] for lvl in hs.levels]}, sharded "
         f"{hs.sharded_levels}, operators "
         f"{[type(lvl.A).__name__ for lvl in hs.levels]}")
-    rb = solve("b", lambda: pcg(op2, bd, M=AMGPrecond(hs),
-                                **PARALLEL_RUNS["b"]), A, b, "b",
-               "AMG-PCG, dist_dia_operator + shard_hierarchy")
+    rb = solve("b", lambda **o: pcg(op2, bd, M=AMGPrecond(hs),
+                                    **{**PARALLEL_RUNS["b"], **o}), A, b,
+               "b", "AMG-PCG, dist_dia_operator + shard_hierarchy")
     check(counts["b"]["float64"] > 0, "(b) launched the f64 stencil kernel")
     hh, cmaps = halo_shard_hierarchy(hs0, mesh)
-    rc = solve("c", lambda: pcg(hh.levels[0].A, bd, M=AMGPrecond(hh),
-                                **PARALLEL_RUNS["b"]), A, b, "b",
-               "AMG-PCG through halo_shard_hierarchy's fine operator")
+    rc = solve("c", lambda **o: pcg(hh.levels[0].A, bd, M=AMGPrecond(hh),
+                                    **{**PARALLEL_RUNS["b"], **o}), A, b,
+               "b", "AMG-PCG through halo_shard_hierarchy's fine operator")
     check(rc.iters == rb.iters, f"(c) {rc.iters} iterations = (b) "
           f"{rb.iters}")
     check(counts["c"]["float64"] > 0, "(c) launched the f64 stencil kernel")
@@ -4392,9 +4421,10 @@ def parallel_solves(torch, device):
         f"{[lvl.A.shape[0] for lvl in hh2.levels]}")
     check(not cm2[0].replicated and cm2[0].halo > 0,
           "the RS fine level takes the halo operator")
-    solve("d", lambda: pcg(hh2.levels[0].A, bd, M=AMGPrecond(hh2),
-                           **PARALLEL_RUNS["d"]), A, b, "d",
-          "RS AMG-PCG through halo_shard_hierarchy")
+    solve("d", lambda **o: pcg(hh2.levels[0].A, bd, M=AMGPrecond(hh2),
+                               **{**PARALLEL_RUNS["d"], **o}), A, b, "d",
+          "RS AMG-PCG through halo_shard_hierarchy",
+          atomic="the RS coarse levels' COO transfers add with index_add_")
     Ab = block_poisson_3d(PAR_BSR_NX, nb=3)
     bb = Ab.matvec(np.ones(Ab.nrow))
     t0 = time.perf_counter()
@@ -4404,10 +4434,14 @@ def parallel_solves(torch, device):
     opb = shard_block_rows(device_operator(Ab, dtype=f64), mesh)
     bbd = shard_vector(as_tensor(bb, f64), mesh)
     say(f"  UA-BSR setup + placement {time.perf_counter() - t0:.2f} s")
-    solve("e", lambda: vfgmres(opb, bbd, M=AMGPrecond(hb),
-                               **PARALLEL_RUNS["e"]), Ab, bb, "e",
-          f"vFGMRES(30) over shard_block_rows(block_poisson_3d("
-          f"{PAR_BSR_NX}, nb=3)) ({Ab.nrow} dof), replicated UA-BSR")
+    solve("e", lambda **o: vfgmres(opb, bbd, M=AMGPrecond(hb),
+                                   **{**PARALLEL_RUNS["e"], **o}), Ab, bb,
+          "e", f"vFGMRES(30) over shard_block_rows(block_poisson_3d("
+          f"{PAR_BSR_NX}, nb=3)) ({Ab.nrow} dof), replicated UA-BSR",
+          atomic="UA-BSR's restriction adds with index_add_")
+    say("  warm resident / eager loop s, " + ", ".join(
+        f"({k}) {readings[k]['warm_s']:.4f} / {readings[k]['eager_s']:.4f}"
+        for k in "abcde" if "warm_s" in readings[k]) + f"; {smi}")
     del opb, hb
     say("  (f) communication of one whole cycle (c), (d); CommMaps")
     for key, h, maps in (("c", hh, cmaps), ("d", hh2, cm2)):
@@ -4418,13 +4452,21 @@ def parallel_solves(torch, device):
         readings[f"f_{key}"] = rec.summary()
     say(f"  (g) dryrun_multichip({ws})")
     reset_counts()
-    readings["g"] = dryrun_multichip(ws)
+    with loop_solves(torch) as seen:
+        readings["g"] = dryrun_multichip(ws)
     counts["g"] = launch_counts()
     say(f"    {readings['g']}, launches {counts['g']}")
-    # one solve under the profiler: the device's busy share
-    readings["busy"] = _traced_solve(torch, device, hh, bd)
-    say(f"  (c) traced: wall {readings['busy']['wall_s']:.3f} s, device "
-        f"kernels {readings['busy']['kernel_s'] * 1e3:.1f} ms, busy share "
+    bad = check_loop_resident(
+        torch, device, "(g)", seen,
+        atomic="the RS and UA-BSR transfers add with index_add_")
+    check(not bad, f"(g) every loop resident: {bad}")
+    # one solve under the profiler: the device's busy share.  The eager
+    # loop: CUPTI sees only part of a conditional node's body
+    with graphs.eager():
+        readings["busy"] = _traced_solve(torch, device, hh, bd)
+    say(f"  (c) traced, as the eager loop: wall "
+        f"{readings['busy']['wall_s']:.3f} s, device kernels "
+        f"{readings['busy']['kernel_s'] * 1e3:.1f} ms, busy share "
         f"{readings['busy']['busy_share']:.4f}")
     return counts, readings
 
@@ -4462,25 +4504,28 @@ def _traced_solve(torch, device, hh, bd):
             "busy_share": kernel_us / 1e6 / wall, "iters": res.iters}
 
 
-def parallel_path(torch, device):
+def parallel_path(torch, device, smi=""):
     """Phase 13 on one rank of this card over NCCL (a one-rank group,
     taken down after).  The driver's machine has one card; on more, the
     phase still runs one rank: 1023^2 = 3^2 11^2 31^2 rows and the 64^3
     block path's 2^18 block rows share no divisor above 1, so no larger
     world splits both evenly (the multi-rank exchange is held on four
-    gloo CPU ranks, tests/test_torch_parallel.py).  Returns the launches
-    and the readings."""
+    gloo CPU ranks, tests/test_torch_parallel.py, and on one NCCL rank
+    per card where there are two or more, tests/test_torch_gpu.py's
+    across_ranks test).  Returns every kernel's launches (by key of
+    :func:`launch_counts`) and the readings."""
     from faspsolver_tpu_torch.parallel import release_mesh
     t0 = time.perf_counter()
     try:
-        counts, readings = parallel_solves(torch, device)
+        counts, readings = parallel_solves(torch, device, smi)
     finally:
         release_mesh()
     readings["phase_s"] = time.perf_counter() - t0
-    total = {k: sum(c[k] for c in counts.values())
-             for k in ("float32", "float64")}
+    # every kernel's launches: the stencil kernel's by dtype and the loop
+    # control's by entry point (launch_counts), as the other phases
+    total = {k: sum(c[k] for c in counts.values()) for k in launch_counts()}
     print(f"  phase 13 took {readings['phase_s']:.1f} s at world size "
-          f"{readings['world_size']}; stencil launches {total}")
+          f"{readings['world_size']}; launches {total}")
     return total, readings
 
 
@@ -4961,7 +5006,7 @@ def main(argv) -> int:
         return 0
     if "--parallel-only" in argv:
         banner("13. main path: the distribution layer")
-        parallel_path(torch, device)
+        parallel_path(torch, device, smi)
         print("stopped after phase 13 (--parallel-only)")
         return 0
     if "--tutorials-only" in argv:
@@ -5045,8 +5090,8 @@ def main(argv) -> int:
     check_mg_resident(torch, device, 12, mg_seen)
     check_gcr_resident(torch, device, 12, gcr_seen)
     banner("13. main path: the distribution layer")
-    counts["distribution"], res["distribution"] = parallel_path(torch,
-                                                                device)
+    counts["distribution"], res["distribution"] = parallel_path(
+        torch, device, smi)
     with tempfile.TemporaryDirectory() as tmp:
         banner("14. main path: the tutorials")
         with gmres_solves(torch) as seen, mg_solves(torch) as mg_seen:

@@ -96,16 +96,17 @@ def local_device(b) -> torch.device:
 def loop_state(kind: str, A, M, b, stop_type: int, safe: bool, make,
                static: tuple = ()):
     """(state, resident) of a Krylov loop over A and M: the state kept
-    with A and M for a resident solve (a CUDA vector, graphs on, both
-    modules capturable; cached by their buffers, b's dtype and length,
-    the criterion, ``safe`` and the loop's other ``static`` settings that
-    shape its program), else a fresh ``make()`` for the eager loop."""
+    with A and M for a resident solve (a CUDA vector or a DTensor over an
+    NCCL mesh, graphs on, both modules capturable; cached by their
+    buffers, b's dtype, length and placements, the criterion, ``safe``
+    and the loop's other ``static`` settings that shape its program),
+    else a fresh ``make()`` for the eager loop."""
     if not (graphs.active(b) and graphs.capturable(A)
             and graphs.capturable(M)):
         return make(), False
     (ha, sa), (hm, sm) = graphs.identity(A), graphs.identity(M)
-    key = (b.dtype, b.shape[0], b.device, sa, sm, graphs.fingerprint(ha),
-           graphs.fingerprint(hm))
+    key = (b.dtype, b.shape[0], b.device, getattr(b, "placements", None),
+           sa, sm, graphs.fingerprint(ha), graphs.fingerprint(hm))
     return graphs.cached((ha, hm), (kind, int(stop_type), bool(safe))
                          + tuple(static), key, make), True
 

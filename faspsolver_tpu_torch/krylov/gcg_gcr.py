@@ -36,8 +36,9 @@ over the first j rows of P and Q, bit for bit.  On a CUDA vector, when
 A and M declare themselves capturable, the tree is captured at the
 first solve as one CUDA graph kept with A and M (per criterion and
 window) and a solve is one launch and ONE host read
-(``SolveResult.syncs`` = 1, ``resident``).  Elsewhere — the CPU,
-DTensors, under ``utils.graphs.eager()``, a window of 0, or a module
+(``SolveResult.syncs`` = 1, ``resident``); so over DTensors of an NCCL
+mesh.  Elsewhere — the CPU, a gloo mesh's DTensors, under
+``utils.graphs.eager()``, a window of 0, or a module
 that does not declare it — the same tree runs as the eager loop, which
 reads the control's block once at the start, once after every descent
 step and once after every cycle: ``syncs`` = 1 + steps + cycles.

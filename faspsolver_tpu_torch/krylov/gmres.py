@@ -42,7 +42,8 @@ products), and the CPU is where the port is held to the JAX package.
 On a CUDA vector, when A and M declare themselves capturable, the tree
 is captured at the first solve as one CUDA graph kept with A and M (per
 criterion, ``safe``, R and variant) and a solve is one launch and ONE
-host read (``SolveResult.syncs`` = 1, ``resident``).  Elsewhere — the CPU, DTensors, under
+host read (``SolveResult.syncs`` = 1, ``resident``); so over DTensors
+of an NCCL mesh.  Elsewhere — the CPU, a gloo mesh's DTensors, under
 ``utils.graphs.eager()``, or a module that does not declare it — the
 same tree runs as the eager loop, which reads the control's block once
 at the start, once after every Arnoldi step and once after every cycle:

@@ -31,14 +31,16 @@ package's traced scalar arithmetic (its ``tol`` is cast to b's dtype
 too).  The state (x, r, z, p, temp1, the safe iterate and the control's
 block) lives in tensors the pieces update in place.
 
-On a CUDA vector, when A and M declare themselves capturable
+On a CUDA vector (or a DTensor over an NCCL mesh, whose collectives
+the graph captures), when A and M declare themselves capturable
 (``utils.graphs.capturable``), the tree is captured at the first solve
 as one CUDA graph (``graphs.Resident``: conditional WHILE and IF nodes
 set by the control kernel) kept with A and M, and a solve is one launch
 and ONE host read at the end (``SolveResult.syncs`` = 1).  Elsewhere —
-the CPU, DTensors, under ``utils.graphs.eager()``, or a module that does
-not declare it — the same tree runs as the eager loop, which reads the
-control's block once per iteration and once more per recompute.
+the CPU, a gloo mesh's DTensors, under ``utils.graphs.eager()``, or a
+module that does not declare it — the same tree runs as the eager loop,
+which reads the control's block once per iteration and once more per
+recompute.
 """
 from __future__ import annotations
 

@@ -13,7 +13,15 @@ count.  Those are the operations ``torch.distributed.tensor.debug.
 CommDebugMode`` counts (the c10d and functional collectives, P2P not
 among them); its counts carry no sizes, and its module tracker fails on
 modules that call other modules' ``forward`` inside a recorded cycle, so
-the record keeps its own.
+the record keeps its own.  A record runs its block eagerly
+(``utils.graphs.eager()``): a replayed graph issues its sends and
+collectives from the device, where neither count sees them.
+
+Over an NCCL mesh the sends, the all-gathers and DTensor's all-reduces
+are issued on the current stream and ``req.wait()`` makes that stream
+wait for them (a stream dependency, no host block), so a CUDA graph
+captures them as nodes (``utils/graphs.py``); over gloo they run, and
+wait, on the host.
 """
 from __future__ import annotations
 
@@ -27,8 +35,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from .. import is_dtensor
+from ..utils import graphs
 
-# P2P sends and elements since the process started, counted by exchange()
+# P2P sends and elements since the process started, counted where the
+# host calls exchange() (read by record(), which runs eagerly)
 _P2P = {"sends": 0, "elements": 0}
 
 _COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
@@ -199,10 +209,11 @@ class _CollectiveSpy(TorchDispatchMode):
 
 @contextlib.contextmanager
 def record(mesh):
-    """Record what the block communicates on this rank."""
+    """Record what the block communicates on this rank, running it
+    eagerly (a graph's replay would send unseen)."""
     rec = CommRecord(world_size=mesh.size())
     sends, elems = _P2P["sends"], _P2P["elements"]
-    with _CollectiveSpy(rec):
+    with graphs.eager(), _CollectiveSpy(rec):
         yield rec
     rec.p2p_sends = _P2P["sends"] - sends
     rec.p2p_elements = _P2P["elements"] - elems

@@ -46,6 +46,7 @@ from ..ops.operators import (DiaOperator, FactoredBand, StencilNdOperator,
                              dia_bands_from_csr)
 from ..precond.amg.smoothers import PrecondSmoother, SmootherData, smooth
 from ..precond.amg.structured import SmoothedProlong, SmoothedRestrict
+from ..utils.graphs import capturable
 from .comm import (exchange, mesh_device, replicated, sharded, slab, split,
                    whole)
 
@@ -142,6 +143,12 @@ class OnWhole(nn.Module):
         self.shard_out = bool(shard_out)
 
     @property
+    def capturable(self) -> bool:
+        """The gather and the slice read nothing back to the host: as
+        capturable as the module it wraps."""
+        return capturable(self.inner)
+
+    @property
     def shape(self):
         return self.inner.shape
 
@@ -171,6 +178,12 @@ class PlacedTransfer(nn.Module):
         self.mesh = mesh
         self.n_in, self.n_out = int(n_in), int(n_out)
         self.shard_in, self.shard_out = bool(shard_in), bool(shard_out)
+
+    @property
+    def capturable(self) -> bool:
+        """The scatter into zeros, the all-reduce and the slice read
+        nothing back to the host: as capturable as the transfer."""
+        return capturable(self.inner)
 
     @property
     def shape(self):
@@ -204,6 +217,12 @@ class WholeSmoother(PrecondSmoother):
         self.A_whole = A_whole
         self.mesh = mesh
         self.n = int(n)
+
+    @property
+    def capturable(self) -> bool:
+        """The gathers and the slice read nothing back to the host: as
+        capturable as the sweeps and the operator they run on."""
+        return capturable(self.sm) and capturable(self.A_whole)
 
     def smooth(self, A, x, b, nsweeps: int, forward: bool):
         y = smooth(self.sm, self.A_whole, whole(x), whole(b), nsweeps,

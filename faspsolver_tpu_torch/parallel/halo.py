@@ -79,6 +79,8 @@ class HaloDiaOperator(nn.Module):
     """Row-split DIA operator with explicit neighbour exchange: ``bands``
     (k, n) split by columns (``Shard(1)``), x split by rows."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, bands, offsets, n: int, axis: str = "rows",
                  mesh=None):
         super().__init__()
@@ -314,6 +316,8 @@ class HaloBandedProlong(nn.Module):
     adjacent coarse blocks, the embed of the planned local C entries,
     and the fine-space shift bands over the local slab and its halo."""
 
+    capturable = True       # no host read in the apply (utils/graphs.py)
+
     def __init__(self, w, emb_pos, emb_src, shifts, nf: int, nc: int,
                  axis: str = "rows", mesh=None):
         super().__init__()
@@ -359,6 +363,8 @@ class HaloBandedRestrict(nn.Module):
     shard (with x's halo), then each coarse shard extracts its entries
     from its own and its neighbours' fine blocks.  ``shard_out`` False
     gathers the coarse vector whole for a replicated coarse level."""
+
+    capturable = True       # no host read in the apply (utils/graphs.py)
 
     def __init__(self, w, ext_src, shifts, nf: int, nc: int,
                  axis: str = "rows", mesh=None):

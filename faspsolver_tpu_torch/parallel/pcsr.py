@@ -21,7 +21,18 @@ GSPMD derive the communication; here:
 ``make_mesh`` uses the process group the caller initialised; with none it
 makes a one-rank group (NCCL on the card, gloo for ``device="cpu"``)
 whose ``FileStore`` lies under ``tempfile.mkdtemp()``, and
-:func:`release_mesh` takes it down.
+:func:`release_mesh` takes it down.  Before the group's NCCL
+communicator is made (at its first collective) it sets
+``NCCL_GRAPH_MIXING_SUPPORT=0`` unless the environment says otherwise:
+with NCCL's support for mixing captured and uncaptured launches on one
+communicator, every captured collective waits on an external event, and
+the conditional body of a resident loop takes no event node
+(``utils/graphs.py``).  The port's launches on a communicator are
+ordered by the current stream and the same on every rank, which is
+what NCCL asks of a communicator without that support.  A group is
+taken down (``destroy_process_group``) only after the modules whose
+resident solves captured its collectives are freed: NCCL's teardown
+waits for those graphs.
 """
 from __future__ import annotations
 
@@ -49,8 +60,11 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "rows",
     group (all of them by default).  Raises where the group has fewer
     ranks than asked.  Without a process group, a request for one rank
     makes a one-rank group on ``device`` (None: the CUDA device, as the
-    drivers do; it raises where there is none)."""
+    drivers do; it raises where there is none).  Call it before the
+    group's first collective: it turns NCCL's graph mixing off (module
+    docstring)."""
     from torch.distributed.device_mesh import DeviceMesh
+    os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
     if not dist.is_initialized():
         if (n_devices or 1) != 1:
             raise RuntimeError(

@@ -174,11 +174,10 @@ class AMGHierarchy(nn.Module):
 
     @property
     def capturable(self) -> bool:
-        """Whether its cycles may be captured in a CUDA graph: no level
-        placed on a mesh (``parallel``), and every operator, transfer,
-        smoother and the coarse solver declaring it."""
-        if getattr(self, "sharded_levels", None):
-            return False
+        """Whether its cycles may be captured in a CUDA graph: every
+        operator, transfer, smoother and the coarse solver declaring it
+        (on a hierarchy placed on a mesh, ``parallel``, the placed pieces
+        declare what the parts they wrap declare)."""
         parts = [self.coarse]
         for lvl in self.levels:
             parts += [lvl.A, lvl.P, lvl.R, lvl.smoother, lvl.Asm, lvl.nk]

@@ -8,10 +8,11 @@ On a CUDA vector the AMG and FMG preconditioners replay their cycles
 from a CUDA graph (``utils.graphs.GraphedModule``), kept by the
 hierarchy: every cycle type reads nothing back to the host, over CSR
 and BSR levels alike (block operators, block smoothers and the
-near-kernel correction included).  They run eagerly where
-``capturable`` is False — a hierarchy placed on a mesh, or one with a
-part that does not declare itself capturable (a MatFree operator over
-a plain function) — and on DTensor vectors.  The near-kernel
+near-kernel correction included), and over a hierarchy placed on a
+mesh on DTensor vectors of an NCCL mesh.  They run eagerly where
+``capturable`` is False — a hierarchy with a part that does not
+declare itself capturable (a MatFree operator over a plain function)
+— and on DTensor vectors of a gloo mesh.  The near-kernel
 preconditioner (:class:`AMGNKPrecond`) is capturable when its cycles
 and its operator are.
 """

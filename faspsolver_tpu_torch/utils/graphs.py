@@ -25,8 +25,16 @@ nothing reads.
 A module declares that its apply keeps these rules with ``capturable``
 (:func:`capturable`).  Only modules whose apply was read for host reads
 declare it, so anything else runs eagerly and is never tried and caught.
-On a CPU tensor, a DTensor, inside another capture (graphs nest inline)
-or under :func:`eager`, the same functions simply run (:func:`active`).
+On a CPU tensor, a DTensor whose mesh does not communicate over NCCL
+(gloo), inside another capture (graphs nest inline) or under
+:func:`eager`, the same functions simply run (:func:`active`).  A DTensor
+on CUDA over an NCCL mesh is captured as a plain tensor is: its local
+ops and the collectives that DTensor and ``parallel/comm.py`` issue on
+the current stream become nodes of the graph (the counterpart of the
+JAX package's ``psum`` and ``ppermute`` inside one jitted loop).  Every
+flag a control kernel reads is computed from all-reduced, replicated
+values, which every rank holds bit for bit, so every rank leaves each
+While at the same step and meets the same collectives.
 
 A replay issues nothing through the kernels' wrappers, so each program
 records the launches its capture made and adds them to
@@ -92,12 +100,25 @@ def eager():
 
 
 def active(t) -> bool:
-    """Whether work on ``t`` replays graphs: a plain CUDA tensor, graphs
-    not switched off, and no capture under way (a capture takes nested
-    work inline)."""
-    return (_enabled and isinstance(t, torch.Tensor) and not is_dtensor(t)
-            and t.device.type == "cuda"
+    """Whether work on ``t`` replays graphs: a CUDA tensor (a DTensor:
+    its local part on CUDA, its mesh over NCCL), graphs not switched
+    off, and no capture under way (a capture takes nested work
+    inline)."""
+    if not (_enabled and isinstance(t, torch.Tensor)):
+        return False
+    if is_dtensor(t):
+        if not over_nccl(t.device_mesh):
+            return False
+        t = t.to_local()
+    return (t.device.type == "cuda"
             and not torch.cuda.is_current_stream_capturing())
+
+
+def over_nccl(mesh) -> bool:
+    """Whether every process group of a device mesh is NCCL's, whose
+    collectives a CUDA graph captures (gloo's run on the host)."""
+    import torch.distributed as dist
+    return all(dist.get_backend(g) == "nccl" for g in mesh.get_all_groups())
 
 
 def capturable(obj) -> bool:
@@ -116,11 +137,20 @@ def identity(obj):
 
 def fingerprint(module) -> tuple:
     """The addresses, dtypes and shapes of a module's buffers (the port's
-    modules hold no parameters): what a captured graph reads."""
+    modules hold no parameters): what a captured graph reads.  A DTensor
+    buffer holds no storage of its own: its local part's, with the
+    mesh's size and this rank."""
     if not isinstance(module, nn.Module):
         return ()
-    return tuple((t.data_ptr(), t.dtype, tuple(t.shape))
-                 for t in module.buffers())
+    return tuple(_address(t) for t in module.buffers())
+
+
+def _address(t) -> tuple:
+    if is_dtensor(t):
+        mesh = t.device_mesh
+        return _address(t.to_local()) + (mesh.size(),
+                                         mesh.get_local_rank())
+    return (t.data_ptr(), t.dtype, tuple(t.shape))
 
 
 def _ref(obj):
@@ -187,13 +217,15 @@ class Program:
 
     ``fn`` reads and writes tensors allocated outside the capture and
     returns None or a tensor.  It runs once for real first, on a side
-    stream (libraries load, plans build); the tensors in ``keep`` are
-    restored after that run, so the warm-up changes no state (its
-    launches ran and count).  The capture runs nothing: its stencil
-    launches are recorded, and each :meth:`replay` adds them to the
-    counter.  Its result lands in ``self.out``, a static tensor that every
-    replay overwrites.  ``pool`` is another program's ``pool`` to share
-    (its memory pool; default a new one).  ``capture_s`` times the
+    stream (libraries load, plans build, a DTensor's first collective
+    creates the NCCL communicator and the distribution layer its
+    per-rank caches: a capture can make none of them); the tensors in
+    ``keep`` are restored after that run, so the warm-up changes no
+    state (its launches ran and count).  The capture runs nothing: its
+    stencil launches are recorded, and each :meth:`replay` adds them to
+    the counter.  Its result lands in ``self.out``, a static tensor that
+    every replay overwrites.  ``pool`` is another program's ``pool`` to
+    share (its memory pool; default a new one).  ``capture_s`` times the
     capture and instantiation (not the warm-up), ``bytes`` the memory
     they reserved."""
 
@@ -404,10 +436,12 @@ class Resident:
     solve.
 
     The pieces run once for real first (libraries load, plans build,
-    and each side of every If is warmed), then the tensors in ``keep``
-    are restored.  Each piece is then captured with ``torch.cuda.graph``
-    (all into one memory pool: they never run concurrently) and embedded
-    as a child graph node; each If / While becomes a conditional node
+    NCCL communicators and the distribution layer's per-rank caches are
+    made, and each side of every If is warmed), then the tensors in
+    ``keep`` are restored.  Each piece is then captured with
+    ``torch.cuda.graph`` (all into one memory pool: they never run
+    concurrently) and embedded as a child graph node; each If / While
+    becomes a conditional node
     whose handle is created in the graph that holds it and handed to the
     control kernels through their region (``h_if`` / ``h_while``) while
     the pieces are captured.  A piece inside a conditional may hold
@@ -514,7 +548,10 @@ class Resident:
             raise RuntimeError(
                 f"a piece of a resident loop holds a "
                 f"{_NODE_KINDS.get(refused.value, refused.value)} node, "
-                f"which a conditional body does not take")
+                f"which a conditional body does not take (a captured NCCL "
+                f"collective holds event nodes unless "
+                f"NCCL_GRAPH_MIXING_SUPPORT=0 was set before its "
+                f"communicator was made, as parallel.make_mesh does)")
         self.runs.append((cg, launched, int(n.value), counter))
         return cg
 

@@ -1178,3 +1178,236 @@ def test_resident_matfree_solve_needs_a_capturable_function():
         assert got.resident and got.syncs == 1
         assert graphs.stats["replays"] == 1
         assert got.iters == eager.iters and torch.equal(got.x, eager.x)
+
+
+@pytest.fixture
+def nccl_mesh():
+    """A one-rank NCCL mesh on this card (the process group make_mesh
+    makes, taken down after the test)."""
+    _need_cuda()
+    from faspsolver_tpu_torch.parallel import make_mesh, release_mesh
+    mesh = make_mesh()
+    try:
+        yield mesh
+    finally:
+        release_mesh()
+
+
+# the distribution layer's solves at the card's size: phase 13's forms
+# (chip_smoke.parallel_solves) on poisson_2d(127) and
+# block_poisson_3d(8, nb=3); the other Krylov loops over the row-split
+# ELL operator of poisson_2d(63) and Jacobi.  DIST_ATOMIC: the cases
+# whose sums add with index_add_ (RS's coarse COO transfers, UA-BSR's
+# aggregation)
+DIST_CASES = ["Jacobi-PCG", "AMG-PCG shard_hierarchy",
+              "AMG-PCG halo_shard_hierarchy", "RS AMG-PCG halo",
+              "vFGMRES shard_block_rows", "BiCGstab", "MINRES", "GMRES",
+              "GCR"]
+DIST_ATOMIC = ("RS AMG-PCG halo", "vFGMRES shard_block_rows")
+
+
+def _dist_solve(case, mesh):
+    """``solve()`` of a distribution-layer case over DTensor vectors of
+    ``mesh``."""
+    import chip_smoke
+    from faspsolver_tpu_torch import as_tensor
+    from faspsolver_tpu_torch.krylov import (JacobiPrecond, bicgstab, gcr,
+                                             gmres, minres, pcg, vfgmres)
+    from faspsolver_tpu_torch.ops import device_operator
+    from faspsolver_tpu_torch.parallel import (
+        dist_dia_operator, dist_operator, halo_shard_hierarchy, replicate,
+        shard_block_rows, shard_hierarchy, shard_vector)
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    from faspsolver_tpu_torch.precond.amg import (setup_rs, setup_structured,
+                                                  setup_ua_bsr)
+    from faspsolver_tpu_torch.testgen import block_poisson_3d, poisson_2d
+    from faspsolver_tpu_torch.utils.params import AMGParam
+    f64 = torch.float64
+    if case == "vFGMRES shard_block_rows":
+        Ab = block_poisson_3d(8, nb=3)
+        hb = replicate(setup_ua_bsr(Ab, AMGParam(AMG_type=3, coarse_dof=30),
+                                    dtype=f64), mesh)
+        opb = shard_block_rows(device_operator(Ab, dtype=f64), mesh)
+        bb = shard_vector(as_tensor(Ab.matvec(np.ones(Ab.nrow)), f64), mesh)
+        return lambda: vfgmres(opb, bb, M=AMGPrecond(hb), tol=1e-8,
+                               maxit=200, restart=30)
+    A = poisson_2d(127)
+    bd = shard_vector(as_tensor(A.matvec(np.ones(A.nrow)), f64), mesh)
+    dev = bd.to_local().device
+    if case.startswith("AMG-PCG"):
+        hs0 = setup_structured(A, chip_smoke.headline_param(), dtype=f64,
+                               smooth_p=True, device=dev)
+        if case.endswith("halo_shard_hierarchy"):
+            hh, _ = halo_shard_hierarchy(hs0, mesh)
+            op, M = hh.levels[0].A, AMGPrecond(hh)
+        else:
+            op = dist_dia_operator(A, mesh, dtype=f64)
+            M = AMGPrecond(shard_hierarchy(hs0, mesh))
+        return lambda: pcg(op, bd, M=M, tol=1e-8, maxit=200)
+    if case == "RS AMG-PCG halo":
+        hrs = setup_rs(A, AMGParam(smoother=13, polynomial_degree=2,
+                                   coarse_dof=60), dtype=f64, device=dev)
+        hh, _ = halo_shard_hierarchy(hrs, mesh, min_size=A.nrow // 2)
+        return lambda: pcg(hh.levels[0].A, bd, M=AMGPrecond(hh), tol=1e-8,
+                           maxit=200)
+    if case != "Jacobi-PCG":
+        A = poisson_2d(63)
+        bd = shard_vector(as_tensor(A.matvec(np.ones(A.nrow)), f64), mesh)
+    op = dist_operator(A, mesh, dtype=f64)
+    M = JacobiPrecond(shard_vector(as_tensor(1.0 / A.diagonal(), f64), mesh))
+    fn = {"Jacobi-PCG": pcg, "BiCGstab": bicgstab, "MINRES": minres,
+          "GMRES": gmres, "GCR": gcr}[case]
+    kw = {"restart": 30} if case in ("GMRES", "GCR") else {}
+    return lambda: fn(op, bd, M=M, tol=1e-8, maxit=2000, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DIST_CASES)
+def test_resident_dtensor_solves_read_once_and_equal_the_eager_loop(
+        case, nccl_mesh):
+    """A Krylov loop over DTensor vectors of a one-rank NCCL mesh runs
+    resident, cold and warm: one program launch and one host read; the
+    eager loop (graphs.eager()) on the same card gives the same count
+    and status, the same stencil and loop-control launches as the warm
+    solve, and x bit for bit, or within chip_smoke.X_DIFF_LIMIT of |x|
+    where a sum adds with index_add_ (DIST_ATOMIC)."""
+    import chip_smoke
+    from faspsolver_tpu_torch.utils import graphs
+    solve = _dist_solve(case, nccl_mesh)
+    (cold, _, r_cold), (warm, l_warm, r_warm), (eager, l_e, r_e) = \
+        _graphed_and_eager(solve)
+    assert graphs.active(cold.x)
+    assert (r_cold, r_warm, r_e) == (1, 1, 0)
+    assert cold.syncs == warm.syncs == 1
+    assert cold.resident and warm.resident and not eager.resident
+    assert eager.syncs > eager.iters
+    assert cold.iters == warm.iters == eager.iters > 3
+    assert cold.status == warm.status == eager.status
+    assert l_warm == l_e
+    for g in (cold, warm):
+        gx, ex = g.x.to_local(), eager.x.to_local()
+        if case in DIST_ATOMIC:
+            diff = float((gx - ex).norm() / ex.norm())
+            assert diff <= chip_smoke.X_DIFF_LIMIT, diff
+        else:
+            assert torch.equal(gx, ex)
+
+
+@pytest.mark.cuda
+def test_resident_dtensor_solve_raises_when_its_capture_fails(nccl_mesh):
+    """A preconditioner that declares itself capturable but reads the
+    host in its apply: the resident PCG over DTensor vectors raises at
+    its capture and does not run the eager loop instead."""
+    from faspsolver_tpu_torch import as_tensor
+    from faspsolver_tpu_torch.krylov import pcg
+    from faspsolver_tpu_torch.parallel import dist_operator, shard_vector
+    from faspsolver_tpu_torch.testgen import poisson_2d
+
+    class HostReading(torch.nn.Module):
+        capturable = True
+
+        def forward(self, r):
+            return r * float(r.to_local().abs().max() > 0)
+
+    A = poisson_2d(31)
+    op = dist_operator(A, nccl_mesh, dtype=torch.float64)
+    bd = shard_vector(as_tensor(A.matvec(np.ones(A.nrow)), torch.float64),
+                      nccl_mesh)
+    with pytest.raises(RuntimeError):
+        pcg(op, bd, M=HostReading(), tol=1e-8, maxit=100)
+
+
+@pytest.mark.cuda
+def test_dtensor_comm_record_is_the_same_replayed_or_eager(nccl_mesh):
+    """A communication record runs its block eagerly: one whole cycle of
+    the halo hierarchy recorded with graphs on (its AMG program already
+    captured and replayed once) equals the record under graphs.eager(),
+    and so does a recorded PCG solve whose resident program was captured
+    before; the solve inside the record runs as the eager loop.  The
+    cycle's program replays outside a record, its z bit-equal to the
+    eager cycle's."""
+    from faspsolver_tpu_torch import as_tensor
+    from faspsolver_tpu_torch.krylov import pcg
+    from faspsolver_tpu_torch.parallel import (cycle_comm_pattern,
+                                               halo_shard_hierarchy,
+                                               shard_vector)
+    from faspsolver_tpu_torch.parallel.comm import record
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    from faspsolver_tpu_torch.precond.amg import setup_structured
+    from faspsolver_tpu_torch.testgen import poisson_2d
+    from faspsolver_tpu_torch.utils import graphs
+    from faspsolver_tpu_torch.utils.params import AMGParam
+    mesh = nccl_mesh
+    A = poisson_2d(127)
+    bd = shard_vector(as_tensor(A.matvec(np.ones(A.nrow)), torch.float64),
+                      mesh)
+    hs0 = setup_structured(A, AMGParam(coarse_dof=60), dtype=torch.float64,
+                           smooth_p=True, device=bd.to_local().device)
+    hh, _ = halo_shard_hierarchy(hs0, mesh)
+    M = AMGPrecond(hh)
+    graphs.reset_stats()
+    z = M(bd)
+    assert graphs.stats["replays"] == 1
+    with graphs.eager():
+        ze = M(bd)
+    assert torch.equal(z.to_local(), ze.to_local())
+    graphed = cycle_comm_pattern(hh, mesh)
+    with graphs.eager():
+        eager = cycle_comm_pattern(hh, mesh)
+    assert graphed == eager
+
+    def solve():
+        return pcg(hh.levels[0].A, bd, M=M, tol=1e-8, maxit=200)
+
+    assert solve().resident
+    with record(mesh) as rec:
+        res = solve()
+    with graphs.eager(), record(mesh) as rec_e:
+        res_e = solve()
+    assert not res.resident and res.syncs == res_e.syncs
+    assert rec == rec_e
+    assert rec.p2p_sends == 0        # one rank: no neighbour to send to
+
+
+@pytest.mark.cuda
+def test_resident_dtensor_solves_across_ranks_equal_the_eager_loop(tmp_path):
+    """One NCCL rank per card, on a machine with two cards or more (it
+    skips on one: NCCL takes one rank per card): phase 13's forms
+    (a)-(e) at a small size (``torch_dist_worker.resident_forms``) run
+    resident on every rank, their halo sends, all-gathers and
+    all-reduces captured inside the conditional bodies, cold and warm,
+    one launch and one read each, with the eager loop's count and x
+    within chip_smoke.X_DIFF_LIMIT of |x| (a collective's algorithm may
+    differ between a capture and an eager call); the state block is the
+    same bytes on every rank; one whole cycle of (c) sends P2P, and its
+    record is the same with graphs on as under graphs.eager()."""
+    _need_cuda()
+    ws = torch.cuda.device_count()
+    if ws < 2:
+        pytest.skip("needs two CUDA devices or more (one NCCL rank each)")
+    import chip_smoke
+    from torch_dist_worker import spawn_ranks
+    ranks = spawn_ranks(ws, str(tmp_path), backend="nccl")
+    for form in "abcde":
+        blk = ranks[0][form]["block"]
+        for r in ranks:
+            d = r[form]
+            assert d["resident"] and d["warm_resident"]
+            assert not d["eager_resident"]
+            assert d["syncs"] == d["warm_syncs"] == 1
+            assert d["launches"] == d["warm_launches"] == 1
+            assert d["eager_syncs"] > d["eager_it"]
+            assert d["it"] == d["warm_it"] == d["eager_it"] > 3
+            np.testing.assert_array_equal(d["block"], blk)
+            for x in (d["x"], d["warm_x"]):
+                diff = float(np.linalg.norm(x - d["eager_x"])
+                             / np.linalg.norm(d["eager_x"]))
+                assert diff <= chip_smoke.X_DIFF_LIMIT, (form, diff)
+        d = ranks[0][form]
+        print(f"{ws} ranks ({form}): {d['it']} iterations, captures "
+              f"{d['captures']} ({d['nodes_captured']} nodes), x bit-equal "
+              f"to the eager loop {np.array_equal(d['x'], d['eager_x'])}")
+    for r in ranks:
+        assert r["c"]["record"] == r["c"]["record_eager"]
+        assert r["c"]["record"]["p2p_sends"] > 0
+    print(f"{ws} ranks, one cycle of (c): {ranks[0]['c']['record']}")

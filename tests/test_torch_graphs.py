@@ -22,7 +22,10 @@ near-kernel basis, block Jacobi, the near-kernel preconditioner), so
 its vFGMRES, CG and near-kernel solves run resident too; so do the
 STR operator and preconditioners, the BLC operator and block and
 sweeping preconditioners, Schwarz, and a MatFree operator whose
-function is a capturable module."""
+function is a capturable module.  A DTensor replays graphs only over an
+NCCL mesh (never over gloo), its buffers keyed on their local parts,
+and the distribution layer's modules and placed hierarchies declare
+themselves capturable."""
 import copy
 import importlib
 
@@ -352,17 +355,30 @@ def test_what_is_not_capturable_stays_eager(graphed_on_cpu):
 
 
 def test_a_sharded_hierarchy_is_not_capturable():
+    """A hierarchy placed on a gloo mesh is never captured: it declares
+    itself capturable, as its placed pieces do (over an NCCL mesh its
+    cycles replay, tests/test_torch_gpu.py), but a gloo mesh's DTensor
+    does not replay graphs, so its cycle runs eagerly and keeps no
+    graph."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from faspsolver_tpu_torch.parallel import shard_hierarchy
+    from faspsolver_tpu_torch.parallel.comm import split
     hier = setup_rs(poisson_2d(31), AMGParam(coarse_dof=60))
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
-        placed = shard_hierarchy(hier, init_device_mesh("cpu", (1,)),
-                                 min_size=64)
-        assert not AMGPrecond(placed).capturable
-        assert AMGPrecond(hier).capturable
+        mesh = init_device_mesh("cpu", (1,))
+        placed = shard_hierarchy(hier, mesh, min_size=64)
+        M = AMGPrecond(placed)
+        assert M.capturable and AMGPrecond(hier).capturable
+        r = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            31 * 31))
+        rd = split(r, mesh)
+        assert not graphs.active(rd)
+        z = M(rd)
+        assert M._graph is None
+        assert torch.equal(z.to_local(), AMGPrecond(hier).eager(r))
     finally:
         dist.destroy_process_group()
 
@@ -670,3 +686,103 @@ def test_graphed_str_blc_schwarz_solves_are_the_eager_loop(graphed_on_cpu,
     assert (got.iters, got.status) == (want.iters, want.status)
     assert got.iters > 3 and want.converged
     assert got.syncs == 1 and want.syncs > want.iters
+
+
+@pytest.fixture
+def gloo_mesh():
+    """A one-rank gloo mesh on the CPU (the process group make_mesh
+    makes, taken down after the test)."""
+    from faspsolver_tpu_torch.parallel import make_mesh, release_mesh
+    mesh = make_mesh(device="cpu")
+    try:
+        yield mesh
+    finally:
+        release_mesh()
+
+
+def test_active_admits_a_dtensor_only_over_nccl(gloo_mesh, monkeypatch):
+    """A DTensor replays graphs only where its mesh's groups are NCCL's
+    and its local part lies on CUDA: over gloo on the CPU it does not,
+    and a mesh that reports NCCL does not make a CPU DTensor replay
+    either; graphs.eager() and a plain CPU tensor keep everything eager
+    too."""
+    import torch.distributed as dist
+    from faspsolver_tpu_torch.parallel import shard_vector
+    x = shard_vector(torch.arange(8.0, dtype=torch.float64), gloo_mesh)
+    assert not graphs.over_nccl(gloo_mesh)
+    assert not graphs.active(x) and not graphs.active(x.to_local())
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+    assert graphs.over_nccl(gloo_mesh)
+    assert not graphs.active(x)
+    with graphs.eager():
+        assert not graphs.active(x)
+
+
+def test_fingerprint_keys_dtensor_buffers_on_their_local_parts(gloo_mesh):
+    """A module whose buffers are DTensors (a row-split ELL operator) is
+    keyed on each local part's address, dtype and shape with the mesh's
+    size and this rank; a copy of it gets another key, a plain module
+    keeps its buffers' own."""
+    from faspsolver_tpu_torch.ops import device_operator
+    from faspsolver_tpu_torch.parallel import dist_operator
+    op = dist_operator(A, gloo_mesh, dtype=torch.float64)
+    want = tuple((t.to_local().data_ptr(), t.dtype,
+                  tuple(t.to_local().shape), 1, 0) for t in op.buffers())
+    assert graphs.fingerprint(op) == want and len(want) == 2
+    assert graphs.fingerprint(copy.deepcopy(op)) != want
+    ell = device_operator(A, prefer="ell")
+    assert graphs.fingerprint(ell) == tuple(
+        (t.data_ptr(), t.dtype, tuple(t.shape)) for t in ell.buffers())
+
+
+def test_distribution_modules_are_capturable(gloo_mesh):
+    """The row-split ELL, BSR and DIA operators, the halo operator and
+    banded transfers, the placed pieces of a hierarchy (OnWhole,
+    PlacedTransfer, WholeSmoother) and the hierarchies that
+    shard_hierarchy and halo_shard_hierarchy place (structured and RS,
+    with Gauss-Seidel sweeps on the gathered vector) each declare
+    themselves capturable, as do AMG preconditioners over them and over
+    a replicated hierarchy.  A placed piece over a MatFree operator of a
+    plain function does not, nor does a hierarchy that holds one."""
+    import chip_smoke
+    from faspsolver_tpu_torch.ops import device_operator
+    from faspsolver_tpu_torch.parallel import (
+        dist_dia_operator, dist_operator, halo_dia_operator,
+        halo_shard_hierarchy, replicate, shard_block_rows, shard_hierarchy)
+    from faspsolver_tpu_torch.parallel.dist_dia import (OnWhole,
+                                                        PlacedTransfer,
+                                                        WholeSmoother)
+    from faspsolver_tpu_torch.parallel.halo import (HaloBandedProlong,
+                                                    HaloBandedRestrict)
+    mesh = gloo_mesh
+    Ab, _ = chip_smoke.bsr_problem(4)
+    P = poisson_2d(64)
+    hs = shard_hierarchy(setup_structured(P, AMGParam(coarse_dof=60),
+                                          smooth_p=True), mesh, min_size=256)
+    hr = setup_rs(P, AMGParam(coarse_dof=60))
+    hrs = shard_hierarchy(hr, mesh, min_size=256)
+    hh, _ = halo_shard_hierarchy(hr, mesh, min_size=P.nrow // 2)
+    kinds = {type(m) for h in (hs, hrs, hh) for lvl in h.levels
+             for m in (lvl.A, lvl.P, lvl.R, lvl.smoother)}
+    assert {OnWhole, PlacedTransfer, WholeSmoother, HaloBandedProlong,
+            HaloBandedRestrict} <= kinds
+    yes = [dist_operator(A, mesh), dist_dia_operator(A, mesh),
+           halo_dia_operator(A, mesh),
+           shard_block_rows(device_operator(Ab), mesh), hs, hrs, hh,
+           AMGPrecond(hs), AMGPrecond(hrs), AMGPrecond(hh),
+           AMGPrecond(replicate(setup_rs(A, AMGParam(coarse_dof=60)),
+                                mesh))]
+    yes += [m for h in (hs, hrs, hh) for lvl in h.levels
+            for m in (lvl.A, lvl.P, lvl.R, lvl.smoother) if m is not None]
+    for m in yes:
+        assert graphs.capturable(m), type(m).__name__
+    free = MatFreeOperator(lambda v: v, A.nrow, torch.float64)
+    placed = OnWhole(free, mesh, A.nrow, True)
+    assert not graphs.capturable(placed)
+    assert not graphs.capturable(PlacedTransfer(free, mesh, A.nrow, A.nrow,
+                                                True, True))
+    assert not graphs.capturable(WholeSmoother(hr.levels[0].smoother, free,
+                                               mesh, A.nrow))
+    hh.levels[0].A = placed
+    assert not graphs.capturable(hh) and not graphs.capturable(
+        AMGPrecond(hh))

@@ -320,6 +320,42 @@ def test_dryrun_multichip(ranks):
     assert all(v > 0 for v in its.values())
 
 
+@pytest.mark.parametrize("solve", ["a", "b", "c", "d"])
+def test_resident_dtensor_pieces_read_nothing_on_the_host(ranks, solve):
+    """Phase 13's PCG trees (``torch_dist_worker.resident_forms``: (a)
+    Jacobi-PCG over the row-split ELL operator, (b) AMG-PCG over the
+    row-split DIA operator and a sharded hierarchy, (c) through the
+    halo hierarchy, (d) the RS halo hierarchy), run on four ranks as the
+    device runs their graph, cold and warm: no piece dispatches an item,
+    is_nonzero or _local_scalar_dense (the loop control's twin, a
+    kernel on the card, aside), and each solve is one launch and one
+    read, with the eager loop's count and x."""
+    for r in ranks:
+        d = r["resident"][solve]
+        assert d["host_reads"] == [] and d["ops"] > 1000
+        assert d["resident"] and d["warm_resident"]
+        assert d["syncs"] == d["warm_syncs"] == 1
+        assert d["launches"] == d["warm_launches"] == 1
+        assert not d["eager_resident"] and d["eager_syncs"] > d["eager_it"]
+        assert d["it"] == d["warm_it"] == d["eager_it"] > 3
+        np.testing.assert_array_equal(d["x"], d["eager_x"])
+        np.testing.assert_array_equal(d["warm_x"], d["eager_x"])
+    if solve in "bc":
+        assert ranks[0]["resident"][solve]["it"] == ranks[0]["structured"][
+            "it1"]
+
+
+@pytest.mark.parametrize("solve", ["a", "b", "c", "d"])
+def test_resident_dtensor_state_block_is_equal_on_every_rank(ranks, solve):
+    """Every flag the loop control sets comes from all-reduced values, so
+    the state block each resident PCG solve leaves is the same bytes on
+    every rank: the ranks leave each While at the same step."""
+    blk = ranks[0]["resident"][solve]["block"]
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["resident"][solve]["block"], blk)
+    assert blk.dtype == np.uint8 and blk.any()
+
+
 def test_make_mesh_without_a_group_needs_the_card_or_one_rank():
     """With no process group, make_mesh makes a one-rank group only: more
     ranks raise, and no device argument means the CUDA device, which
@@ -340,6 +376,25 @@ def test_make_mesh_without_a_group_needs_the_card_or_one_rank():
     finally:
         release_mesh()
     assert not dist.is_initialized()
+
+
+def test_make_mesh_turns_nccl_graph_mixing_off(monkeypatch):
+    """make_mesh sets NCCL_GRAPH_MIXING_SUPPORT=0 before the group's
+    communicator exists (with it on, NCCL makes each captured collective
+    wait on an external event, which a resident loop's conditional body
+    refuses), and leaves a value the environment already holds."""
+    import os
+    from faspsolver_tpu_torch.parallel import make_mesh, release_mesh
+    for preset, want in ((None, "0"), ("1", "1")):
+        if preset is None:
+            monkeypatch.delenv("NCCL_GRAPH_MIXING_SUPPORT", raising=False)
+        else:
+            monkeypatch.setenv("NCCL_GRAPH_MIXING_SUPPORT", preset)
+        make_mesh(device="cpu")
+        try:
+            assert os.environ["NCCL_GRAPH_MIXING_SUPPORT"] == want
+        finally:
+            release_mesh()
 
 
 def test_public_names_equal_jax():

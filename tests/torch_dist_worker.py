@@ -9,12 +9,15 @@ Not collected by pytest (no ``test_`` prefix).
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import os
 import tempfile
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 SEED = 11
 
@@ -179,24 +182,240 @@ def rank_results(ws: int) -> dict:
 
     # every check of the JAX package's dryrun_multichip
     out["dryrun"] = dryrun_multichip(ws, device="cpu")
+
+    # the resident PCG's control flow over DTensors: phase 13's (a)-(d)
+    # trees run as the device runs their graph
+    out["resident"] = resident_forms(mesh, "abcd", emulate=True)
     return out
 
 
-def _rank_main(rank: int, ws: int, init: str, out_dir: str) -> None:
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=init, rank=rank,
-                            world_size=ws)
+def resident_forms(mesh, forms: str, emulate: bool) -> dict:
+    """Phase 13's forms at a small size over the mesh's DTensors, by
+    letter in ``forms``: (a) Jacobi-PCG over the row-split ELL operator
+    of poisson_2d(32); (b) AMG-PCG over the row-split DIA operator and
+    its structured hierarchy placed by shard_hierarchy; (c) the same
+    through halo_shard_hierarchy; (d) the RS hierarchy through
+    halo_shard_hierarchy; (e) vFGMRES(30) over the block rows of
+    block_poisson_3d(8, nb=3) with a replicated UA-BSR hierarchy.  Each
+    by :func:`_resident_and_eager`; (c) also with the record of one
+    whole cycle, taken with graphs on and under graphs.eager()."""
+    from faspsolver_tpu_torch import as_tensor
+    from faspsolver_tpu_torch.krylov import JacobiPrecond, pcg, vfgmres
+    from faspsolver_tpu_torch.ops import device_operator
+    from faspsolver_tpu_torch.parallel import (
+        cycle_comm_pattern, dist_dia_operator, dist_operator,
+        halo_shard_hierarchy, replicate, shard_block_rows, shard_hierarchy,
+        shard_vector)
+    from faspsolver_tpu_torch.parallel.comm import mesh_device
+    from faspsolver_tpu_torch.precond import AMGPrecond
+    from faspsolver_tpu_torch.precond.amg import (setup_rs, setup_structured,
+                                                  setup_ua_bsr)
+    from faspsolver_tpu_torch.testgen import block_poisson_3d, poisson_2d
+    from faspsolver_tpu_torch.utils import graphs
+    from faspsolver_tpu_torch.utils.params import AMGParam
+
+    f64, dev = torch.float64, mesh_device(mesh)
+    A = poisson_2d(32)
+    bd = shard_vector(as_tensor(A.matvec(np.ones(A.nrow)), f64), mesh)
+    hs0 = setup_structured(A, AMGParam(coarse_dof=60), dtype=f64,
+                           smooth_p=True, device=dev)
+    hh, _ = halo_shard_hierarchy(hs0, mesh, min_size=256)
+    out = {}
+    for form in forms:
+        if form == "a":
+            op = dist_operator(A, mesh, dtype=f64)
+            M = JacobiPrecond(shard_vector(as_tensor(1.0 / A.diagonal(),
+                                                     f64), mesh))
+        elif form == "b":
+            op = dist_dia_operator(A, mesh, dtype=f64)
+            M = AMGPrecond(shard_hierarchy(hs0, mesh, min_size=256))
+        elif form == "c":
+            op, M = hh.levels[0].A, AMGPrecond(hh)
+        elif form == "d":
+            hrs = setup_rs(A, AMGParam(smoother=13, polynomial_degree=2,
+                                       coarse_dof=60), dtype=f64, device=dev)
+            hh2, _ = halo_shard_hierarchy(hrs, mesh, min_size=A.nrow // 2)
+            op, M = hh2.levels[0].A, AMGPrecond(hh2)
+        if form == "e":
+            Ab = block_poisson_3d(8, nb=3)
+            hb = replicate(setup_ua_bsr(Ab, AMGParam(AMG_type=3,
+                                                     coarse_dof=30),
+                                        dtype=f64), mesh)
+            opb = shard_block_rows(device_operator(Ab, dtype=f64), mesh)
+            bb = shard_vector(as_tensor(Ab.matvec(np.ones(Ab.nrow)), f64),
+                              mesh)
+            out[form] = _resident_and_eager(lambda: vfgmres(
+                opb, bb, M=AMGPrecond(hb), tol=1e-10, maxit=200,
+                restart=30), emulate)
+            continue
+        out[form] = _resident_and_eager(
+            lambda: pcg(op, bd, M=M, tol=1e-10, maxit=400), emulate)
+    if "c" in forms:
+        rec = cycle_comm_pattern(hh, mesh)
+        with graphs.eager():
+            rec_eager = cycle_comm_pattern(hh, mesh)
+        out["c"]["record"] = _record(rec)
+        out["c"]["record_eager"] = _record(rec_eager)
+    return out
+
+
+# what reads a tensor's value on the host (``.item()``, ``bool()``)
+_HOST_READS = ("_local_scalar_dense", "is_nonzero", "item")
+
+
+class _HostReadSpy(TorchDispatchMode):
+    """Notes every operation that reads a value on the host, except while
+    ``paused`` (the loop control's plain twin, which the kernel replaces
+    on the card); counts the operations it watched."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads, self.ops, self.paused = [], 0, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not self.paused:
+            self.ops += 1
+            if func._opname in _HOST_READS:
+                self.reads.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def _resident(emulate: bool):
+    """Yields a :class:`_HostReadSpy` and the list of each loop's state
+    block as the loop left it.  With ``emulate``, the resident path on
+    gloo DTensors: ``graphs.active`` admits them (outside a piece, as
+    outside a capture), and ``graphs.Resident`` is a stand-in that runs
+    the warm-up and each launch as the device runs the graph (each If
+    and While decided by its region's flag, read without a counted host
+    read), every piece under the spy.  Without, the real path (the spy
+    watches nothing)."""
+    from faspsolver_tpu_torch.utils import graphs, loops
+    spy, blocks, inside = _HostReadSpy(), [], [False]
+
+    @contextlib.contextmanager
+    def piece():
+        inside[0] = True
+        try:
+            with spy:
+                yield
+        finally:
+            inside[0] = False
+
+    class Emulated:
+        def __init__(self, tree, device, keep=()):
+            saved = [k.clone() for k in keep]
+            with piece():
+                for p in graphs._pieces(tree):
+                    p.fn()
+            for k, v in zip(keep, saved):
+                k.copy_(v)
+            self.tree = tree
+
+        def launch(self):
+            def run(items):
+                for item in items:
+                    if isinstance(item, graphs.Piece):
+                        with piece():
+                            item.fn()
+                    elif isinstance(item, graphs.If):
+                        if int(item.reg.i[loops.I.NEED]):
+                            run(item.body)
+                    else:
+                        while int(item.reg.i[loops.I.CONT]):
+                            run(item.body)
+            run(self.tree)
+            graphs.stats["replays"] += 1
+
+        def account(self, vals):
+            pass
+
+    def paused(fn):
+        def run(*args):
+            spy.paused += 1
+            try:
+                return fn(*args)
+            finally:
+                spy.paused -= 1
+        return run
+
+    def run_loop(st, tree, host, resident):
+        vals = real_run(st, tree, host, resident)
+        blocks.append(st.block.bytes.cpu().numpy())
+        return vals
+
+    saved = (graphs.active, graphs.Resident, graphs.run_loop,
+             dict(loops.PLAIN))
+    real_run = graphs.run_loop
+    graphs.run_loop = run_loop
+    if emulate:
+        graphs.active = lambda x: (graphs._enabled and not inside[0]
+                                   and isinstance(x, torch.Tensor))
+        graphs.Resident = Emulated
+        loops.PLAIN.update({k: paused(f) for k, f in saved[3].items()})
     try:
-        torch.save(rank_results(ws), os.path.join(out_dir, f"rank{rank}.pt"))
+        yield spy, blocks
     finally:
-        dist.destroy_process_group()
+        graphs.active, graphs.Resident, graphs.run_loop = saved[:3]
+        loops.PLAIN.update(saved[3])
 
 
-def spawn_ranks(ws: int, out_dir: str) -> list:
-    """Run :func:`rank_results` on ``ws`` gloo ranks; every rank's
-    results, by rank."""
+def _resident_and_eager(solve, emulate: bool) -> dict:
+    """``solve()`` on the resident path (``emulate``: see
+    :func:`_resident`) cold and warm, each with its program launches,
+    then as the eager loop: counts, host reads, x of each, the cold
+    solve's state block, what the spy saw in the pieces, and the graph
+    counters of the three runs."""
+    from faspsolver_tpu_torch.utils import graphs
+    runs = []
+    with _resident(emulate) as (spy, blocks):
+        for eager in (False, False, True):
+            before = dict(graphs.stats)
+            with graphs.eager() if eager else contextlib.nullcontext():
+                res = solve()
+            runs.append((res, {k: graphs.stats[k] - v
+                               for k, v in before.items()}))
+    (res, g), (warm, gw), (eager, _) = runs
+    return dict(resident=res.resident, syncs=res.syncs, it=res.iters,
+                launches=g["replays"], captures=g["captures"],
+                nodes_captured=g["nodes_captured"],
+                warm_resident=warm.resident, warm_syncs=warm.syncs,
+                warm_it=warm.iters, warm_launches=gw["replays"],
+                eager_resident=eager.resident, eager_syncs=eager.syncs,
+                eager_it=eager.iters, x=_host(res.x), warm_x=_host(warm.x),
+                eager_x=_host(eager.x), block=blocks[0],
+                host_reads=spy.reads, ops=spy.ops)
+
+
+def _rank_main(rank: int, ws: int, init: str, out_dir: str,
+               backend: str) -> None:
+    import datetime
+    torch.set_num_threads(1)
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=ws,
+                            timeout=datetime.timedelta(seconds=300))
+    # a rank that raises exits without taking the group down: NCCL's
+    # teardown waits for the ranks still in a collective, and for the
+    # graphs that captured its collectives (freed first)
+    if backend == "nccl":
+        from faspsolver_tpu_torch.parallel import make_mesh
+        out = resident_forms(make_mesh(ws), "abcde", emulate=False)
+        gc.collect()
+        torch.cuda.synchronize()
+    else:
+        out = rank_results(ws)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def spawn_ranks(ws: int, out_dir: str, backend: str = "gloo") -> list:
+    """Run :func:`rank_results` on ``ws`` gloo ranks on the CPU, or with
+    ``backend="nccl"`` :func:`resident_forms` (a)-(e) on the real
+    resident path, one rank per card; every rank's results, by rank."""
     import torch.multiprocessing as mp
     init = "file://" + os.path.join(tempfile.mkdtemp(dir=out_dir), "store")
-    mp.spawn(_rank_main, args=(ws, init, out_dir), nprocs=ws)
+    mp.spawn(_rank_main, args=(ws, init, out_dir, backend), nprocs=ws)
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                        weights_only=False) for r in range(ws)]
