@@ -43,9 +43,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    checked against scipy's direct solver;
 5. per-apply times of kernel and plain version with CUDA events, each
    beside its roofline bound, an empty kernel on the same grid (what a
-   launch costs) and, for the scalar form, ``F.conv2d`` (the one library
-   call that computes the same function; timed here, used nowhere in the
-   port): the main paths' operators, the scalar and full forms at 1023^2,
+   launch costs), ``A_csr @ x`` (the operator's matrix as a
+   ``torch.sparse_csr_tensor``: cuSPARSE's SpMV) and, for the scalar
+   form, ``F.conv2d`` (library calls that compute the same function;
+   timed here, used nowhere in the port): the main paths' operators, the
+   scalar and full forms at 1023^2,
    and the scalar 5-point stencil and a 1-band stream probe at 4096^2 and
    8192^2 (beyond the L2);
 6. the general path at full size: the P1-FE Poisson matrix of
@@ -152,9 +154,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    restriction add with atomics), and what a two-iteration eager run of
    its pieces communicates (the pieces the graph captured); then (c)
    once more as the eager loop under the profiler for the device's busy
-   share.  One card means world size 1 (NCCL takes one rank per card);
-   the multi-rank exchange is held on four gloo CPU ranks by
-   tests/test_torch_parallel.py, where it runs eagerly.
+   share; then the teardown with the phase's modules alive: the programs
+   kept for them released (``graphs.release`` over the mesh's groups),
+   then the group taken down, counted and timed under a 120 s watchdog.
+   One card means world size 1 (NCCL takes one rank per card); the
+   multi-rank exchange is held on four gloo CPU ranks by
+   tests/test_torch_parallel.py, where it runs eagerly, and on one NCCL
+   rank per card by tests/test_torch_gpu.py's across_ranks tests.
 14. the tutorials (``tutorials_torch/``, the port of ``tutorials/``),
    each script's ``main`` with no device argument: the P1-FE matrix of
    phase 6 and its right-hand side written as csrmat_FE.dat / rhs_FE.dat
@@ -238,6 +244,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 # the main paths' settings: bench_torch.py's (the port of bench.py)
 from bench_torch import (GENERAL_REFINE, HEADLINE_REFINE, general_param,
@@ -4468,7 +4475,31 @@ def parallel_solves(torch, device, smi=""):
         f"{readings['busy']['wall_s']:.3f} s, device kernels "
         f"{readings['busy']['kernel_s'] * 1e3:.1f} ms, busy share "
         f"{readings['busy']['busy_share']:.4f}")
+    readings["released"], readings["teardown_s"] = parallel_teardown(mesh)
+    say(f"  teardown with the phase's modules alive: "
+        f"{readings['released']} programs released, then the group "
+        f"destroyed, {readings['teardown_s']:.4f} s (120 s watchdog)")
+    check(readings["released"] > 0, "the teardown released the programs "
+          "kept for the phase's live modules")
     return counts, readings
+
+
+def parallel_teardown(mesh):
+    """(programs released, s): every kept program whose capture may hold
+    a collective of the mesh's groups released (``graphs.release``), then
+    the group taken down (``release_mesh``), under a watchdog: a hang
+    ends the run with a traceback after 120 s."""
+    import faulthandler
+    from faspsolver_tpu_torch.parallel import release_mesh
+    from faspsolver_tpu_torch.utils import graphs
+    faulthandler.dump_traceback_later(120, exit=True)
+    try:
+        t0 = time.perf_counter()
+        n = sum(graphs.release(g) for g in mesh.get_all_groups())
+        release_mesh()
+        return n, time.perf_counter() - t0
+    finally:
+        faulthandler.cancel_dump_traceback_later()
 
 
 def _traced_solve(torch, device, hh, bd):
@@ -4506,14 +4537,15 @@ def _traced_solve(torch, device, hh, bd):
 
 def parallel_path(torch, device, smi=""):
     """Phase 13 on one rank of this card over NCCL (a one-rank group,
-    taken down after).  The driver's machine has one card; on more, the
+    taken down at its end with its modules alive: ``parallel_teardown``;
+    here too if it raised).  The script needs one card; on more, the
     phase still runs one rank: 1023^2 = 3^2 11^2 31^2 rows and the 64^3
     block path's 2^18 block rows share no divisor above 1, so no larger
     world splits both evenly (the multi-rank exchange is held on four
     gloo CPU ranks, tests/test_torch_parallel.py, and on one NCCL rank
     per card where there are two or more, tests/test_torch_gpu.py's
-    across_ranks test).  Returns every kernel's launches (by key of
-    :func:`launch_counts`) and the readings."""
+    across_ranks tests, the second at 1024^2).  Returns every kernel's
+    launches (by key of :func:`launch_counts`) and the readings."""
     from faspsolver_tpu_torch.parallel import release_mesh
     t0 = time.perf_counter()
     try:
@@ -4836,14 +4868,46 @@ def conv2d_library(torch, op):
     return lambda v: F.conv2d(v.view(1, 1, ny, nx), weight, padding=1)
 
 
+def csr_library(torch, op):
+    """``A_csr @ x`` computing a 2-D stencil operator's apply: a
+    ``torch.sparse_csr_tensor`` of its matrix in its dtype (cuSPARSE's
+    SpMV), built on the card from the plan's bands.  Row (i, j) holds
+    band k's coefficient at column (i + dy, j + dx) where that lies in
+    the grid, a row's columns ascending; int32 indices."""
+    plan = op.plan()
+    ny, nx = plan.dims
+    n, dev = ny * nx, plan.bands[0].w.device
+    bands = sorted(zip(plan.coords, plan.bands),
+                   key=lambda cb: cb[0][0] * nx + cb[0][1])
+    i = torch.arange(ny, device=dev).view(ny, 1)
+    j = torch.arange(nx, device=dev).view(1, nx)
+    inside = torch.stack([((i + dy >= 0) & (i + dy < ny) & (j + dx >= 0)
+                           & (j + dx < nx)).expand(ny, nx).reshape(-1)
+                          for (dy, dx), _ in bands], 1)
+    cols = torch.stack([((i + dy) * nx + j + dx).expand(ny, nx).reshape(-1)
+                        for (dy, dx), _ in bands], 1)[inside]
+    vals = torch.stack([b.coef().expand(ny, nx).reshape(-1)
+                        for _, b in bands], 1)[inside]
+    crow = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    crow[1:] = inside.sum(1).cumsum(0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # "support is in beta state"
+        A = torch.sparse_csr_tensor(crow, cols.to(torch.int32), vals,
+                                    size=(n, n), check_invariants=False)
+    del inside, cols, vals
+    return lambda v: A @ v
+
+
 def apply_times(torch, ops, smi, reps=200, tries=5, eager=True,
                 library=False):
     """Per-apply times of each (label, operator) through the kernel and
     through the plain version, in turns: plain, kernel, kernel, plain;
     beside them the roofline bound from the plan's bytes, an empty kernel
     on the kernel's grid, ``torch.mul`` on the same vector (what the card
-    does in practice with one read and one write of it) and, with
-    ``library``, ``F.conv2d``."""
+    does in practice with one read and one write of it), ``A_csr @ x``
+    (``csr_library``: cuSPARSE's SpMV of the same matrix, ``csr_ms``) and,
+    with ``library``, ``F.conv2d`` (``library_ms``).  Each library call
+    is held to the kernel within 1e-5 of the forward-error scale."""
     from faspsolver_tpu_torch.ops import stencil2d
     rows = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -4888,10 +4952,21 @@ def apply_times(torch, ops, smi, reps=200, tries=5, eager=True,
                 f"{grid} blocks {row['floor_ms'] * 1e3:.2f} us, torch.mul "
                 f"(x read once, y written once: the scalar and factored "
                 f"forms' traffic) {row['elementwise_ms'] * 1e3:.2f} us")
+        scale = stencil_bound(op, x)
+        csr = csr_library(torch, op)
+        err = float((csr(x) - plan(x)).abs().max())
+        check(err <= 1e-5 * scale,
+              f"A_csr @ x computes the same function: {label}: {err}")
+        row["csr_ms"] = time_ms(torch, csr, x, reps=reps, tries=tries,
+                                graph=True)
+        del csr
+        text += (f", library A_csr @ x (cuSPARSE SpMV, int32 indices) "
+                 f"{row['csr_ms'] * 1e3:.2f} us (CSR / kernel "
+                 f"{row['csr_ms'] / kg:.2f})")
         if library:
             lib = conv2d_library(torch, op)
             err = float((lib(x).reshape(-1) - plan(x)).abs().max())
-            check(err <= 1e-5 * stencil_bound(op, x),
+            check(err <= 1e-5 * scale,
                   f"conv2d computes the same function: {label}: {err}")
             row["library_ms"] = time_ms(torch, lib, x, reps=reps,
                                         tries=tries, graph=True)
@@ -5105,9 +5180,9 @@ def main(argv) -> int:
 
     # one entry per kernel, stencil2d<T, K> by element type (the band
     # count K is the operator's); its times are those of the main paths'
-    # 1023^2 5-point factored operator, for which no single library call
-    # exists, and library_ms that of the 1023^2 scalar 5-point operator,
-    # the one form F.conv2d computes; every timed shape is under "shapes"
+    # 1023^2 5-point factored operator, library_ms that of the same
+    # operator's matrix as a CSR tensor times x (cuSPARSE's SpMV); every
+    # timed shape is under "shapes" (F.conv2d's time on the scalar ones)
     src = "faspsolver_tpu_torch/csrc/stencil2d.cu"
     kernels = []
     for dt, tname, cname, repl, also in (
@@ -5123,8 +5198,9 @@ def main(argv) -> int:
             "max_abs_err": worst[dt],
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by")},
-            "library_ms": times[f"1023^2 {dt} scalar 5-pt"]["library_ms"],
-            "library_of": f"1023^2 {dt} scalar 5-pt",
+            "library_ms": main_row["csr_ms"],
+            "library_of": f"A_csr @ x (cuSPARSE SpMV) on the 1023^2 {dt} "
+                          f"factored 5-pt operator",
             "shapes": {label: row for label, row in times.items()
                        if f" {dt} " in label}})
     by_path = {path: c.get("loop_control", 0) for path, c in counts.items()}

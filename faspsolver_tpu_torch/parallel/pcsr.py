@@ -29,10 +29,16 @@ communicator, every captured collective waits on an external event, and
 the conditional body of a resident loop takes no event node
 (``utils/graphs.py``).  The port's launches on a communicator are
 ordered by the current stream and the same on every rank, which is
-what NCCL asks of a communicator without that support.  A group is
-taken down (``destroy_process_group``) only after the modules whose
-resident solves captured its collectives are freed: NCCL's teardown
-waits for those graphs.
+what NCCL asks of a communicator without that support.
+
+Teardown: NCCL's ``destroy_process_group`` does not return while a CUDA
+graph that captured the group's collectives lives, and the modules that
+solved keep their resident graphs.  A group the caller initialised is
+taken down by :func:`teardown` (every rank: ``graphs.release`` of the
+group's programs, then ``destroy_process_group``), with the modules
+still alive or not; :func:`release_mesh` does the same for the group
+``make_mesh`` made.  A module that solves again on a live group
+captures anew.
 """
 from __future__ import annotations
 
@@ -101,12 +107,27 @@ def _init_one_rank(device) -> None:
 
 def release_mesh() -> None:
     """Take down the one-rank process group :func:`make_mesh` made (and
-    its store); a group the caller initialised is left alone."""
+    its store), its graphs released first (:func:`teardown`); a group the
+    caller initialised is left alone."""
     while _OWN_GROUP:
         store_dir = _OWN_GROUP.pop()
         if dist.is_initialized():
-            dist.destroy_process_group()
+            teardown()
         shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def teardown(group=None) -> int:
+    """Take down a process group the caller initialised (None: the
+    default group and every other, as ``destroy_process_group()``):
+    release every kept program whose capture may hold its collectives
+    (``graphs.release``; for None, those of every group), then destroy
+    it.  NCCL's teardown otherwise waits for those graphs.  Call it on
+    every rank; returns the number of programs released."""
+    from ..utils import graphs
+    groups = graphs.captured_groups() if group is None else [group]
+    n = sum(graphs.release(g) for g in groups)
+    dist.destroy_process_group(group)
+    return n
 
 
 def _round_up(n: int, m: int) -> int:

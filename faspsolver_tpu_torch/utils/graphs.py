@@ -13,7 +13,12 @@ the same work is captured once as CUDA graphs and replayed:
   the buffers' addresses (:func:`fingerprint`), so a module that moved
   (``.to()``, ``.double()``) is captured anew and a copy captures its own;
 - :class:`GraphedModule` replays a module's whole apply (the ILU
-  preconditioners, the AMG cycles).
+  preconditioners, the AMG cycles);
+- :func:`release` destroys the kept programs that captured a process
+  group's collectives (or all of them), which NCCL's teardown of the
+  group waits for: ``parallel.teardown`` and ``parallel.release_mesh``
+  call it before ``destroy_process_group``.  A module that solves again
+  captures anew.
 
 A captured function issues device work on the current stream and
 nothing else: no host read, no host-to-device copy.  It reads and writes
@@ -77,6 +82,10 @@ from . import loops
 
 _enabled = True
 _programs = weakref.WeakKeyDictionary()
+# every kept program (a loop state's Resident, a module's Program),
+# weakly: (the process groups its capture may hold collectives of, the
+# loop state that holds it)
+_kept = weakref.WeakKeyDictionary()
 
 stats = {"captures": 0, "capture_s": 0.0, "graph_bytes": 0,
          "nodes_captured": 0, "replays": 0, "nodes_replayed": 0}
@@ -180,6 +189,71 @@ def peek(home, slot):
     return None if hit is None else hit[2]
 
 
+def _groups(tensors) -> tuple:
+    """The process groups of the meshes of the DTensors among
+    ``tensors``: those whose collectives a capture over them may hold."""
+    out = []
+    for t in tensors:
+        if is_dtensor(t):
+            out += [g for g in t.device_mesh.get_all_groups()
+                    if g not in out]
+    return tuple(out)
+
+
+def _keep(prog, tensors, owner=None):
+    """Note ``prog`` as kept (by ``owner``, a loop state, or by a
+    module's :func:`cached` slot), captured over ``tensors``."""
+    _kept[prog] = (_groups(tensors), _ref(owner))
+    return prog
+
+
+def kept(group=None) -> list:
+    """The kept programs whose capture may hold ``group``'s collectives
+    (every kept program when ``group`` is None)."""
+    return [p for p, (groups, _) in list(_kept.items())
+            if group is None or group in groups]
+
+
+def captured_groups() -> list:
+    """Every process group whose collectives a kept program's capture
+    may hold."""
+    out = []
+    for groups, _ in list(_kept.values()):
+        out += [g for g in groups if g not in out]
+    return out
+
+
+def release(group=None) -> int:
+    """Destroy every kept program whose capture may hold ``group``'s
+    collectives (a process group; None: every kept program) and drop it
+    from the module or loop state that keeps it, so a later solve
+    captures anew; returns how many.  The device is synchronized first:
+    no launch of them is pending.  NCCL's teardown of a group waits for
+    every graph that captured its collectives, so a multi-rank run calls
+    this (through ``parallel.teardown``) before
+    ``destroy_process_group``."""
+    progs = kept(group)
+    devices = {p.device for p in progs if p.device.type == "cuda"}
+    for d in devices:
+        torch.cuda.synchronize(d)
+    gone = set()
+    for p in progs:
+        _, owner = _kept.pop(p)
+        p.destroy()
+        st = owner()
+        if st is not None and st.prog is p:
+            st.prog = None
+            gone.add(id(st))
+        gone.add(id(p))
+    for slots in list(_programs.values()):
+        for slot, hit in list(slots.items()):
+            if id(hit[2]) in gone:
+                del slots[slot]
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return len(progs)
+
+
 _COUNTERS = (stencil2d.launches, loops.launches)
 
 
@@ -227,10 +301,11 @@ class Program:
     every replay overwrites.  ``pool`` is another program's ``pool`` to
     share (its memory pool; default a new one).  ``capture_s`` times the
     capture and instantiation (not the warm-up), ``bytes`` the memory
-    they reserved."""
+    they reserved.  :meth:`destroy` frees the graph; a replay after it
+    raises."""
 
     def __init__(self, fn, device, keep=(), pool=None):
-        device = torch.device(device)
+        device = self.device = torch.device(device)
         saved = [t.clone() for t in keep]
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -264,7 +339,13 @@ class Program:
         stats["graph_bytes"] += self.bytes
         stats["nodes_captured"] += self.nodes or 0
 
+    def destroy(self) -> None:
+        self.graph.reset()
+        self.graph = None
+
     def replay(self):
+        if self.graph is None:
+            raise RuntimeError("replaying a released program")
         self.graph.replay()
         _add_launches(self.launches, 1)
         stats["replays"] += 1
@@ -323,7 +404,7 @@ def _apply_program(fn, r: torch.Tensor) -> Program:
     r_in = r.clone()
     prog = Program(lambda: fn(r_in), r.device)
     prog.r_in = r_in
-    return prog
+    return _keep(prog, (r,))
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +528,8 @@ class Resident:
     the pieces are captured.  A piece inside a conditional may hold
     kernels, device copies and memsets only: anything else raises, as
     does any failed call.  ``capture_s`` times the captures and the
-    instantiation, ``bytes`` the memory they reserved."""
+    instantiation, ``bytes`` the memory they reserved.  :meth:`destroy`
+    frees the graphs; a launch after it raises."""
 
     def __init__(self, tree: Sequence, device, keep=()):
         device = torch.device(device)
@@ -555,8 +637,19 @@ class Resident:
         self.runs.append((cg, launched, int(n.value), counter))
         return cg
 
+    def destroy(self) -> None:
+        """Free the executable, the graph and the pieces' captured graphs
+        (the finalizer then finds nothing left to free)."""
+        _destroy(self._lib, self._graph, self._exec)
+        self._graph.value = self._exec.value = None
+        for cg, *_ in self.runs:
+            cg.reset()
+        self.runs, self.pool = [], None
+
     def launch(self) -> None:
         """One launch of the whole loop on the current stream."""
+        if not self._exec.value:
+            raise RuntimeError("launching a released resident loop")
         loops.check_graph(self._lib.fasp_graph_launch(
             self._exec, ctypes.c_void_p(
                 torch.cuda.current_stream(self.device).cuda_stream)),
@@ -603,7 +696,9 @@ def run_loop(st: LoopState, tree: Callable[[], Sequence], host,
     if not resident:
         return run_eager(tree(), st.block, host)
     if st.prog is None:
-        st.prog = Resident(tree(), st.block.bytes.device, st.tensors())
+        keep = st.tensors()
+        st.prog = _keep(Resident(tree(), st.block.bytes.device, keep),
+                        keep, st)
     st.prog.launch()
     vals = host.block(st.block)
     st.prog.account(vals)

@@ -1411,3 +1411,84 @@ def test_resident_dtensor_solves_across_ranks_equal_the_eager_loop(tmp_path):
         assert r["c"]["record"] == r["c"]["record_eager"]
         assert r["c"]["record"]["p2p_sends"] > 0
     print(f"{ws} ranks, one cycle of (c): {ranks[0]['c']['record']}")
+    print(f"{ws} ranks, teardown: programs released "
+          f"{[r['released'] for r in ranks]}, s "
+          f"{[round(r['teardown_s'], 4) for r in ranks]}")
+
+
+# the JAX package's one-device counts of phase 13's solves at 1024^2 and
+# 64^3 blocks of 3 (torch_dist_worker.FULL_NX, FULL_BSR_NX), from
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py parallel 1024
+FULL_ANCHORS = {"a": 1508, "b": 13, "d": 7, "e": 24}
+
+
+@pytest.mark.cuda
+def test_resident_dtensor_solves_at_full_size_across_ranks(tmp_path):
+    """Phase 13's forms (a)-(e) at its settings (``resident_forms(...,
+    full=True)``) on one NCCL rank per card, on a machine with two cards
+    or more (it skips on one): poisson_2d(1024) (1,048,576 dof), whose
+    structured levels of at least the placements' min_size that the
+    world size divides are split (at 2 or 4 ranks 1024^2, 342^2 and
+    114^2; 38^2 and 13^2 replicated), and block_poisson_3d(64, nb=3)
+    (786,432 dof, 262,144 block rows split).  On every rank, cold and
+    warm: one launch and one read per solve, the eager loop's count,
+    within chip_smoke.PARALLEL_ANCHORS' allowance of the JAX package's
+    one-device count at this size (FULL_ANCHORS), x within
+    chip_smoke.X_DIFF_LIMIT of the eager loop's, and the state block the
+    same bytes on every rank.  Then every rank takes the group down
+    through ``parallel.teardown`` with its modules alive, under a 120 s
+    watchdog (a hang fails with a traceback), releasing its programs.
+    Prints each rank's warm resident s and us per iteration, the
+    programs released and the teardown s, beside each card's name and
+    power limit."""
+    _need_cuda()
+    ws = torch.cuda.device_count()
+    if ws < 2:
+        pytest.skip("needs two CUDA devices or more (one NCCL rank each)")
+    import subprocess
+    import chip_smoke
+    from torch_dist_worker import FULL_NX, spawn_ranks
+    ranks = spawn_ranks(ws, str(tmp_path), backend="nccl", full=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    split = {n: n >= 8192 and n % ws == 0
+             for n, _ in ranks[0]["placement"]["b"]}
+    if ws in (2, 4):
+        assert [n for n, s in split.items() if s] == [
+            FULL_NX ** 2, 342 ** 2, 114 ** 2]
+    for r in ranks:
+        assert r["placement"] == ranks[0]["placement"]
+        assert dict(r["placement"]["b"]) == split
+        assert r["placement"]["c"] == r["placement"]["b"]
+        assert r["placement"]["d"][0] == (FULL_NX ** 2, True)
+    for form in "abcde":
+        anchor = "b" if form == "c" else form
+        blk = ranks[0][form]["block"]
+        for r in ranks:
+            d = r[form]
+            assert d["resident"] and d["warm_resident"]
+            assert not d["eager_resident"]
+            assert d["syncs"] == d["warm_syncs"] == 1
+            assert d["launches"] == d["warm_launches"] == 1
+            assert d["eager_syncs"] > d["eager_it"]
+            assert d["it"] == d["warm_it"] == d["eager_it"]
+            assert abs(d["it"] - FULL_ANCHORS[anchor]) <= \
+                chip_smoke.PARALLEL_ANCHORS[anchor][1], (form, d["it"])
+            assert max(d["x_diff"], d["warm_x_diff"]) <= \
+                chip_smoke.X_DIFF_LIMIT, (form, d["x_diff"])
+            np.testing.assert_array_equal(d["block"], blk)
+        print(f"{ws} ranks ({form}): {ranks[0][form]['it']} iterations "
+              f"(JAX one device {FULL_ANCHORS[anchor]}), warm resident s / "
+              f"us per iteration / eager s by rank " + "; ".join(
+                  f"{r[form]['warm_s']:.4f} / "
+                  f"{r[form]['warm_s'] / r[form]['it'] * 1e6:.1f} / "
+                  f"{r[form]['eager_s']:.4f}" for r in ranks)
+              + f"; x within {max(r[form]['x_diff'] for r in ranks):.2e}")
+    print(f"{ws} ranks, levels (size, split): (b) "
+          f"{ranks[0]['placement']['b']}, (d) {ranks[0]['placement']['d']}")
+    for r in ranks:
+        assert r["released"] > 0 and r["teardown_s"] < 120
+    print(f"{ws} ranks, teardown with the modules alive: programs released "
+          f"{[r['released'] for r in ranks]}, s "
+          f"{[round(r['teardown_s'], 4) for r in ranks]}; cards {smi}")

@@ -398,12 +398,15 @@ def test_make_mesh_turns_nccl_graph_mixing_off(monkeypatch):
 
 
 def test_public_names_equal_jax():
-    """The package exports the JAX package's names, and each module has
-    every public name of its JAX counterpart."""
+    """The package exports the JAX package's names, and after them its
+    own ``teardown`` (a process group's teardown after the release of
+    the CUDA graphs that captured its collectives, which the JAX package
+    has no counterpart of), and each module has every public name of its
+    JAX counterpart."""
     import importlib
     import faspsolver_tpu.parallel as jp
     import faspsolver_tpu_torch.parallel as tp
-    assert tp.__all__ == jp.__all__
+    assert tp.__all__ == jp.__all__ + ["teardown"]
     for mod in ("pcsr", "dist_dia", "halo"):
         j = importlib.import_module(f"faspsolver_tpu.parallel.{mod}")
         t = importlib.import_module(f"faspsolver_tpu_torch.parallel.{mod}")

@@ -10,7 +10,6 @@ Not collected by pytest (no ``test_`` prefix).
 from __future__ import annotations
 
 import contextlib
-import gc
 import os
 import tempfile
 
@@ -189,16 +188,31 @@ def rank_results(ws: int) -> dict:
     return out
 
 
-def resident_forms(mesh, forms: str, emulate: bool) -> dict:
-    """Phase 13's forms at a small size over the mesh's DTensors, by
-    letter in ``forms``: (a) Jacobi-PCG over the row-split ELL operator
-    of poisson_2d(32); (b) AMG-PCG over the row-split DIA operator and
-    its structured hierarchy placed by shard_hierarchy; (c) the same
-    through halo_shard_hierarchy; (d) the RS hierarchy through
-    halo_shard_hierarchy; (e) vFGMRES(30) over the block rows of
-    block_poisson_3d(8, nb=3) with a replicated UA-BSR hierarchy.  Each
-    by :func:`_resident_and_eager`; (c) also with the record of one
-    whole cycle, taken with graphs on and under graphs.eager()."""
+# the card test's size on several ranks: phase 13's solves
+# (chip_smoke.PARALLEL_RUNS) at FULL_NX^2 (1024^2 = 1,048,576 dof: its
+# structured levels 1024^2, 342^2 and 114^2 split evenly over 2 or 4
+# ranks) and FULL_BSR_NX^3 blocks of 3 (786,432 dof)
+FULL_NX, FULL_BSR_NX = 1024, 64
+
+
+def resident_forms(mesh, forms: str, emulate: bool, full: bool = False,
+                   hold=None) -> dict:
+    """Phase 13's forms over the mesh's DTensors, by letter in ``forms``:
+    (a) Jacobi-PCG over the row-split ELL operator; (b) AMG-PCG over the
+    row-split DIA operator and its structured hierarchy placed by
+    shard_hierarchy; (c) the same through halo_shard_hierarchy; (d) the
+    RS hierarchy through halo_shard_hierarchy (its fine level only
+    placed); (e) vFGMRES(30) over the block rows of a block_poisson_3d
+    matrix with a replicated UA-BSR hierarchy.  At a small size
+    (poisson_2d(32), block_poisson_3d(8, nb=3), tol 1e-10, placements
+    from 256 rows), or with ``full`` at phase 13's settings
+    (``chip_smoke``: ``headline_param`` for (b) and (c),
+    ``PARALLEL_RUNS``; the placements' own ``min_size``) on
+    poisson_2d(FULL_NX) and block_poisson_3d(FULL_BSR_NX, nb=3).  Each by
+    :func:`_resident_and_eager`; ``placement`` holds (b)-(d)'s level
+    sizes and whether each is split; (c) also the record of one whole
+    cycle, taken with graphs on and under graphs.eager() (not with
+    ``full``).  ``hold``: a list that keeps every module built alive."""
     from faspsolver_tpu_torch import as_tensor
     from faspsolver_tpu_torch.krylov import JacobiPrecond, pcg, vfgmres
     from faspsolver_tpu_torch.ops import device_operator
@@ -214,13 +228,28 @@ def resident_forms(mesh, forms: str, emulate: bool) -> dict:
     from faspsolver_tpu_torch.utils import graphs
     from faspsolver_tpu_torch.utils.params import AMGParam
 
+    if full:
+        import chip_smoke
+        nx, bsr_nx, place = FULL_NX, FULL_BSR_NX, {}
+        param = chip_smoke.headline_param()
+        runs = {k: chip_smoke.PARALLEL_RUNS[k] for k in "abde"}
+        runs["c"] = runs["b"]
+    else:
+        nx, bsr_nx, place = 32, 8, {"min_size": 256}
+        param = AMGParam(coarse_dof=60)
+        runs = {k: dict(tol=1e-10, maxit=400) for k in "abcd"}
+        runs["e"] = dict(tol=1e-10, maxit=200, restart=30)
+    hold = [] if hold is None else hold
     f64, dev = torch.float64, mesh_device(mesh)
-    A = poisson_2d(32)
+    A = poisson_2d(nx)
     bd = shard_vector(as_tensor(A.matvec(np.ones(A.nrow)), f64), mesh)
-    hs0 = setup_structured(A, AMGParam(coarse_dof=60), dtype=f64,
-                           smooth_p=True, device=dev)
-    hh, _ = halo_shard_hierarchy(hs0, mesh, min_size=256)
-    out = {}
+    hs0 = setup_structured(A, param, dtype=f64, smooth_p=True, device=dev)
+    hh, cmaps = halo_shard_hierarchy(hs0, mesh, **place)
+    out = {"placement": {}}
+
+    def levels(h, split):
+        return [(lvl.A.shape[0], bool(s)) for lvl, s in zip(h.levels, split)]
+
     for form in forms:
         if form == "a":
             op = dist_operator(A, mesh, dtype=f64)
@@ -228,29 +257,38 @@ def resident_forms(mesh, forms: str, emulate: bool) -> dict:
                                                      f64), mesh))
         elif form == "b":
             op = dist_dia_operator(A, mesh, dtype=f64)
-            M = AMGPrecond(shard_hierarchy(hs0, mesh, min_size=256))
+            hs = shard_hierarchy(hs0, mesh, **place)
+            M = AMGPrecond(hs)
+            out["placement"]["b"] = levels(hs, hs.sharded_levels)
         elif form == "c":
             op, M = hh.levels[0].A, AMGPrecond(hh)
+            out["placement"]["c"] = levels(
+                hh, [not c.replicated for c in cmaps])
         elif form == "d":
             hrs = setup_rs(A, AMGParam(smoother=13, polynomial_degree=2,
                                        coarse_dof=60), dtype=f64, device=dev)
-            hh2, _ = halo_shard_hierarchy(hrs, mesh, min_size=A.nrow // 2)
+            hh2, cm2 = halo_shard_hierarchy(hrs, mesh, min_size=A.nrow // 2)
             op, M = hh2.levels[0].A, AMGPrecond(hh2)
+            out["placement"]["d"] = levels(
+                hh2, [not c.replicated for c in cm2])
         if form == "e":
-            Ab = block_poisson_3d(8, nb=3)
+            Ab = block_poisson_3d(bsr_nx, nb=3)
             hb = replicate(setup_ua_bsr(Ab, AMGParam(AMG_type=3,
                                                      coarse_dof=30),
                                         dtype=f64), mesh)
-            opb = shard_block_rows(device_operator(Ab, dtype=f64), mesh)
+            op = shard_block_rows(device_operator(Ab, dtype=f64), mesh)
+            M = AMGPrecond(hb)
             bb = shard_vector(as_tensor(Ab.matvec(np.ones(Ab.nrow)), f64),
                               mesh)
             out[form] = _resident_and_eager(lambda: vfgmres(
-                opb, bb, M=AMGPrecond(hb), tol=1e-10, maxit=200,
-                restart=30), emulate)
-            continue
-        out[form] = _resident_and_eager(
-            lambda: pcg(op, bd, M=M, tol=1e-10, maxit=400), emulate)
-    if "c" in forms:
+                op, bb, M=M, **runs["e"]), emulate, arrays=not full)
+        else:
+            out[form] = _resident_and_eager(
+                lambda: pcg(op, bd, M=M, **runs[form]), emulate,
+                arrays=not full)
+        hold += [op, M]
+    hold += [hs0, hh]
+    if "c" in forms and not full:
         rec = cycle_comm_pattern(hh, mesh)
         with graphs.eager():
             rec_eager = cycle_comm_pattern(hh, mesh)
@@ -285,11 +323,12 @@ def _resident(emulate: bool):
     """Yields a :class:`_HostReadSpy` and the list of each loop's state
     block as the loop left it.  With ``emulate``, the resident path on
     gloo DTensors: ``graphs.active`` admits them (outside a piece, as
-    outside a capture), and ``graphs.Resident`` is a stand-in that runs
-    the warm-up and each launch as the device runs the graph (each If
-    and While decided by its region's flag, read without a counted host
-    read), every piece under the spy.  Without, the real path (the spy
-    watches nothing)."""
+    outside a capture), ``graphs.Resident`` is a stand-in that runs the
+    warm-up and each launch as the device runs the graph (each If and
+    While decided by its region's flag, read without a counted host
+    read), every piece under the spy, and ``graphs.Program`` one whose
+    replay runs the function again.  Each stand-in refuses to run once
+    destroyed.  Without, the real path (the spy watches nothing)."""
     from faspsolver_tpu_torch.utils import graphs, loops
     spy, blocks, inside = _HostReadSpy(), [], [False]
 
@@ -304,6 +343,7 @@ def _resident(emulate: bool):
 
     class Emulated:
         def __init__(self, tree, device, keep=()):
+            self.device = torch.device(device)
             saved = [k.clone() for k in keep]
             with piece():
                 for p in graphs._pieces(tree):
@@ -324,11 +364,31 @@ def _resident(emulate: bool):
                     else:
                         while int(item.reg.i[loops.I.CONT]):
                             run(item.body)
+            if self.tree is None:
+                raise RuntimeError("launching a released resident loop")
             run(self.tree)
             graphs.stats["replays"] += 1
 
         def account(self, vals):
             pass
+
+        def destroy(self):
+            self.tree = None
+
+    class Replayed:
+        def __init__(self, fn, device, keep=(), pool=None):
+            self.device = torch.device(device)
+            self.fn, self.out = fn, fn().clone()
+
+        def replay(self):
+            if self.fn is None:
+                raise RuntimeError("replaying a released program")
+            self.out.copy_(self.fn())
+            graphs.stats["replays"] += 1
+            return self.out
+
+        def destroy(self):
+            self.fn = None
 
     def paused(fn):
         def run(*args):
@@ -344,52 +404,76 @@ def _resident(emulate: bool):
         blocks.append(st.block.bytes.cpu().numpy())
         return vals
 
-    saved = (graphs.active, graphs.Resident, graphs.run_loop,
-             dict(loops.PLAIN))
+    saved = (graphs.active, graphs.Resident, graphs.Program,
+             graphs.run_loop, dict(loops.PLAIN))
     real_run = graphs.run_loop
     graphs.run_loop = run_loop
     if emulate:
         graphs.active = lambda x: (graphs._enabled and not inside[0]
                                    and isinstance(x, torch.Tensor))
-        graphs.Resident = Emulated
-        loops.PLAIN.update({k: paused(f) for k, f in saved[3].items()})
+        graphs.Resident, graphs.Program = Emulated, Replayed
+        loops.PLAIN.update({k: paused(f) for k, f in saved[4].items()})
     try:
         yield spy, blocks
     finally:
-        graphs.active, graphs.Resident, graphs.run_loop = saved[:3]
-        loops.PLAIN.update(saved[3])
+        (graphs.active, graphs.Resident, graphs.Program,
+         graphs.run_loop) = saved[:4]
+        loops.PLAIN.update(saved[4])
 
 
-def _resident_and_eager(solve, emulate: bool) -> dict:
+def _resident_and_eager(solve, emulate: bool, arrays: bool = True) -> dict:
     """``solve()`` on the resident path (``emulate``: see
-    :func:`_resident`) cold and warm, each with its program launches,
-    then as the eager loop: counts, host reads, x of each, the cold
-    solve's state block, what the spy saw in the pieces, and the graph
-    counters of the three runs."""
+    :func:`_resident`) cold and warm, each with its program launches and
+    seconds, then as the eager loop: counts, host reads, seconds, x of
+    each (with ``arrays``; else only each x's distance from the eager
+    loop's, relative to its norm), the cold solve's state block, what
+    the spy saw in the pieces, and the graph counters of the three
+    runs."""
+    import time
     from faspsolver_tpu_torch.utils import graphs
+
+    def sync():
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
     runs = []
     with _resident(emulate) as (spy, blocks):
         for eager in (False, False, True):
             before = dict(graphs.stats)
+            sync()
+            t0 = time.perf_counter()
             with graphs.eager() if eager else contextlib.nullcontext():
                 res = solve()
-            runs.append((res, {k: graphs.stats[k] - v
-                               for k, v in before.items()}))
-    (res, g), (warm, gw), (eager, _) = runs
-    return dict(resident=res.resident, syncs=res.syncs, it=res.iters,
-                launches=g["replays"], captures=g["captures"],
-                nodes_captured=g["nodes_captured"],
-                warm_resident=warm.resident, warm_syncs=warm.syncs,
-                warm_it=warm.iters, warm_launches=gw["replays"],
-                eager_resident=eager.resident, eager_syncs=eager.syncs,
-                eager_it=eager.iters, x=_host(res.x), warm_x=_host(warm.x),
-                eager_x=_host(eager.x), block=blocks[0],
-                host_reads=spy.reads, ops=spy.ops)
+            sync()
+            runs.append((res, time.perf_counter() - t0,
+                         {k: graphs.stats[k] - v
+                          for k, v in before.items()}))
+    (res, s, g), (warm, ws, gw), (eager, es, _) = runs
+    xs = {k: _host(r.x) for k, r in (("x", res), ("warm_x", warm),
+                                     ("eager_x", eager))}
+    ref = float(np.linalg.norm(xs["eager_x"]))
+    out = dict(resident=res.resident, syncs=res.syncs, it=res.iters,
+               launches=g["replays"], captures=g["captures"],
+               nodes_captured=g["nodes_captured"],
+               warm_resident=warm.resident, warm_syncs=warm.syncs,
+               warm_it=warm.iters, warm_launches=gw["replays"],
+               eager_resident=eager.resident, eager_syncs=eager.syncs,
+               eager_it=eager.iters, cold_s=s, warm_s=ws, eager_s=es,
+               x_diff=float(np.linalg.norm(xs["x"] - xs["eager_x"])) / ref,
+               warm_x_diff=float(np.linalg.norm(xs["warm_x"]
+                                                - xs["eager_x"])) / ref,
+               block=blocks[0], host_reads=spy.reads, ops=spy.ops)
+    if arrays:
+        out.update(xs)
+    return out
 
 
 def _rank_main(rank: int, ws: int, init: str, out_dir: str,
-               backend: str) -> None:
+               backend: str, full: bool) -> None:
     import datetime
+    import faulthandler
+    import time
+    from faspsolver_tpu_torch.parallel import make_mesh, teardown
     torch.set_num_threads(1)
     if backend == "nccl":
         torch.cuda.set_device(rank)
@@ -397,25 +481,34 @@ def _rank_main(rank: int, ws: int, init: str, out_dir: str,
                             world_size=ws,
                             timeout=datetime.timedelta(seconds=300))
     # a rank that raises exits without taking the group down: NCCL's
-    # teardown waits for the ranks still in a collective, and for the
-    # graphs that captured its collectives (freed first)
+    # teardown waits for the ranks still in a collective
+    hold = []                  # the modules, alive through the teardown
     if backend == "nccl":
-        from faspsolver_tpu_torch.parallel import make_mesh
-        out = resident_forms(make_mesh(ws), "abcde", emulate=False)
-        gc.collect()
-        torch.cuda.synchronize()
+        out = resident_forms(make_mesh(ws), "abcde", emulate=False,
+                             full=full, hold=hold)
     else:
         out = rank_results(ws)
+    # the graphs that captured the group's collectives are released, with
+    # their modules alive; a hang is a failure with a traceback
+    faulthandler.dump_traceback_later(120, exit=True)
+    t0 = time.perf_counter()
+    out["released"] = teardown()
+    out["teardown_s"] = time.perf_counter() - t0
+    faulthandler.cancel_dump_traceback_later()
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
-    dist.destroy_process_group()
+    del hold
 
 
-def spawn_ranks(ws: int, out_dir: str, backend: str = "gloo") -> list:
+def spawn_ranks(ws: int, out_dir: str, backend: str = "gloo",
+                full: bool = False) -> list:
     """Run :func:`rank_results` on ``ws`` gloo ranks on the CPU, or with
     ``backend="nccl"`` :func:`resident_forms` (a)-(e) on the real
-    resident path, one rank per card; every rank's results, by rank."""
+    resident path, one rank per card (``full``: at phase 13's size);
+    each rank then takes the group down through ``parallel.teardown``
+    with its modules alive (``released``: the programs it released,
+    ``teardown_s``).  Every rank's results, by rank."""
     import torch.multiprocessing as mp
     init = "file://" + os.path.join(tempfile.mkdtemp(dir=out_dir), "store")
-    mp.spawn(_rank_main, args=(ws, init, out_dir, backend), nprocs=ws)
+    mp.spawn(_rank_main, args=(ws, init, out_dir, backend, full), nprocs=ws)
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                        weights_only=False) for r in range(ws)]
