@@ -42,8 +42,9 @@ an H100's 50 MB L2).
 Prints lines of readings (each chain's raw best and spread), then ONE
 JSON line, last: ``metric``, ``value`` (setup_s + solve_s), ``unit``,
 ``vs_baseline`` and ``detail``, with bench.py's keys (``general_packed_mb``
-is ``general_device_mb`` here, and bench.py's ``fe_auto_warn`` pin is
-not ported) plus the port's counters: ``cold_solve_s``, ``host_syncs``
+is ``general_device_mb`` here; ``fe_auto_warn`` appears, as in bench.py,
+only when a full-size run on the card reads ``fe_auto_vs_baseline``
+below FE_AUTO_PIN) plus the port's counters: ``cold_solve_s``, ``host_syncs``
 (1 for a resident solve: the one read at its end), ``graph_captures``,
 ``graph_replays`` (program launches: 1 for a resident solve),
 ``graph_nodes_replayed``, ``stencil_launches`` (per dtype) and
@@ -79,6 +80,16 @@ TOL = 1e-6
 HEADLINE_REFINE = dict(tol=TOL, max_rounds=4, maxit_inner=40)
 GENERAL_REFINE = dict(tol=TOL, inner_tol=1e-4, inner_floor=1e-4,
                       max_rounds=6, maxit_inner=40)
+# bench.py's fe_auto pin (bench.py:370-376; 2.5 there, inside a band
+# measured on a TPU), measured again for the card: the lowest
+# fe_auto_vs_baseline of PIN_RUNS full-size runs less their spread (max -
+# min), from ``python tools/fe_auto_pin.py 8`` on PIN_CARD (torch
+# 2.11.0+cu128).  The runs' spread comes from the host setup (0.297-0.413
+# s of fe_auto_setup_s; the solve stays at 0.025-0.031 s), so the pin
+# flags a run whose total time is half again the slowest run's
+PIN_RUNS = (9.151, 8.342, 6.849, 8.473, 8.695, 8.035, 8.043, 8.954)
+PIN_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+FE_AUTO_PIN = round(min(PIN_RUNS) - (max(PIN_RUNS) - min(PIN_RUNS)), 3)
 
 
 def _marginal_us(timed_chain, k_lo: int = 1, k_hi: int = 8,
@@ -90,6 +101,16 @@ def _marginal_us(timed_chain, k_lo: int = 1, k_hi: int = 8,
     marg = (t_hi - t_lo) / (k_hi - k_lo)
     fixed = t_lo - marg * k_lo
     return marg * 1e6, max(fixed, 0.0) * 1e6
+
+
+def fe_auto_warning(reading: float):
+    """bench.py's ``fe_auto_warn``: the message when a reading of
+    ``fe_auto_vs_baseline`` falls below FE_AUTO_PIN, else None."""
+    if reading >= FE_AUTO_PIN:
+        return None
+    return (f"fe_auto_vs_baseline {reading} < {FE_AUTO_PIN} pin ({PIN_CARD} "
+            f"band {min(PIN_RUNS)}-{max(PIN_RUNS)} over {len(PIN_RUNS)} "
+            f"runs; investigate before shipping)")
 
 
 def resolve_device(device) -> torch.device:
@@ -446,17 +467,23 @@ def main(device=None, *, nx: int = NX, nh: int = NH, reps: int = REPS,
         a_run = refiner(hauto, **HEADLINE_REFINE)
         a_out, _, a_solve_s, a_verified, a_cnt = warm_and_time(
             device, a_run, Afe, bfe, "fe_auto")
+        fe_auto_vs = round(REF_TOTAL_S / (a_setup_s + a_solve_s), 3)
         general.update({
             "fe_auto_setup_s": round(a_setup_s, 4),
             "fe_auto_solve_s": round(a_solve_s, 4),
             "fe_auto_total_s": round(a_setup_s + a_solve_s, 4),
-            "fe_auto_vs_baseline": round(
-                REF_TOTAL_S / (a_setup_s + a_solve_s), 3),
+            "fe_auto_vs_baseline": fe_auto_vs,
             "fe_auto_inner_iters": int(a_out.iters),
             "fe_auto_relres_verified": a_verified,
             "fe_auto_converged": bool(a_verified < TOL),
             **{f"fe_auto_{k}": v for k, v in a_cnt.items()},
         })
+        # the pin is a band of full-size runs on the card: a CPU run or a
+        # cut size reads on another scale
+        warn = (fe_auto_warning(fe_auto_vs)
+                if device.type == "cuda" and nx == NX else None)
+        if warn:
+            general["fe_auto_warn"] = warn
         del a_run, hauto
     except Exception as e:  # noqa: BLE001 -- detail metric, never fatal
         general = {**general, "general_error": str(e)[:160]}

@@ -112,9 +112,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    each new operator and preconditioner on the card against the CPU;
 11. the benchmark harness, checkpoint and profiling, every call through
    the port's entry points with no device argument: (a) the six
-   generated rows (29,791 to 1,046,529 dof; the largest 3-D row at 63^3,
-   HARNESS_3D) as run_generated("amg") scores them in float64 (lMVU, a warm and a timed call of the whole
-   solver), x verified on the host, (b) the same in the f32 refined mode,
+   generated rows at the harness's own sizes (255^2 to 1023^2, 31^3 to
+   101^3: 29,791 to 1,046,529 dof) as run_generated("amg") scores them
+   in float64 (lMVU, a warm and a timed call of the whole solver), x
+   verified on the host, each row's setup, cold and warm solve seconds
+   and its GMRES solves' host reads and program launches printed (one
+   and one each), (b) the same in the f32 refined mode,
    (c) main(["--corpus"]) over the first ten corpus rows at 255^2 (all
    20 with --harness-only), each count held to the JAX package's CPU
    count or flagged as a reference anomaly;
@@ -237,6 +240,7 @@ checkout and exits non-zero when no CUDA device is available.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -529,18 +533,23 @@ MAXEIG_ANCHOR = 8303774.513804946
 # vGMRES restarts; the f32 mode's rounding); a row that
 # reference_anomalies() flags is printed as such and held only to
 # convergence and its verified relres.  None of these anchors is flagged.
-# The generated rows' 3-D sizes: the harness's largest, 101^3 (1,030,301
-# dof), took 24-28 s a timed call on the H100 beside its warm call, so
-# the run keeps to its time budget with 63^3 (250,047 dof) in its place
-HARNESS_3D = (31, 47, 63)
+# The generated rows are the harness's own sizes (generated_problems()'s
+# defaults, up to 101^3 = 1,030,301 dof); the 101^3 row alone, about 20
+# minutes a precision on a CPU, by
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f64 101
+#     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f32 101
+# f64 read 6 in each of three runs; f32 read 13 (relres 3.04e-11) in the
+# first of nine runs and 8 in the eight after, at 1, 4, 7 and 8 threads
+# (4 + 4 in two rounds, relres 1.42e-11, the stages the port takes on the
+# CPU and on the card; ROADMAP section 3)
 HARNESS_GEN_F64 = {
     "fdm2d-255x255": (6, ""), "fdm2d-511x511": (6, ""),
     "fdm2d-1023x1023": (6, ""), "fdm3d-31^3": (6, ""), "fdm3d-47^3": (6, ""),
-    "fdm3d-63^3": (6, "")}
+    "fdm3d-101^3": (6, "")}
 HARNESS_GEN_F32 = {
     "fdm2d-255x255": (8, ""), "fdm2d-511x511": (8, ""),
     "fdm2d-1023x1023": (9, ""), "fdm3d-31^3": (8, ""), "fdm3d-47^3": (8, ""),
-    "fdm3d-63^3": (8, "")}
+    "fdm3d-101^3": (8, "")}
 HARNESS_CORPUS_F64 = {
     "poisson2d": (6, ""), "poisson3d": (6, ""), "aniso-x-1e1": (5, ""),
     "aniso-x-1e2": (5, ""), "aniso-x-1e3": (4, ""), "aniso-y-1e1": (5, ""),
@@ -2282,33 +2291,56 @@ def krylov_solves(torch, kind):
     point called it) is recorded: whether it ran resident
     (``SolveResult.resident``), whether A and M declare themselves
     capturable on a vector that replays graphs (``graphs.active``), its
-    host reads, its program launches and iterations.
+    host reads, its program launches, iterations, its seconds from a
+    synchronised start (``enter`` on ``time.perf_counter()``, ``s``) and
+    the captures it made.  The newest record also holds ``again``, which
+    runs that solve once more and returns its seconds and captures (a
+    check, not the path: its launches are taken back off).
     The first resident one also runs once more as the eager loop
     (``graphs.eager()``; its launches are not the path's, its seconds
     are in the phase's), whose count and x it is held to
     (:func:`check_krylov_resident`)."""
     import faspsolver_tpu_torch.krylov  # noqa: F401  (loads the module)
     from faspsolver_tpu_torch.krylov.common import resolve_precond
-    from faspsolver_tpu_torch.utils import graphs
+    from faspsolver_tpu_torch.ops import stencil2d
+    from faspsolver_tpu_torch.utils import graphs, loops
     mod = sys.modules[KRYLOV_LOOPS[kind][0]]
     name = KRYLOV_LOOPS[kind][1]
     real = getattr(mod, name)
     seen = []
 
+    def timed(*args, **kw):
+        sync(torch, args[1].device)
+        caps, t = graphs.stats["captures"], time.perf_counter()
+        out = real(*args, **kw)
+        return out, t, time.perf_counter() - t, graphs.stats["captures"] - caps
+
+    def again(*args, **kw):
+        # a check, not the path: its launches are taken back off
+        saved = [dict(stencil2d.launches), dict(loops.launches)]
+        _, _, s, caps = timed(*args, **kw)
+        stencil2d.launches.update(saved[0])
+        loops.launches.update(saved[1])
+        return s, caps
+
     def spy(A, b, x0, M, tol, abstol, maxit, restart, *args, **kw):
         before = graphs.stats["replays"]
-        out = real(A, b, x0, M, tol, abstol, maxit, restart, *args, **kw)
+        out, t, s, caps = timed(A, b, x0, M, tol, abstol, maxit, restart,
+                                *args, **kw)
         resident = out.resident
         rec = {"resident": resident, "syncs": out.syncs,
                "capturable": graphs.active(b) and graphs.capturable(A)
                and graphs.capturable(resolve_precond(M)),
                "launches": graphs.stats["replays"] - before,
                "iters": out.iters, "n": int(b.shape[0]),
-               "dtype": str(b.dtype).replace("torch.", "")}
+               "dtype": str(b.dtype).replace("torch.", ""),
+               "enter": t, "s": s, "captures": caps,
+               "again": functools.partial(again, A, b, x0, M, tol, abstol,
+                                          maxit, restart, *args, **kw)}
+        if seen:                # only the newest solve is kept for a rerun
+            seen[-1].pop("again", None)
         if resident and not any("eager_iters" in r for r in seen):
             # a check, not the path: its launches are taken back off
-            from faspsolver_tpu_torch.ops import stencil2d
-            from faspsolver_tpu_torch.utils import loops
             saved = [dict(stencil2d.launches), dict(loops.launches)]
             with graphs.eager():
                 e = real(A, b, x0, M, tol, abstol, maxit, restart, *args,
@@ -2328,6 +2360,8 @@ def krylov_solves(torch, kind):
         yield seen
     finally:
         setattr(mod, name, real)
+        if seen:
+            seen[-1].pop("again", None)
 
 
 def graph_growth(before):
@@ -3839,61 +3873,106 @@ def hold_to_anchor(name, iters, anchors):
           f"{name}: {iters} iterations within {bound} of JAX {ref}")
 
 
-def harness_generated(torch, device, dtype, anchors):
+def harness_generated(torch, device, dtype, anchors, seen):
     """11a / 11b: what ``run_generated("amg")`` does, row by row, with no
     device argument: lMVU, the solver, ``score_problem`` on each of the
-    six generated rows; the timed call's result is kept and verified on
-    the host in f64."""
+    six generated rows at the harness's own sizes (up to 1023^2 and
+    101^3); the timed call's result is kept and verified on the host in
+    f64.  Each row also prints its setup s (the timed call up to its
+    first GMRES solve), its first GMRES solve's s (cold: it captures)
+    and a rerun of its last one (warm: on the card a replay, which must
+    capture nothing), all read from the GMRES-family solves ``seen``
+    recorded (:func:`gmres_solves`), with their host reads and program
+    launches, and the kernels' launches of the path.  The f32 rows
+    print their refinement stages (:func:`refined_stages`) and must
+    take JAX's branch of the f32 ladder (the anchor's flag)."""
+    import io
+
     import numpy as np
+    from faspsolver_tpu_torch import krylov, solvers
     from faspsolver_tpu_torch.benchmark import harness
-    from faspsolver_tpu_torch.ops import stencil2d
     dev = device_arg(torch, device)
     harness._print_platform(dtype, dev)
     lmvu = harness.compute_lmvu(dtype=dtype, device=dev)
     print(f"  lMVU = {lmvu:.6e} s/row/iter")
-    solver = harness._solver_factory("amg", dtype, dev)
-    kept = {}
+    with refined_stages(krylov, solvers) as stages:
+        solver = harness._solver_factory("amg", dtype, dev)
+        kept = {}
 
-    def keep(A, b):
-        kept["out"] = solver(A, b)
-        return kept["out"]
+        def keep(A, b):
+            kept["stage"], kept["mark"] = len(stages), len(seen)
+            kept["t0"] = time.perf_counter()
+            kept["out"] = solver(A, b)
+            return kept["out"]
 
-    rows = harness.generated_problems(sizes_3d=HARNESS_3D)
-    check([n for n, _, _ in rows] == list(anchors),
-          f"the generated rows are the anchored ones: {list(anchors)}")
-    counts = {"float32": 0, "float64": 0, "loop_control": 0,
-              "gmres": 0, "mg": 0, "gcr": 0}
-    readings = {"lmvu": lmvu}
-    for name, A, b in rows:
-        reset_counts()
-        r = harness.score_problem(name, A, b, keep, lmvu)
-        launches = launch_counts()
-        out = kept["out"]
-        if isinstance(out.x, torch.Tensor):
-            check(out.x.device.type == torch.device(device).type,
-                  f"{name}: x lay on {device}")
-            x = out.x.cpu().numpy()
-        else:                  # the refined mode hands x back on the host
-            x = out.x
-        x = np.asarray(x, dtype=np.float64)
-        check(x.shape == (A.nrow,) and bool(np.isfinite(x).all()),
-              f"{name}: finite x of the expected shape")
-        relres = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
-        print(f"  {name:16s} n={r.n:8d} nnz={r.nnz:9d} iterations "
-              f"{r.iters:4d} (JAX {anchors[name][0]}), solve {r.solve_s:.3f} "
-              f"s, score {r.score:.1f}, own relres {float(out.relres):.3e}, "
-              f"verified f64 relres {relres:.3e}, stencil launches "
-              f"{launches}")
-        check(r.converged and float(out.relres) < HARNESS_TOL
-              and relres < TOL,
-              f"{name}: converged, own relres {out.relres} < {HARNESS_TOL}, "
-              f"verified {relres} < {TOL}")
-        hold_to_anchor(name, r.iters, anchors)
-        for k in counts:
-            counts[k] += launches.get(k, 0)
-        readings[name] = {"n": r.n, "nnz": r.nnz, "iters": r.iters,
-                          "solve_s": r.solve_s, "score": r.score,
-                          "relres": relres, "launches": launches}
+        rows = harness.generated_problems()
+        check([n for n, _, _ in rows] == list(anchors),
+              f"the generated rows are the anchored ones: {list(anchors)}")
+        counts = {"float32": 0, "float64": 0, "loop_control": 0,
+                  "gmres": 0, "mg": 0, "gcr": 0}
+        readings = {"lmvu": lmvu}
+        for name, A, b in rows:
+            reset_counts()
+            mark = len(seen)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                r = harness.score_problem(name, A, b, keep, lmvu)
+            launches = launch_counts()
+            calls = seen[kept["mark"]:]         # the timed call's solves
+            setup_s = calls[0]["enter"] - kept["t0"]
+            cold = calls[0]
+            warm_s, warm_caps = seen[-1].pop("again")()
+            said = buf.getvalue().strip()
+            flag = ("escalate" if "f64 escalation" in said else
+                    "rescue" if "diagscaled-inner" in said else "")
+            out = kept.pop("out")
+            if isinstance(out.x, torch.Tensor):
+                check(out.x.device.type == torch.device(device).type,
+                      f"{name}: x lay on {device}")
+                x = out.x.cpu().numpy()
+            else:                  # the refined mode hands x back on the host
+                x = out.x
+            x = np.asarray(x, dtype=np.float64)
+            check(x.shape == (A.nrow,) and bool(np.isfinite(x).all()),
+                  f"{name}: finite x of the expected shape")
+            relres = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
+            mine = seen[mark:]
+            res = [s for s in mine if s["resident"]]
+            reads = sorted({s["syncs"] for s in res})
+            progs = sorted({s["launches"] for s in res})
+            ref, ref_flag = anchors[name]
+            print(f"  {name:16s} n={r.n:8d} nnz={r.nnz:9d} iterations "
+                  f"{r.iters:4d} (JAX {ref}{', ' + ref_flag if ref_flag else ''}"
+                  f"), timed call {r.solve_s:.3f} s (setup {setup_s:.3f} s, "
+                  f"{len(calls)} GMRES solves, the first cold {cold['s']:.4f} s "
+                  f"with {cold['captures']} captures, the last rerun warm "
+                  f"{warm_s:.4f} s with {warm_caps}), score {r.score:.1f}, own "
+                  f"relres {float(out.relres):.3e}, verified f64 relres "
+                  f"{relres:.3e}; {len(mine)} GMRES-family solves, {len(res)} "
+                  f"resident, host reads {reads}, program launches {progs}; "
+                  f"launches {launches}")
+            if said:
+                print(f"    said {said!r}")
+            print_stages(stages[kept["stage"]:])
+            check(r.converged and float(out.relres) < HARNESS_TOL
+                  and relres < TOL,
+                  f"{name}: converged, own relres {out.relres} < {HARNESS_TOL}, "
+                  f"verified {relres} < {TOL}")
+            if torch.device(device).type == "cuda":
+                check(warm_caps == 0, f"{name}: the rerun a replay")
+            check(flag == ref_flag, f"{name}: the f32 ladder's branch "
+                                    f"{flag!r} is JAX's {ref_flag!r}")
+            hold_to_anchor(name, r.iters, anchors)
+            for k in counts:
+                counts[k] += launches.get(k, 0)
+            readings[name] = {"n": r.n, "nnz": r.nnz, "iters": r.iters,
+                               "solve_s": r.solve_s, "setup_s": setup_s,
+                               "cold_solve_s": cold["s"], "warm_solve_s": warm_s,
+                               "score": r.score, "relres": relres,
+                               "said": said, "host_reads": reads,
+                               "stages": stages[kept["stage"]:],
+                               "program_launches": progs,
+                               "launches": launches}
     return counts, readings
 
 
@@ -4207,8 +4286,9 @@ def profile_harness_row(torch, device, tmp):
             "iters": res.iters}
 
 
-def harness_path(torch, device, corpus_rows=None):
-    """Phase 11, with the first ``corpus_rows`` corpus rows (None: all).
+def harness_path(torch, device, seen, corpus_rows=None):
+    """Phase 11, with the first ``corpus_rows`` corpus rows (None: all);
+    ``seen`` records its GMRES-family solves (:func:`gmres_solves`).
     Returns the stencil launches of its runs and the readings."""
     import shutil
     import tempfile
@@ -4223,11 +4303,11 @@ def harness_path(torch, device, corpus_rows=None):
     readings = {}
     print("  (a) generated rows, f64")
     c, readings["gen_f64"] = harness_generated(torch, device, torch.float64,
-                                               HARNESS_GEN_F64)
+                                               HARNESS_GEN_F64, seen)
     add(c)
     print("  (b) generated rows, the f32 refined mode")
     c, readings["gen_f32"] = harness_generated(torch, device, torch.float32,
-                                               HARNESS_GEN_F32)
+                                               HARNESS_GEN_F32, seen)
     add(c)
     print(f"  (c) main(['--corpus']), {corpus_rows or 'all'} rows")
     c, readings["corpus"] = harness_corpus(torch, device, corpus_rows)
@@ -5065,7 +5145,7 @@ def main(argv) -> int:
         banner("11. main path: the benchmark harness, checkpoint and "
               "profiling")
         with gmres_solves(torch) as seen:
-            harness_path(torch, device)
+            harness_path(torch, device, seen)
         check_gmres_resident(torch, device, 11, seen)
         print("stopped after phase 11 (--harness-only)")
         return 0
@@ -5153,8 +5233,8 @@ def main(argv) -> int:
     # the whole run keeps to its time budget with ten corpus rows;
     # --harness-only runs all twenty
     with gmres_solves(torch) as seen:
-        counts["harness"], res["harness"] = harness_path(torch, device,
-                                                         corpus_rows=10)
+        counts["harness"], res["harness"] = harness_path(
+            torch, device, seen, corpus_rows=10)
     check_gmres_resident(torch, device, 11, seen)
     banner("12. main path: the regression runner")
     with gmres_solves(torch) as seen, mg_solves(torch) as mg_seen, \

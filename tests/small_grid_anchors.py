@@ -15,6 +15,7 @@ anchors the port is held to on the card).
     python tests/small_grid_anchors.py matfree 1e-13 cuda   # on the card
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f64
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f32
+    JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness gen f64 101
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py harness corpus f64
     JAX_PLATFORMS=cpu python tests/small_grid_anchors.py fallbacks
     python tests/small_grid_anchors.py fallbacks port 2
@@ -44,7 +45,9 @@ at nx^2, BSR on ``bsr_problem()``).  ``matfree <tol>`` prints
 ``MATFREE_GRID``'s counts at ``tol`` through both packages on the CPU,
 ``matfree <tol> cuda`` the port's on the CUDA device without JAX.
 ``harness gen|corpus f64|f32`` runs the JAX package's benchmark harness
-(phase 11's anchors) and imports nothing of the port.  ``fallbacks``
+(phase 11's anchors) and imports nothing of the port; ``harness gen f64
+<n> ...`` only its 3-D rows at those sizes (``101`` the 1,030,301-dof
+row, some 20 minutes a precision).  ``fallbacks``
 runs the JAX package's f32 refined mode on ``chip_smoke.FALLBACK_CASES``
 (phase 11f's ``FALLBACK_ANCHORS``, with each stage's rounds and inner
 solves); ``fallbacks port [threads]`` the port's on the CPU, without
@@ -373,29 +376,37 @@ def jax_refined(A, b, amg_fields: dict):
                          **chip_smoke.REFINED)
 
 
-def _harness(kind: str, precision: str):
+def _harness(kind: str, precision: str, sizes_3d=()):
     """The JAX package's own harness functions on the CPU, one solve per
-    row: ``gen`` over ``generated_problems()`` at chip_smoke's 3-D
-    sizes (``HARNESS_3D``), ``corpus`` over
+    row: ``gen`` over ``generated_problems()`` at its default sizes (with
+    ``sizes_3d``, only the 3-D rows of those sizes), ``corpus`` over
     ``corpus_problems(255)``, with ``_solver_factory("amg")`` in f64 (x64
     on) or its f32 refined mode (x64 off).  Prints each row's iterations
-    and whether the f32 ladder rescued or escalated it, then the table
+    and whether the f32 ladder rescued or escalated it (in f32 with its
+    refinement stages, ``chip_smoke.refined_stages``), then the table
     chip_smoke.py holds the port to."""
     import contextlib
     import io
 
     import jax
     jax.config.update("jax_enable_x64", precision == "f64")
+    import faspsolver_tpu.krylov as krylov
+    import faspsolver_tpu.solvers as solvers
     from faspsolver_tpu.benchmark.harness import (_solver_factory,
                                                   corpus_problems,
                                                   generated_problems)
-    rows = (generated_problems(sizes_3d=chip_smoke.HARNESS_3D)
-            if kind == "gen" else corpus_problems(255))
+    if kind != "gen":
+        rows = corpus_problems(255)
+    elif sizes_3d:
+        rows = generated_problems(sizes_2d=(), sizes_3d=sizes_3d)
+    else:
+        rows = generated_problems()
     table = {}
     for name, A, b in rows:
         t0 = time.perf_counter()
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+        with chip_smoke.refined_stages(krylov, solvers) as stages, \
+                contextlib.redirect_stdout(buf):
             res = _solver_factory("amg")(A, b)     # a new closure per row
         said = buf.getvalue()
         flag = ("escalate" if "f64 escalation" in said else
@@ -407,6 +418,7 @@ def _harness(kind: str, precision: str):
               f"converged={bool(res.converged)} relres={relres:.3e} "
               f"{flag or '-'} ({time.perf_counter() - t0:.1f} s) "
               f"{said.strip()}", flush=True)
+        chip_smoke.print_stages(stages)
     print(f"HARNESS_{kind.upper()}_{precision.upper()} = {table!r}")
     print("reference anomalies:", chip_smoke.reference_anomalies(table))
 
@@ -653,7 +665,8 @@ def _main(argv):
         _matfree(float(argv[1]), "cuda")        # the port alone, no JAX
         return
     if argv[:1] == ["harness"]:
-        _harness(argv[1], argv[2])              # the JAX package alone
+        _harness(argv[1], argv[2],              # the JAX package alone
+                 tuple(int(n) for n in argv[3:]))
         return
     if argv[:2] == ["fallbacks", "port"]:
         _fallbacks_port(int(argv[2]) if argv[2:] else None)   # no JAX

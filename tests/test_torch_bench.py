@@ -57,7 +57,8 @@ BENCH_KEYS = {
     "spe01_converged",
 }
 # the port's counterparts: the hierarchy's device bytes for the packed
-# buffers' (packing is not ported, nor its setup phase), no fe_auto pin
+# buffers' (packing is not ported, nor its setup phase); fe_auto_warn
+# only from a full-size run on the card below its pin, never here
 RENAMED = {"general_packed_mb": "general_device_mb"}
 DROPPED = {"general_pack_s", "fe_auto_warn"}
 COUNTERS = {"cold_solve_s", "host_syncs", "graph_captures", "graph_replays",
@@ -193,6 +194,24 @@ def test_marginal_time_is_bench_py_s():
 
     assert bench_torch._marginal_us(chain(), reps=10, tries=2) == \
         bench._marginal_us(chain(), reps=10, tries=2)
+
+
+@pytest.mark.parametrize("above", [0.0, 0.001, 1.0, 100.0])
+def test_fe_auto_warning_is_none_at_or_above_the_pin(above):
+    assert bench_torch.fe_auto_warning(
+        round(bench_torch.FE_AUTO_PIN + above, 3)) is None
+
+
+@pytest.mark.parametrize("below", [0.001, 1.0])
+def test_fe_auto_warning_below_the_pin_says_bench_py_s_message(below):
+    """bench.py's form: the reading, the pin, the band it came from and
+    what to do, with the card's name for STATUS's band."""
+    pin, runs = bench_torch.FE_AUTO_PIN, bench_torch.PIN_RUNS
+    reading = round(pin - below, 3)
+    assert bench_torch.fe_auto_warning(reading) == (
+        f"fe_auto_vs_baseline {reading} < {pin} pin "
+        f"({bench_torch.PIN_CARD} band {min(runs)}-{max(runs)} over "
+        f"{len(runs)} runs; investigate before shipping)")
 
 
 def test_card_checks_name_each_fault(run):
